@@ -1,0 +1,148 @@
+// Montgomery field arithmetic shared by the field and NTT kernels.
+//
+// Interchange layout (the JAX package's): limbs-first (16, n) int32 planes,
+// 16-bit limbs, little-endian limb order, Montgomery form with R = 2^256.
+// Inside a thread an element is 8 packed 32-bit words, so one product is an
+// 8-word CIOS Montgomery multiply on 32x32->64-bit products instead of the
+// TPU's 16x16-bit schoolbook plus REDC. Same R, so the same canonical output.
+//
+// The modulus p (8 words) and n' = -p^-1 mod 2^32 arrive as a kernel
+// argument built from the caller's FieldSpec; nothing here is BN254-specific
+// beyond the width (p < 2^255, so 2p fits in 8 words).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace stark {
+
+constexpr int NW = 8;      // 32-bit words per element
+constexpr int LIMBS = 16;  // 16-bit limbs per element in the planes
+
+struct Field {
+  uint32_t p[NW];
+  uint32_t np;  // -p^-1 mod 2^32
+};
+
+// Host helper: copy the C-ABI modulus words into a by-value kernel argument.
+inline Field make_field(const uint32_t* p_words, uint32_t np) {
+  Field f;
+  for (int i = 0; i < NW; ++i) f.p[i] = p_words[i];
+  f.np = np;
+  return f;
+}
+
+// Element `col` of a (16, n) plane -> 8 packed words.
+__device__ __forceinline__ void load_elem(const int32_t* __restrict__ planes,
+                                          int64_t n, int64_t col,
+                                          uint32_t w[NW]) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint32_t lo = static_cast<uint32_t>(planes[(2 * i) * n + col]);
+    uint32_t hi = static_cast<uint32_t>(planes[(2 * i + 1) * n + col]);
+    w[i] = (lo & 0xFFFFu) | (hi << 16);
+  }
+}
+
+__device__ __forceinline__ void store_elem(int32_t* __restrict__ planes,
+                                           int64_t n, int64_t col,
+                                           const uint32_t w[NW]) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    planes[(2 * i) * n + col] = static_cast<int32_t>(w[i] & 0xFFFFu);
+    planes[(2 * i + 1) * n + col] = static_cast<int32_t>(w[i] >> 16);
+  }
+}
+
+// r = a - p if a (with `top` as bit 256) is >= p, else a.
+__device__ __forceinline__ void cond_sub_p(const Field& f, uint32_t top,
+                                           uint32_t a[NW]) {
+  uint32_t d[NW];
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t t = static_cast<uint64_t>(a[i]) - f.p[i] - borrow;
+    d[i] = static_cast<uint32_t>(t);
+    borrow = (t >> 32) & 1u;
+  }
+  // a >= p exactly when the subtraction did not borrow past bit 256, or
+  // the value had a 257th bit to borrow from.
+  bool ge = (borrow == 0) || (top != 0);
+#pragma unroll
+  for (int i = 0; i < NW; ++i) a[i] = ge ? d[i] : a[i];
+}
+
+// Montgomery product r = a*b*2^-256 mod p (CIOS). Valid for a*b < 2^256*p,
+// which covers a, b < p and the transcript's a < 2^256, b < p embedding;
+// the result is canonical.
+__device__ __forceinline__ void mont_mul(const Field& f, const uint32_t a[NW],
+                                         const uint32_t b[NW], uint32_t r[NW]) {
+  uint32_t t[NW + 2];
+#pragma unroll
+  for (int i = 0; i < NW + 2; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      uint64_t s = static_cast<uint64_t>(a[j]) * b[i] + t[j] + c;
+      t[j] = static_cast<uint32_t>(s);
+      c = s >> 32;
+    }
+    uint64_t s = static_cast<uint64_t>(t[NW]) + c;
+    t[NW] = static_cast<uint32_t>(s);
+    t[NW + 1] = static_cast<uint32_t>(s >> 32);
+
+    uint32_t m = t[0] * f.np;
+    s = static_cast<uint64_t>(m) * f.p[0] + t[0];
+    c = s >> 32;
+#pragma unroll
+    for (int j = 1; j < NW; ++j) {
+      s = static_cast<uint64_t>(m) * f.p[j] + t[j] + c;
+      t[j - 1] = static_cast<uint32_t>(s);
+      c = s >> 32;
+    }
+    s = static_cast<uint64_t>(t[NW]) + c;
+    t[NW - 1] = static_cast<uint32_t>(s);
+    t[NW] = t[NW + 1] + static_cast<uint32_t>(s >> 32);
+  }
+#pragma unroll
+  for (int i = 0; i < NW; ++i) r[i] = t[i];
+  cond_sub_p(f, t[NW], r);
+}
+
+// (a + b) mod p for a, b < p.
+__device__ __forceinline__ void mod_add(const Field& f, const uint32_t a[NW],
+                                        const uint32_t b[NW], uint32_t r[NW]) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t s = static_cast<uint64_t>(a[i]) + b[i] + c;
+    r[i] = static_cast<uint32_t>(s);
+    c = s >> 32;
+  }
+  cond_sub_p(f, static_cast<uint32_t>(c), r);
+}
+
+// (a - b) mod p for a, b < p: subtract, and add p back on a borrow.
+__device__ __forceinline__ void mod_sub(const Field& f, const uint32_t a[NW],
+                                        const uint32_t b[NW], uint32_t r[NW]) {
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t t = static_cast<uint64_t>(a[i]) - b[i] - borrow;
+    r[i] = static_cast<uint32_t>(t);
+    borrow = (t >> 32) & 1u;
+  }
+  if (borrow) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      uint64_t s = static_cast<uint64_t>(r[i]) + f.p[i] + c;
+      r[i] = static_cast<uint32_t>(s);
+      c = s >> 32;
+    }
+  }
+}
+
+}  // namespace stark

@@ -1,0 +1,215 @@
+"""FRI low-degree proofs (4x folding, 40 queries a round, direct check at 16).
+
+Counterpart of `stark_tpu/fri/fri.py`: the radix-4 inverse-DFT fold
+(`_fold_j :163-190`), the recursion with every challenge derived on the
+device (`_fri_chain_j :244`, `prove_low_degree_pending :304`), host
+assembly (`assemble_fri :395`) and the host verifier
+(`verify_low_degree_proof :417`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from stark_tpu.fields.field import FieldSpec
+from stark_tpu.protocol import transcript as ts
+from stark_tpu.utils import poly_host as ph
+from stark_tpu_torch.merkle import tree as mt
+from stark_tpu_torch.ops import modmath as mm
+from stark_tpu_torch.protocol import device_transcript as dt
+from stark_tpu_torch.protocol.core import leaves_to_words
+
+MIN_DEG_DIRECT_CHECKING = 16
+QUERIES_PER_ROUND = 40
+
+
+@dataclass
+class FriLast:
+    last: list[bytes]  # 32-byte LE field elements (all values of the domain)
+
+
+@dataclass
+class FriMiddle:
+    root2: bytes
+    column_branches: list[mt.MerkleProof]
+    poly_branches: list[mt.MerkleProof]
+
+
+def fold(spec: FieldSpec, values, xs, sx):
+    """The 4x fold at special_x. The row points are a coset of the 4th
+    roots of unity, x_j = x * I^j with I = g^(n/4), so the degree-3
+    interpolation is an exact radix-4 inverse DFT:
+        p(sx) = (1/4) * sum_k u_k t^k,  u_k = sum_j v_j I^(-jk),
+        t = sx * x^-1,
+    with x_i^-1 = xs[(n - i) mod n]. values, xs: (L, n); sx: (L, 1)."""
+    L, n = values.shape
+    quarter = n // 4
+    v0, v1, v2, v3 = (values[:, j * quarter : (j + 1) * quarter] for j in range(4))
+    i_root = xs[:, quarter : quarter + 1]  # I = g^(n/4)
+    a = mm.madd(spec, v0, v2)
+    b = mm.madd(spec, v1, v3)
+    c = mm.msub(spec, v0, v2)
+    e = mm.mmul(spec, i_root, mm.msub(spec, v3, v1))
+    u0 = mm.madd(spec, a, b)
+    u2 = mm.msub(spec, a, b)
+    u1 = mm.madd(spec, c, e)
+    u3 = mm.msub(spec, c, e)
+    xinv = torch.cat([xs[:, :1], xs[:, n - quarter + 1 :].flip(1)], dim=1)
+    t = mm.mmul(spec, sx, xinv)
+    acc = mm.madd(spec, mm.mmul(spec, u3, t), u2)
+    acc = mm.madd(spec, mm.mmul(spec, acc, t), u1)
+    acc = mm.madd(spec, mm.mmul(spec, acc, t), u0)
+    inv4 = mm.mont_const(spec, pow(4, spec.p - 2, spec.p), values.device)
+    return mm.mmul(spec, inv4, acc)
+
+
+def n_rounds(max_deg_plus_1: int, cutoff: int = MIN_DEG_DIRECT_CHECKING) -> int:
+    r = 0
+    while max_deg_plus_1 > cutoff:
+        r += 1
+        max_deg_plus_1 //= 4
+    return r
+
+
+def prove_low_degree_pending(spec: FieldSpec, values, xs_full, max_deg_plus_1: int,
+                             exclude_multiples_of: int, first_tree: mt.DeviceMerkleTree):
+    """The whole FRI recursion, enqueued without a host sync. `first_tree`
+    is the caller's tree over `values` with 32-byte leaves (the prover's
+    l-tree; the reference recommits identical content). Returns the
+    pending record whose `device_arrays` the caller materializes with the
+    rest of the proof: per round (root2, col_flat, val_flat), then the
+    direct-check `last` words."""
+    rounds = n_rounds(max_deg_plus_1)
+    values, xs = values, xs_full
+    words, layers = first_tree.leaf_words, first_tree.layers
+    outs = []
+    for _ in range(rounds):
+        quarter = values.shape[1] // 4
+        sx = dt.digest_le_int_mont(spec, layers[-1][:, 0])
+        column = fold(spec, values, xs, sx)
+        c_words = leaves_to_words(spec, [column])
+        c_layers = mt.build_layers(c_words, 32)
+        root2_w = c_layers[-1][:, 0]
+        ys = dt.pseudorandom_indices(root2_w, quarter, QUERIES_PER_ROUND,
+                                     exclude_multiples_of)
+        poly_positions = (
+            ys[:, None] + quarter * torch.arange(4, device=ys.device)[None, :]
+        ).reshape(-1)
+        val_flat = mt.gather_flat(words, layers[:-1], poly_positions)
+        col_flat = mt.gather_flat(c_words, c_layers[:-1], ys)
+        outs.extend([root2_w, col_flat, val_flat])
+        values, words, layers = column, c_words, c_layers
+        xs = xs[:, ::4].contiguous()
+    outs.append(leaves_to_words(spec, [values])[:8])
+    return {"device_arrays": outs, "n_rounds": rounds}
+
+
+def materialize_u32(arrs) -> list[np.ndarray]:
+    """Move many int32 device tensors to the host in ONE transfer, as uint32."""
+    cat = torch.cat([a.reshape(-1).to(torch.int32) for a in arrs])
+    big = cat.cpu().numpy().view(np.uint32)
+    out, off = [], 0
+    for a in arrs:
+        size = a.numel()
+        out.append(big[off : off + size].reshape(tuple(a.shape)))
+        off += size
+    return out
+
+
+def _branches_from_flat(flat: np.ndarray, leaf_bytes: int, k: int):
+    W = ((leaf_bytes + 3) // 4 + 15) // 16 * 16  # block-padded leaf words
+    flat = flat.astype("<u4")
+    depth = (flat.shape[0] - W) // 8
+    return [
+        mt.MerkleProof(
+            flat[:W, j].tobytes()[:leaf_bytes],
+            [flat[W + 8 * d : W + 8 * (d + 1), j].tobytes() for d in range(depth)],
+        )
+        for j in range(k)
+    ]
+
+
+def assemble_fri(spec: FieldSpec, pending, flats) -> list:
+    """Host-side formatting of the materialized FRI arrays."""
+    proof: list = []
+    i = 0
+    for _ in range(pending["n_rounds"]):
+        root2_w, col_flat, val_flat = flats[i], flats[i + 1], flats[i + 2]
+        i += 3
+        proof.append(
+            FriMiddle(
+                root2_w.astype("<u4").tobytes(),
+                _branches_from_flat(col_flat, 32, QUERIES_PER_ROUND),
+                _branches_from_flat(val_flat, 32, 4 * QUERIES_PER_ROUND),
+            )
+        )
+    last_words = flats[i].astype("<u4")
+    proof.append(FriLast([last_words[:, j].tobytes() for j in range(last_words.shape[1])]))
+    return proof
+
+
+def verify_low_degree_proof(spec: FieldSpec, merkle_root: bytes, root_of_unity: int,
+                            proof, max_deg_plus_1: int, exclude_multiples_of: int,
+                            device) -> bool:
+    """Host FRI verification (`fri.rs:226-404`); raises on failure. The
+    last round's Merkle root is recomputed with the device tree."""
+    p = spec.p
+    rou_deg = 1
+    test_val = root_of_unity
+    while test_val != 1:
+        rou_deg *= 2
+        test_val = test_val * test_val % p
+
+    def quartic_roots(root, deg):
+        return [1, pow(root, deg // 4, p), pow(root, deg // 2, p), pow(root, deg * 3 // 4, p)]
+
+    roots4 = quartic_roots(root_of_unity, rou_deg)
+    for prf in proof[:-1]:
+        if not isinstance(prf, FriMiddle):
+            raise ValueError("FRI proofs must be Middle except the last element")
+        special_x = spec.from_bytes_le(merkle_root)
+        ys = ts.get_pseudorandom_indices(
+            prf.root2, rou_deg // 4, QUERIES_PER_ROUND, exclude_multiples_of
+        )
+        poly_positions = [j * (rou_deg // 4) + y for y in ys for j in range(4)]
+        column_values = mt.verify_multi_branch(prf.root2, ys, prf.column_branches)
+        poly_values = mt.verify_multi_branch(merkle_root, poly_positions, prf.poly_branches)
+        for i, y in enumerate(ys):
+            x1 = pow(root_of_unity, y, p)
+            xs4 = [q * x1 % p for q in roots4]
+            row = [spec.from_bytes_le(poly_values[i * 4 + j]) for j in range(4)]
+            col = spec.from_bytes_le(column_values[i])
+            poly = ph.lagrange_interp(spec, xs4, row)
+            if ph.eval_quartic(spec, poly, special_x) != col:
+                raise ValueError("FRI row/column mismatch")
+        merkle_root = prf.root2
+        root_of_unity = pow(root_of_unity, 4, p)
+        max_deg_plus_1 //= 4
+        rou_deg //= 4
+        roots4 = quartic_roots(root_of_unity, rou_deg)
+
+    if max_deg_plus_1 < MIN_DEG_DIRECT_CHECKING // 2:
+        raise ValueError("the degree of direct checking is too low")
+    last = proof[-1]
+    if not isinstance(last, FriLast):
+        raise ValueError("the last element of FRI proofs must be Last")
+    data = last.last
+    if len(data) <= max_deg_plus_1:
+        raise ValueError("last data too short")
+    decoded = [spec.from_bytes_le(v) for v in data]
+    if mt.commit_root(list(data), device) != merkle_root:
+        raise ValueError("FRI last-round root mismatch")
+    xs = [pow(root_of_unity, i, p) for i in range(len(data))]
+    if exclude_multiples_of:
+        pts = [i for i in range(len(data)) if i % exclude_multiples_of != 0]
+    else:
+        pts = list(range(len(data)))
+    head, rest = pts[:max_deg_plus_1], pts[max_deg_plus_1:]
+    poly = ph.lagrange_interp(spec, [xs[i] for i in head], [decoded[i] for i in head])
+    for pos in rest:
+        if ph.eval_poly_at(spec, poly, xs[pos]) != decoded[pos]:
+            raise ValueError("FRI direct check failed")
+    return True

@@ -1,0 +1,110 @@
+"""Build and load the hand-written CUDA kernels at first use.
+
+All `csrc/*.cu` sources compile with `nvcc` into ONE shared library with a
+plain C interface, loaded through `ctypes` (no PyTorch headers, so a build
+takes seconds). The library lands in `stark_tpu_torch/_build/<key>/`, keyed
+by a hash of the sources and of `nvcc --version`, written to a temporary
+name and moved into place with `os.replace` (the first-use pattern of
+`stark_tpu/native/__init__.py`).
+
+Unlike that module, a failed build is an error: no plain-PyTorch fallback
+stands in for a kernel. A missing `nvcc` or a compiler error raises
+`RuntimeError` with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(_PKG, "_build")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + [
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_vp = ctypes.c_void_p
+_u32p = ctypes.POINTER(ctypes.c_uint32)
+_ll = ctypes.c_longlong
+_SIGNATURES = {
+    "stark_mmul": [_vp, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp],
+    "stark_butterfly_stage": [
+        _vp, _vp, _vp, _ll, _ll, ctypes.c_int, _u32p, ctypes.c_uint32, _vp,
+    ],
+    "stark_butterfly_fused": [
+        _vp, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int, _u32p, ctypes.c_uint32,
+        _vp,
+    ],
+    "stark_blake2s_words": [_vp, _vp, _ll, ctypes.c_int, _ll, _vp],
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+            "are built from stark_tpu_torch/csrc at first use"
+        )
+    return path
+
+
+def sources() -> list[str]:
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu")
+    )
+
+
+def _key(nvcc: str) -> str:
+    h = hashlib.sha256()
+    for path in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, path), "rb") as f:
+            h.update(path.encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True)
+    h.update(ver.stdout.encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> str:
+    """Build the kernel library if needed and return its path."""
+    nvcc = _nvcc()
+    out_dir = os.path.join(BUILD_ROOT, _key(nvcc))
+    so = os.path.join(out_dir, "libstark_kernels.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = so + f".tmp{os.getpid()}"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(library_path())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with cudaError_t {rc}")

@@ -1,0 +1,246 @@
+"""Modular bigint arithmetic on (L, ...) int32 limb planes (PyTorch).
+
+Counterpart of `stark_tpu/ops/modmath.py`, same layout: limbs first, L = 16
+limbs of 16 bits, little-endian, Montgomery form with R = 2^256. Planes are
+`torch.int32` holding the JAX package's uint32 bit patterns (limbs are
+< 2^16, so signedness never shows); arithmetic widens to int64.
+
+Every field product goes through `field_cuda.mmul` (the CUDA kernel on a
+card, its plain version on the CPU). `madd`/`msub` are plain PyTorch, as
+their JAX counterparts are XLA and not Pallas. `prefix_prod`, `multi_inv`
+and `mpow` are the composed (non-Pallas) routes of the JAX package
+(`modmath.py:301-320, 384-459`): loops of `mmul` launches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from stark_tpu.fields.field import LIMB_BITS, FieldSpec, int_to_limbs
+from stark_tpu_torch.ops import field_cuda
+from stark_tpu_torch.ops.field_cuda import cond_sub_p, normalize
+
+# ---------------------------------------------------------------------------
+# host <-> limb conversion (numpy, canonical form, limbs-first)
+# ---------------------------------------------------------------------------
+
+
+def ints_to_limbs_np(values, spec: FieldSpec) -> np.ndarray:
+    """Iterable of python ints -> (L, N) uint32 canonical limbs."""
+    vals = [int(v) % spec.p for v in values]
+    L = spec.num_limbs
+    if not vals:
+        return np.empty((L, 0), dtype=np.uint32)
+    buf = b"".join(v.to_bytes(2 * L, "little") for v in vals)
+    by = np.frombuffer(buf, np.uint8).reshape(len(vals), 2 * L).astype(np.uint32)
+    return np.ascontiguousarray((by[:, 0::2] | (by[:, 1::2] << 8)).T)
+
+
+def limbs_to_ints_np(arr, spec: FieldSpec) -> list[int]:
+    flat = np.asarray(arr).astype(np.uint32).reshape(spec.num_limbs, -1)
+    return [
+        sum(int(flat[i, n]) << (LIMB_BITS * i) for i in range(spec.num_limbs))
+        for n in range(flat.shape[1])
+    ]
+
+
+def bytes_le_to_limbs_np(data: np.ndarray, spec: FieldSpec) -> np.ndarray:
+    """(N, nbytes <= 2L) uint8 little-endian canonical bytes -> (L, N) uint32."""
+    data = np.asarray(data, dtype=np.uint8)
+    n, nb = data.shape[0], spec.num_limbs * 2
+    buf = np.zeros((n, nb), dtype=np.uint8)
+    w = min(nb, data.shape[1])
+    buf[:, :w] = data[:, :w]
+    pairs = buf.reshape(n, spec.num_limbs, 2).astype(np.uint32)
+    return (pairs[:, :, 0] | (pairs[:, :, 1] << 8)).T.copy()
+
+
+def limbs_to_bytes_le_np(arr, spec: FieldSpec) -> np.ndarray:
+    """(L, N) uint32 canonical -> (N, repr_bytes) uint8 little-endian."""
+    a = np.asarray(arr).astype(np.uint32).reshape(spec.num_limbs, -1).T
+    n = a.shape[0]
+    inter = np.stack([a & 0xFF, (a >> 8) & 0xFF], axis=-1).astype(np.uint8)
+    inter = inter.reshape(n, spec.num_limbs * 2)
+    out = np.zeros((n, spec.repr_bytes), dtype=np.uint8)
+    w = min(spec.repr_bytes, spec.num_limbs * 2)
+    out[:, :w] = inter[:, :w]
+    return out
+
+
+def bytes_le_to_limbs(spec: FieldSpec, data: torch.Tensor) -> torch.Tensor:
+    """Device twin of `bytes_le_to_limbs_np`: (N, 2L) uint8 -> (L, N) int32."""
+    pairs = data.reshape(data.shape[0], spec.num_limbs, 2).to(torch.int32)
+    return (pairs[:, :, 0] | (pairs[:, :, 1] << 8)).T.contiguous()
+
+
+def _planes(arr: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr, np.uint32).view(np.int32)).to(
+        device
+    )
+
+
+# ---------------------------------------------------------------------------
+# constants
+# ---------------------------------------------------------------------------
+
+
+def mont_const(spec: FieldSpec, x: int, device) -> torch.Tensor:
+    """Host int -> Montgomery-form (L, 1) constant."""
+    v = (int(x) % spec.p) * spec.r_mod_p % spec.p
+    return torch.tensor(int_to_limbs(v, spec.num_limbs), dtype=torch.int32,
+                        device=device).reshape(-1, 1)
+
+
+def mont_one(spec: FieldSpec, device) -> torch.Tensor:
+    return mont_const(spec, 1, device)
+
+
+def mont_consts(spec: FieldSpec, xs, device) -> torch.Tensor:
+    """Host ints -> Montgomery-form (L, N)."""
+    vals = [(int(x) % spec.p) * spec.r_mod_p % spec.p for x in xs]
+    return _planes(ints_to_limbs_np(vals, spec), device)
+
+
+# ---------------------------------------------------------------------------
+# add / sub (plain PyTorch) and the multiply (kernel)
+# ---------------------------------------------------------------------------
+
+
+def madd(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod p; valid in canonical and Montgomery form."""
+    a, b = torch.broadcast_tensors(a, b)
+    shape = a.shape
+    L = spec.num_limbs
+    s, top = normalize(a.reshape(L, -1).to(torch.int64) + b.reshape(L, -1).to(torch.int64))
+    return cond_sub_p(spec, s, top).to(torch.int32).reshape(shape)
+
+
+def msub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a - b) mod p: limb-wise difference, p added back on a borrow."""
+    a, b = torch.broadcast_tensors(a, b)
+    shape = a.shape
+    L = spec.num_limbs
+    d, borrow = normalize(a.reshape(L, -1).to(torch.int64) - b.reshape(L, -1).to(torch.int64))
+    p_col = torch.tensor(spec.p_limbs, dtype=torch.int64, device=d.device).reshape(-1, 1)
+    fixed, _ = normalize(d + p_col)
+    return torch.where((borrow < 0)[None], fixed, d).to(torch.int32).reshape(shape)
+
+
+def mmul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product of broadcastable (L, ...) planes via the kernel:
+    operands are expanded to one shape and made contiguous (L, n) first."""
+    a, b = torch.broadcast_tensors(a, b)
+    shape = a.shape
+    L = spec.num_limbs
+    out = field_cuda.mmul(
+        spec, a.contiguous().reshape(L, -1), b.contiguous().reshape(L, -1)
+    )
+    return out.reshape(shape)
+
+
+def to_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    r2 = torch.tensor(int_to_limbs(spec.r2_mod_p, spec.num_limbs),
+                      dtype=torch.int32, device=a.device)
+    return mmul(spec, a, r2.reshape((-1,) + (1,) * (a.dim() - 1)))
+
+
+def from_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    one = torch.zeros((spec.num_limbs,) + (1,) * (a.dim() - 1), dtype=torch.int32,
+                      device=a.device)
+    one[0] = 1
+    return mmul(spec, a, one)
+
+
+# ---------------------------------------------------------------------------
+# pow / inverse
+# ---------------------------------------------------------------------------
+
+
+def mpow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e elementwise (Montgomery in/out), MSB-first square-and-multiply:
+    two `mmul` launches per exponent bit."""
+    nbits = max(e.bit_length(), 1)
+    acc = mont_one(spec, a.device).reshape((-1,) + (1,) * (a.dim() - 1)).expand(a.shape)
+    for i in range(nbits):
+        acc = mmul(spec, acc, acc)
+        if (e >> (nbits - 1 - i)) & 1:
+            acc = mmul(spec, acc, a)
+    return acc.contiguous()
+
+
+def minv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Elementwise inverse via Fermat (a^(p-2)). Montgomery in/out; 0 -> 0."""
+    return mpow(spec, a, spec.p - 2)
+
+
+# ---------------------------------------------------------------------------
+# prefix products and batched inversion (blocked two-level scans)
+# ---------------------------------------------------------------------------
+
+
+def _block_size(n: int) -> int:
+    b = 1
+    while b * b < n:
+        b *= 2
+    return min(b, 1024)
+
+
+def prefix_prod(spec: FieldSpec, v: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive prefix product along axis 1 of a (L, N) Montgomery array,
+    N a power of two: an in-block scan batched over all blocks, a scan of
+    the block totals, then one combine multiply (B + C + 1 launches)."""
+    L, n = v.shape
+    if reverse:
+        v = v.flip(1)
+    B = _block_size(n)
+    C = n // B
+    if C * B != n:
+        raise ValueError("prefix_prod requires a power-of-two length")
+    vb = v.reshape(L, C, B)
+    pref = torch.empty((L, C, B), dtype=torch.int32, device=v.device)
+    carry = mont_one(spec, v.device).expand(L, C)
+    for j in range(B):
+        carry = mmul(spec, carry, vb[:, :, j])
+        pref[:, :, j] = carry
+    one = mont_one(spec, v.device)
+    exc = [one]
+    for i in range(C - 1):
+        exc.append(mmul(spec, exc[-1], carry[:, i : i + 1]))
+    cpref_exc = torch.cat(exc, dim=1)  # (L, C) exclusive block prefixes
+    out = mmul(spec, pref, cpref_exc[:, :, None]).reshape(L, n)
+    return out.flip(1) if reverse else out
+
+
+def multi_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Batched inversion along axis 1 of (L, N); zeros map to 0. One Fermat
+    inversion of the running total, prefix and suffix products for the rest."""
+    L, n = a.shape
+    one = mont_one(spec, a.device)
+    z = (a == 0).all(dim=0)[None]
+    v = torch.where(z, one, a)
+    pre_inc = prefix_prod(spec, v)
+    suf_inc = prefix_prod(spec, v.flip(1)).flip(1)
+    total_inv = minv(spec, pre_inc[:, -1:])
+    pre_exc = torch.cat([one, pre_inc[:, :-1]], dim=1)
+    suf_exc = torch.cat([suf_inc[:, 1:], one], dim=1)
+    out = mmul(spec, mmul(spec, total_inv, pre_exc), suf_exc)
+    return torch.where(z, torch.zeros_like(a), out)
+
+
+# ---------------------------------------------------------------------------
+# power tables
+# ---------------------------------------------------------------------------
+
+
+def power_table(spec: FieldSpec, g: int, n: int, device) -> torch.Tensor:
+    """[1, g, ..., g^(n-1)] Montgomery form, (L, n), n a power of two, by
+    log-depth doubling."""
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"power_table needs a power-of-two length, got {n}")
+    table = mont_one(spec, device)
+    cur = mont_const(spec, g, device)  # g^(table width)
+    while table.shape[1] < n:
+        table = torch.cat([table, mmul(spec, table, cur)], dim=1)
+        cur = mmul(spec, cur, cur)
+    return table

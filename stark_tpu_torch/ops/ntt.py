@@ -1,0 +1,216 @@
+"""Radix-2 NTT and the low-degree extension over (16, n) limb planes.
+
+Counterpart of `stark_tpu/ops/ntt.py` on its Pallas plan (`NttPlan`
+`:231-262`, `_run_pallas :304-330`, `lde :522-555`), on every device:
+per-stage twiddle tables tw_k = root^(k*m) (k < l) shared by both
+directions; stages with 2l > block run one at a time through
+`butterfly_stage`, the run of stages with 2l <= block runs in one
+`butterfly_fused` pass. The split changes no value: `block` is a plan
+argument.
+
+The two butterfly wrappers launch `csrc/ntt.cu` on a CUDA tensor (replacing
+`stark_tpu/ops/pallas_field.py:446 butterfly_stage` and `:518
+butterfly_fused`) and run their plain PyTorch versions on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from stark_tpu.fields.field import FieldSpec
+from stark_tpu_torch.ops import build
+from stark_tpu_torch.ops import field_cuda as fc
+from stark_tpu_torch.ops import modmath as mm
+
+# Elements per CTA in the fused pass: 2048 x 8 words x 4 bytes = 64 KB of
+# dynamic shared memory (the TPU kernel's block is 2 * TILE = 2048 too).
+FUSED_BLOCK = 2048
+
+_KINDS = ("dif", "dit")
+
+
+# ---------------------------------------------------------------------------
+# butterfly stages: plain versions and kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def butterfly_stage_plain(spec: FieldSpec, a, tw, m: int, l: int, kind: str):
+    """One stage on flat (L, n) `a` viewed as (L, m, 2, l); tw: (L, l).
+    dif: y0 = u + v, y1 = (u - v) * tw;  dit: t = v * tw, y0 = u + t,
+    y1 = u - t."""
+    L, n = a.shape
+    v4 = a.reshape(L, m, 2, l)
+    u, v = v4[:, :, 0], v4[:, :, 1]
+    w = tw.reshape(L, 1, l).expand(L, m, l)
+    if kind == "dif":
+        y0 = mm.madd(spec, u, v)
+        y1 = fc.mmul_plain(spec, mm.msub(spec, u, v), w.contiguous())
+    else:
+        t = fc.mmul_plain(spec, v.contiguous(), w.contiguous())
+        y0 = mm.madd(spec, u, t)
+        y1 = mm.msub(spec, u, t)
+    return torch.stack([y0, y1], dim=2).reshape(L, n)
+
+
+def fused_ls(block: int, kind: str) -> list[int]:
+    """The stage widths of the fused run, in execution order."""
+    ls = [1 << s for s in range(block.bit_length() - 1)]
+    return ls if kind == "dit" else ls[::-1]
+
+
+def butterfly_fused_plain(spec: FieldSpec, a, tw_cat, block: int, kind: str):
+    """Every stage with 2l <= block, in order (dit: l ascending, dif: l
+    descending). tw_cat: (L, block - 1), stage l's table at columns
+    l-1 .. 2l-2. Groups of 2l never cross a block, so each stage is the
+    whole-array stage."""
+    n = a.shape[1]
+    for l in fused_ls(block, kind):
+        a = butterfly_stage_plain(
+            spec, a, tw_cat[:, l - 1 : 2 * l - 1], n // (2 * l), l, kind
+        )
+    return a
+
+
+def _check_kind(kind: str):
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
+
+
+def butterfly_stage(spec: FieldSpec, a, tw, m: int, l: int, kind: str):
+    """One radix-2 stage (see `butterfly_stage_plain`) on a (16, n) plane."""
+    _check_kind(kind)
+    fc.check_planes(spec, a, tw)
+    if a.shape[1] != 2 * m * l or tw.shape[1] != l:
+        raise ValueError(
+            f"stage shapes: a {tuple(a.shape)}, tw {tuple(tw.shape)}, m={m}, l={l}"
+        )
+    if a.device.type == "cpu":
+        return butterfly_stage_plain(spec, a, tw, m, l, kind)
+    words, np32, stream = fc.cuda_args(spec, a)
+    out = torch.empty_like(a)
+    rc = build.load().stark_butterfly_stage(
+        a.data_ptr(), tw.data_ptr(), out.data_ptr(), a.shape[1], l,
+        int(kind == "dit"), words, np32, stream,
+    )
+    build.check(rc, "butterfly_stage")
+    butterfly_stage.launches += 1
+    return out
+
+
+butterfly_stage.launches = 0
+
+
+def butterfly_fused(spec: FieldSpec, a, tw_cat, block: int, kind: str):
+    """The fused run of small stages (see `butterfly_fused_plain`)."""
+    _check_kind(kind)
+    fc.check_planes(spec, a, tw_cat)
+    n = a.shape[1]
+    if block < 2 or block & (block - 1) or n % block or tw_cat.shape[1] != block - 1:
+        raise ValueError(
+            f"fused shapes: a {tuple(a.shape)}, tw_cat {tuple(tw_cat.shape)}, "
+            f"block={block}"
+        )
+    if a.device.type == "cpu":
+        return butterfly_fused_plain(spec, a, tw_cat, block, kind)
+    words, np32, stream = fc.cuda_args(spec, a)
+    out = torch.empty_like(a)
+    rc = build.load().stark_butterfly_fused(
+        a.data_ptr(), tw_cat.data_ptr(), out.data_ptr(), n, block,
+        int(kind == "dit"), words, np32, stream,
+    )
+    build.check(rc, "butterfly_fused")
+    butterfly_fused.launches += 1
+    return out
+
+
+butterfly_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# plans
+# ---------------------------------------------------------------------------
+
+
+class NttPlan:
+    """Twiddle tables for one (root, n, direction): "dif" natural ->
+    bit-reversed, "dit" bit-reversed -> natural."""
+
+    def __init__(self, spec: FieldSpec, root: int, n: int, direction: str,
+                 device, block: int = FUSED_BLOCK):
+        _check_kind(direction)
+        if n < 1 or n & (n - 1):
+            raise ValueError(f"NTT size must be a power of two, got {n}")
+        self.n = n
+        self.direction = direction
+        self.block = min(n, block)
+        w_half = mm.power_table(spec, root, max(n // 2, 1), device)
+        stages = []  # (m, l, tw), l ascending
+        l, m = 1, n // 2
+        while m >= 1 and l < n:
+            stages.append((m, l, w_half[:, ::m][:, :l].contiguous()))
+            l *= 2
+            m //= 2
+        fused = [s for s in stages if 2 * s[1] <= self.block]
+        self.singles = [s for s in stages if 2 * s[1] > self.block]
+        if direction == "dif":  # dif runs l descending
+            self.singles.reverse()
+        self.fused_tw = (
+            torch.cat([tw for (_, _, tw) in fused], dim=1) if fused else None
+        )
+
+
+def run(spec: FieldSpec, a, plan: NttPlan):
+    """Execute a plan: singles and the fused run in direction order."""
+
+    def fused(a):
+        if plan.fused_tw is None:
+            return a
+        return butterfly_fused(spec, a, plan.fused_tw, plan.block, plan.direction)
+
+    if plan.direction == "dif":
+        for m, l, tw in plan.singles:
+            a = butterfly_stage(spec, a, tw, m, l, "dif")
+        return fused(a)
+    a = fused(a)
+    for m, l, tw in plan.singles:
+        a = butterfly_stage(spec, a, tw, m, l, "dit")
+    return a
+
+
+class LdePlan:
+    """Plans for one (g1, g2, steps, precision) LDE shape."""
+
+    def __init__(self, spec: FieldSpec, g1: int, g2: int, steps: int,
+                 precision: int, device, block: int = FUSED_BLOCK):
+        self.steps = steps
+        self.precision = precision
+        self.small_dif = NttPlan(spec, spec.inv(g1), steps, "dif", device, block)
+        self.big_dit = NttPlan(spec, g2, precision, "dit", device, block)
+        self.n_inv = mm.mont_const(spec, spec.inv(steps), device)
+
+
+def make_lde_plan(spec: FieldSpec, g1: int, g2: int, steps: int, precision: int,
+                  device, block: int = FUSED_BLOCK) -> LdePlan:
+    return LdePlan(spec, g1, g2, steps, precision, device, block)
+
+
+def lde(spec: FieldSpec, trace, plan: LdePlan):
+    """Low-degree extension: interpolate the (L, steps) trace on the g1
+    domain (DIF iNTT -> bit-reversed coefficients, times steps^-1), then
+    evaluate on the g2 domain of size `precision` (interleaved zero-pad of
+    the bit-reversed coefficients, DIT NTT). No bit reversal is ever
+    materialized (`stark_tpu/ops/ntt.py:522-555`)."""
+    L, steps = trace.shape
+    precision = plan.precision
+    if steps != plan.steps or precision % steps:
+        raise ValueError(f"trace width {steps} does not fit the plan")
+    ratio = precision // steps
+    coeffs_rev = trace if steps == 1 else run(spec, trace, plan.small_dif)
+    coeffs_rev = mm.mmul(spec, coeffs_rev, plan.n_inv)
+    if ratio == 1:
+        padded = coeffs_rev
+    else:
+        padded = torch.zeros((L, steps, ratio), dtype=torch.int32, device=trace.device)
+        padded[:, :, 0] = coeffs_rev
+        padded = padded.reshape(L, precision)
+    return run(spec, padded, plan.big_dit)

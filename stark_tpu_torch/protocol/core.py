@@ -1,0 +1,227 @@
+"""Prover stages for one (spec, steps, precision, original_steps, device).
+
+Counterpart of `stark_tpu/protocol/core.py:276 build_proof_stages` for one
+device, the blake2s digest and precision <= 2^22 (the full (L, N) domain
+tables), on its device-arithmetization path. Stages are plain Python
+functions over tensors, collected in a dict; there is no jit. Buffer
+donation (`core.py:513-518`) is dropped: at precision 2^20 the live
+columns take a few GB of an 80 GB card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from stark_tpu.fields.field import FieldSpec
+from stark_tpu.protocol.params import SPOT_CHECK_SECURITY_FACTOR
+from stark_tpu_torch.merkle import tree as mt
+from stark_tpu_torch.ops import modmath as mm
+from stark_tpu_torch.ops import ntt as nttm
+from stark_tpu_torch.protocol import device_transcript as dt
+from stark_tpu_torch.protocol import kernels
+
+# Above this the JAX package switches to periodic (L, skips) domain bases
+# and streamed m-tree commits (`core.py:342-361, 589-633`), not ported yet.
+MAX_PRECISION = 1 << 22
+
+TRACE_NAMES = ("k", "f0", "f1", "f2", "s", "p", "idx", "perm")
+COL_NAMES = ("p", "a", "s", "d1", "d2", "d3", "b2", "b3")
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values < 2^32 -> int32 with the same bit pattern."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def leaves_to_words(spec: FieldSpec, columns) -> torch.Tensor:
+    """Montgomery columns -> (W, M) int32 words of the concatenated
+    canonical little-endian 32-byte encodings, zero-padded to whole blake
+    blocks (`stark_tpu/parallel/prove_sharded.py:390-408`)."""
+    word_cols = []
+    for col in columns:
+        canon = mm.from_mont(spec, col).to(torch.int64)
+        word_cols.append(_i32(canon[0::2] | (canon[1::2] << 16)))
+    words = torch.cat(word_cols, dim=0)
+    nblocks = max(1, (32 * len(columns) + 63) // 64)
+    padw = nblocks * 16 - words.shape[0]
+    if padw:
+        words = torch.cat([words, words.new_zeros((padw, words.shape[1]))], dim=0)
+    return words.contiguous()
+
+
+def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
+                       original_steps: int, digest: str, device,
+                       block: int = nttm.FUSED_BLOCK) -> dict:
+    """The prover's device stages, split at the Fiat-Shamir points."""
+    if digest != "blake2s":
+        raise NotImplementedError(
+            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1, "
+            "Poseidon digest)"
+        )
+    if precision > MAX_PRECISION:
+        raise NotImplementedError(
+            f"precision {precision} > 2^22 needs the big-domain path "
+            "(ROADMAP.md Queue 1, big-domain path)"
+        )
+    dev = torch.device(device)
+    p = spec.p
+    L = spec.num_limbs
+    skips = precision // steps
+    kshift = original_steps // 3 * skips
+    g2 = spec.root_of_unity(precision)
+    g1 = pow(g2, skips, p)
+    xs_full = mm.power_table(spec, g2, precision, dev)
+    omega = pow(g2, steps, p)
+    inv_z_scalars = [0] + [
+        pow((pow(omega, t, p) - 1) % p, p - 2, p) for t in range(1, skips)
+    ]
+    pow_scalars = [pow(omega, t, p) for t in range(skips)]
+    x_last_mont = mm.mont_const(spec, pow(g2, precision - skips, p), dev)
+    reps = precision // skips
+    inv_z_full = mm.mont_consts(spec, inv_z_scalars, dev).repeat(1, reps)
+    x2s_full = mm.mont_consts(spec, pow_scalars, dev).repeat(1, reps)
+    inv_zb3 = mm.multi_inv(spec, mm.msub(spec, xs_full, x_last_mont))
+    lde_plan = nttm.make_lde_plan(spec, g1, g2, steps, precision, dev, block)
+
+    def lde_many(ts):
+        return [nttm.lde(spec, t, lde_plan) for t in ts]
+
+    def flag_idx_perm(f1_u8, f2_u8, perm_lo, perm_hi):
+        """Public columns: f0 (ones over the original steps), the flags
+        from u8 vectors, idx (iota) and the permutation from u32 lo/hi
+        word pairs, all in Montgomery form."""
+        one = mm.mont_one(spec, dev).expand(L, steps)
+        zero = torch.zeros((L, steps), dtype=torch.int32, device=dev)
+        iota = torch.arange(steps, dtype=torch.int64, device=dev)
+        f0_m = torch.where((iota < original_steps)[None], one, zero)
+        f1_m = torch.where((f1_u8 != 0)[None], one, zero)
+        f2_m = torch.where((f2_u8 != 0)[None], one, zero)
+
+        def from_u32pair(lo, hi):
+            lo = lo.to(torch.int64) & 0xFFFFFFFF
+            hi = hi.to(torch.int64) & 0xFFFFFFFF
+            limbs = torch.zeros((L, lo.shape[0]), dtype=torch.int32, device=dev)
+            limbs[0], limbs[1] = lo & 0xFFFF, lo >> 16
+            limbs[2], limbs[3] = hi & 0xFFFF, hi >> 16
+            return mm.to_mont(spec, limbs)
+
+        idx_m = from_u32pair(iota, torch.zeros_like(iota))
+        perm_m = from_u32pair(perm_lo, perm_hi)
+        return f0_m, f1_m, f2_m, idx_m, perm_m
+
+    def wit_traces(k_bytes, wit_bytes, wids, f1_u8, f2_u8, perm_lo, perm_hi):
+        """Device arithmetization (`core.py:440-473`): S gathers the witness
+        by per-slot wire id; P[j] = F1[j]*P[j-1] + K[j]*S[j] is a log-depth
+        (Hillis-Steele) scan of the gated combine
+        (al, bl), (ar, br) -> (al & ar, ar ? bl + br : br)."""
+        k_m = mm.to_mont(spec, mm.bytes_le_to_limbs(spec, k_bytes))
+        wit_m = mm.to_mont(spec, mm.bytes_le_to_limbs(spec, wit_bytes))
+        live = torch.arange(steps, device=dev) < original_steps
+        s_m = torch.where(live[None], wit_m[:, wids.to(torch.int64)], 0)
+        v = mm.mmul(spec, k_m, s_m)
+        g = (f1_u8 != 0) & live
+        d = 1
+        while d < steps:
+            nv = torch.where(g[d:][None], mm.madd(spec, v[:, :-d], v[:, d:]), v[:, d:])
+            v = torch.cat([v[:, :d], nv], dim=1)
+            g = torch.cat([g[:d], g[:-d] & g[d:]])
+            d *= 2
+        f0_m, f1_m, f2_m, idx_m, perm_m = flag_idx_perm(f1_u8, f2_u8, perm_lo, perm_hi)
+        return {
+            "k": k_m, "f0": f0_m, "f1": f1_m, "f2": f2_m,
+            "s": s_m, "p": v, "idx": idx_m, "perm": perm_m,
+        }
+
+    def v_cols(k_bytes, f1_u8, f2_u8, perm_lo, perm_hi):
+        """The verifier's 6 public columns (no S/P)."""
+        k_m = mm.to_mont(spec, mm.bytes_le_to_limbs(spec, k_bytes))
+        return [k_m, *flag_idx_perm(f1_u8, f2_u8, perm_lo, perm_hi)]
+
+    def a_root(perm_lo, perm_hi, s_small):
+        """Root of the 40-byte (perm u64 LE || S) a-tree leaves."""
+        s_words = leaves_to_words(spec, [s_small])[:8]
+        a_words = torch.cat([
+            perm_lo.reshape(1, -1), perm_hi.reshape(1, -1), s_words,
+            s_words.new_zeros((6, s_words.shape[1])),
+        ], dim=0).contiguous()
+        return mt.build_layers(a_words, 40)[-1][:, 0]
+
+    def r(a_root_words8):
+        return dt.random_ff_mont(spec, a_root_words8, precision, 3, 0)
+
+    def acc(idx_small, perm_small, s_small, r_mont):
+        vn, vd = kernels.rand_combination(spec, r_mont, idx_small, perm_small, s_small)
+        return kernels.accumulator_mini(spec, vn, vd)
+
+    def inv_zb2(pubx_mont):
+        """Zb2^-1 over the public wire positions: circuit-static."""
+        return mm.multi_inv(spec, kernels.vanishing_eval(spec, xs_full, pubx_mont))
+
+    def rest_a(evs, a_ev, r_mont, i2_mont, inv_zb2_table):
+        """Quotients and boundaries (`core.py:521-567`) -> the 8 m-tree
+        columns and the divisibility flags."""
+        q1 = kernels.q1_eval(spec, evs["s"], evs["k"], evs["p"], evs["f0"], evs["f1"], skips)
+        q2 = kernels.q2_eval(spec, evs["p"], evs["f2"], kshift)
+        vn_big, vd_big = kernels.rand_combination(
+            spec, r_mont, evs["idx"], evs["perm"], evs["s"]
+        )
+        q3 = kernels.q3_eval(spec, a_ev, vn_big, vd_big, skips)
+        q_bad = torch.stack(
+            [(q[:, ::skips] != 0).any() for q in (q1, q2, q3)]
+        ).to(torch.int32)
+        d1, d2, d3 = (kernels.mmul_periodic_const(spec, q, inv_z_full) for q in (q1, q2, q3))
+        i2_ev = kernels.horner_eval(spec, i2_mont, xs_full)
+        one_big = mm.mont_one(spec, dev)
+        b2_ev = kernels.sub_mul_ev(spec, evs["s"], i2_ev, inv_zb2_table)
+        b3_ev = kernels.sub_mul_ev(spec, a_ev, one_big, inv_zb3)
+        cols = {
+            "p": evs["p"], "a": a_ev, "s": evs["s"],
+            "d1": d1, "d2": d2, "d3": d3, "b2": b2_ev, "b3": b3_ev,
+        }
+        return cols, q_bad
+
+    def columns(traces, r_mont, i2_mont, inv_zb2_table):
+        a_mini = acc(traces["idx"], traces["perm"], traces["s"], r_mont)
+        outs = lde_many([traces[n] for n in TRACE_NAMES] + [a_mini])
+        evs = dict(zip(TRACE_NAMES, outs[:8]))
+        return rest_a(evs, outs[8], r_mont, i2_mont, inv_zb2_table)
+
+    def commit_chain(cols):
+        """m-commit -> k coefficients -> linear combination -> l-commit."""
+        m_words = leaves_to_words(spec, [cols[n] for n in COL_NAMES])
+        m_layers = mt.build_layers(m_words, 256)
+        k_mont = dt.k_coeffs_mont(spec, m_layers[-1][:, 0])
+        l_ev = kernels.linear_combination(
+            spec, k_mont, x2s_full, *[cols[n] for n in COL_NAMES]
+        )
+        l_words = leaves_to_words(spec, [l_ev])
+        l_layers = mt.build_layers(l_words, 32)
+        return m_words, m_layers, k_mont, l_ev, l_words, l_layers
+
+    def pos_gather(l_root_words8, l_words, l_layers, m_words, m_layers):
+        """Spot-check positions and both branch gathers."""
+        pos = dt.pseudorandom_indices(
+            l_root_words8, precision, SPOT_CHECK_SECURITY_FACTOR, skips
+        )
+        offs = torch.tensor([0, precision - skips, kshift, 2 * kshift],
+                            dtype=torch.int64, device=dev)
+        aug = ((pos[:, None] + offs[None, :]) % precision).reshape(-1)
+        l_flat = mt.gather_flat(l_words, l_layers[:-1], pos)
+        m_flat = mt.gather_flat(m_words, m_layers[:-1], aug)
+        return l_flat, m_flat
+
+    return {
+        "xs_full": xs_full,
+        "lde_plan": lde_plan,
+        "lde_many": lde_many,
+        "wit_traces": wit_traces,
+        "v_cols": v_cols,
+        "a_root": a_root,
+        "r": r,
+        "acc": acc,
+        "inv_zb2": inv_zb2,
+        "rest_a": rest_a,
+        "columns": columns,
+        "commit_chain": commit_chain,
+        "pos_gather": pos_gather,
+    }

@@ -1,0 +1,216 @@
+"""The R1CS STARK prover on one device.
+
+Counterpart of `stark_tpu/protocol/prove.py:147-431`: the whole proof is
+enqueued as one chain of device work (every Fiat-Shamir challenge derived
+on the device), then one materializing transfer moves it to the host and
+`materialize_r1cs_proof` formats it. Stages: traces (device
+arithmetization), a-tree and r, columns (9 LDEs, accumulator, quotients,
+boundaries), commits (m-tree, k, linear combination, l-tree), branches, FRI.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from stark_tpu.fields.field import FieldSpec
+from stark_tpu.protocol.params import SPOT_CHECK_SECURITY_FACTOR, derive_params
+from stark_tpu.r1cs.arithmetize import Arithmetization
+from stark_tpu.utils import poly_host as ph
+from stark_tpu_torch import device as devmod
+from stark_tpu_torch.fri import fri
+from stark_tpu_torch.merkle import tree as mt
+from stark_tpu_torch.ops import modmath as mm
+from stark_tpu_torch.protocol.proof import StarkProof
+
+
+def _pad_col(col, steps: int):
+    """Zero-pad a column (list or numpy) to `steps` entries."""
+    n = len(col)
+    if isinstance(col, np.ndarray):
+        if n == steps:
+            return col
+        out = np.zeros((steps,) + col.shape[1:], dtype=col.dtype)
+        out[:n] = col
+        return out
+    return list(col) + [0] * (steps - n)
+
+
+def _col_bytes_np(spec: FieldSpec, col) -> np.ndarray:
+    """Column -> (N, 2L) canonical little-endian uint8 byte rows. Accepts
+    (N, k) uint8 rows (the native arithmetizer's output), 1-D integer numpy
+    arrays (< 2^64) or python int lists."""
+    nb = spec.num_limbs * 2
+    if isinstance(col, np.ndarray) and col.ndim == 2 and col.dtype == np.uint8:
+        if col.shape[1] == nb:
+            return col
+        out = np.zeros((col.shape[0], nb), dtype=np.uint8)
+        w = min(nb, col.shape[1])
+        out[:, :w] = col[:, :w]
+        return out
+    if isinstance(col, np.ndarray) and col.ndim == 1:
+        v = col.astype(np.uint64)
+        out = np.zeros((v.shape[0], nb), dtype=np.uint8)
+        for i in range(min(8, nb)):
+            out[:, i] = ((v >> np.uint64(8 * i)) & np.uint64(0xFF)).astype(np.uint8)
+        return out
+    return _col_bytes_np(
+        spec, mm.limbs_to_bytes_le_np(mm.ints_to_limbs_np(col, spec), spec)
+    )
+
+
+def augmented_positions(positions, params) -> list[int]:
+    """The 4 companion indices per spot check (`prove.rs:351-359`)."""
+    out = []
+    k = params.original_steps // 3 * params.skips
+    for j in positions:
+        out.extend([
+            j,
+            (j + params.precision - params.skips) % params.precision,
+            (j + k) % params.precision,
+            (j + 2 * k) % params.precision,
+        ])
+    return out
+
+
+def permuted_column(arith_perm, original_steps: int, steps: int) -> np.ndarray:
+    """The copy-constraint permutation padded with the identity to `steps`."""
+    return np.concatenate([
+        np.asarray(arith_perm, dtype=np.uint64),
+        np.arange(original_steps, steps, dtype=np.uint64),
+    ])
+
+
+def lo_hi_words(perm: np.ndarray, device):
+    """u64 permutation -> (lo, hi) int32 word tensors (u32 bit patterns)."""
+    lo = (perm & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+    hi = (perm >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    return torch.from_numpy(lo.copy()).to(device), torch.from_numpy(hi.copy()).to(device)
+
+
+@functools.lru_cache(maxsize=4)
+def _stages_cached(spec, steps, precision, original_steps, digest, device):
+    """One stage set per (spec, steps, precision, original_steps, digest,
+    device); every caller passes all six positionally, so one key."""
+    from stark_tpu_torch.protocol.core import build_proof_stages
+
+    return build_proof_stages(spec, steps, precision, original_steps, digest, device)
+
+
+def _check_scope(mesh, digest: str):
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: multi-GPU proving is not ported (ROADMAP.md Queue 1, Multi-GPU)"
+        )
+    if digest != "blake2s":
+        raise NotImplementedError(
+            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1, "
+            "Poseidon digest)"
+        )
+
+
+def mk_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires, n_constraints: int,
+                  n_wires: int, mesh=None, digest: str = "blake2s",
+                  device="cuda") -> StarkProof:
+    return materialize_r1cs_proof(
+        spec,
+        enqueue_r1cs_proof(spec, arith, public_wires, n_constraints, n_wires,
+                           mesh=mesh, digest=digest, device=device),
+    )
+
+
+def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
+                       n_constraints: int, n_wires: int, mesh=None,
+                       digest: str = "blake2s", device="cuda") -> dict:
+    """Enqueue the proof as one chain of device work; `arith` must carry
+    the device-arithmetization inputs (`witness_le`, `slot_wire_ids`)."""
+    _check_scope(mesh, digest)
+    dev = devmod.resolve(device)
+    p = spec.p
+    original_steps = arith.original_steps
+    if original_steps > 3 * n_constraints * n_wires:
+        raise ValueError("trace longer than the circuit allows")
+    if arith.witness_le is None or arith.slot_wire_ids is None:
+        raise ValueError(
+            "the port proves through device arithmetization: the "
+            "arithmetization needs witness_le and slot_wire_ids"
+        )
+    params = derive_params(spec, original_steps)
+    steps, precision, skips = params.steps, params.precision, params.skips
+    stages = _stages_cached(spec, steps, precision, original_steps, digest, dev)
+    xs_full = stages["xs_full"]
+
+    # --- traces: only K, the witness and the circuit-static vectors move ---
+    permuted = permuted_column(arith.permuted_indices, original_steps, steps)
+    plo_d, phi_d = lo_hi_words(permuted, dev)
+    wids = np.zeros(steps, dtype=np.int64)
+    wids[:original_steps] = arith.slot_wire_ids
+    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    traces = stages["wit_traces"](
+        to_dev(_col_bytes_np(spec, _pad_col(arith.coefficients, steps))),
+        to_dev(_col_bytes_np(spec, arith.witness_le)),
+        to_dev(wids),
+        to_dev(np.asarray(_pad_col(arith.flag1, steps), dtype=np.uint8)),
+        to_dev(np.asarray(_pad_col(arith.flag2, steps), dtype=np.uint8)),
+        plo_d,
+        phi_d,
+    )
+
+    # --- a-tree root and r ---
+    a_root_words = stages["a_root"](plo_d, phi_d, traces["s"])
+    r_mont = stages["r"](a_root_words)
+
+    # --- columns: 9 LDEs, accumulator, quotients, boundaries ---
+    pub_xs = [pow(params.g2, skips * w, p) for (_, w) in arith.public_first_indices]
+    pub_ys = [public_wires[k] for (k, _) in arith.public_first_indices]
+    i2_mont = mm.mont_consts(spec, ph.lagrange_interp(spec, pub_xs, pub_ys), dev)
+    # Zb2^-1 is circuit-static: computed once per (circuit, shape, device)
+    zb2c = getattr(arith, "_torch_inv_zb2", None)
+    if zb2c is None or zb2c[0] != (steps, str(dev)):
+        zb2c = ((steps, str(dev)), stages["inv_zb2"](mm.mont_consts(spec, pub_xs, dev)))
+        arith._torch_inv_zb2 = zb2c
+    cols, q_bad = stages["columns"](traces, r_mont, i2_mont, zb2c[1])
+    del traces
+
+    # --- commits: m-tree -> k -> linear combination -> l-tree ---
+    m_words, m_layers, _, l_ev, l_words, l_layers = stages["commit_chain"](cols)
+    del cols
+    m_tree = mt.DeviceMerkleTree(m_words, 256, m_layers)
+    l_tree = mt.DeviceMerkleTree(l_words, 32, l_layers)
+    m_root_w = m_layers[-1][:, 0]
+    l_root_w = l_layers[-1][:, 0]
+
+    # --- branches at the device-derived spot checks ---
+    l_flat, m_flat = stages["pos_gather"](l_root_w, l_words, l_layers, m_words, m_layers)
+
+    # --- FRI; the l-tree is round 0's value tree ---
+    pending = fri.prove_low_degree_pending(
+        spec, l_ev, xs_full, precision // 4, skips, first_tree=l_tree
+    )
+    return {
+        "pending": pending,
+        "device_arrays": [a_root_words, m_root_w, l_root_w, q_bad, l_flat, m_flat]
+        + pending["device_arrays"],
+        "l_tree": l_tree,
+        "m_tree": m_tree,
+    }
+
+
+def materialize_r1cs_proof(spec: FieldSpec, st: dict) -> StarkProof:
+    """One device->host transfer, then host formatting."""
+    mats = fri.materialize_u32(st["device_arrays"])
+    a_root_np, m_root_np, l_root_np, bad, l_flat_np, m_flat_np = mats[:6]
+    for i, what in enumerate(("D1", "D2", "D3")):
+        if bad[i]:
+            raise AssertionError(f"invalid {what}: quotient not divisible by Z")
+    n_pos = SPOT_CHECK_SECURITY_FACTOR
+    return StarkProof(
+        m_root=m_root_np.astype("<u4").tobytes(),
+        l_root=l_root_np.astype("<u4").tobytes(),
+        a_root=a_root_np.astype("<u4").tobytes(),
+        main_branches=st["m_tree"].proofs_from_flat(m_flat_np, 4 * n_pos),
+        linear_comb_branches=st["l_tree"].proofs_from_flat(l_flat_np, n_pos),
+        fri_proof=fri.assemble_fri(spec, st["pending"], mats[6:]),
+    )
