@@ -9,19 +9,36 @@ non-zero and no phase's error is swallowed:
 1. device: a CUDA card must be present (its name and power limit are
    printed as `nvidia-smi --query-gpu=name,power.limit` gives them);
 2. build: the kernel library is built with nvcc from stark_tpu_torch/csrc;
-3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the prover's shapes for 43,690 constraints (steps 2^17, precision
-   2^20), inputs from a numpy seed; tolerance: exact equality (integer
-   field arithmetic with canonical outputs), with median times of both;
+3. kernels: each of the 15 CUDA kernels against its plain PyTorch version
+   on the card, at the prover's shapes for 43,690 constraints (steps 2^17,
+   precision 2^20), inputs from a numpy seed; tolerance: exact equality
+   (integer field arithmetic with canonical outputs), with median times of
+   both and the least time the card could take (`bound_ms`);
 4. goldens: the `compute` and `poseidon3_test` proofs must be byte-identical
    to the committed goldens and the `ragged_mix(120)` proof must match its
    committed sha256; the port's verifier must accept each;
 5. real size: `squaring_chain(43690)` proved twice (cold and warm) and
-   verified; every kernel's launch counter must be > 0 for the proving run.
+   verified; every kernel's launch counter must be > 0 for the cold proving
+   run, and the warm run's counts are recorded;
+6. only with `--profile`: `torch.profiler` over one more warm prove (device
+   busy share, launches, copies, device time by kernel) and the wall of
+   each stage with a device synchronise after it.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}. `--out DIR` also writes every phase record
 to DIR/chip_smoke.json.
+
+`bound_ms` is the larger of the bytes a kernel must move (each input read
+once, each output written once) over 3.35 TB/s and its integer operations
+over 16.75e12 a second: an H100 SM executes 64 32-bit integer operations a
+clock, half of the 128 FP32 lanes behind the published 67 TFLOP/s. A
+Montgomery product counts 136 multiply-adds (two 8x8-word products and 8
+for the reduction factors), a Blake2s compression 960 (10 rounds of 8 G of
+12). `mpow_scalar` and `scan_prod` walk chains of dependent products on few
+threads, so their bound is the chain's length times the time of one
+dependent product, which is read off this run's single-lane `mpow_scalar`.
+No single PyTorch call computes any of these functions, so `library_ms` is
+null throughout.
 """
 
 from __future__ import annotations
@@ -30,6 +47,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -43,6 +61,8 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 REAL_CONSTRAINTS = 43690
 SEED = 20261016
 
+_PK = "stark_tpu/protocol/pallas_kernels.py"
+_PROTOCOL_CU = "stark_tpu_torch/csrc/protocol.cu"
 KERNELS = {
     # wrapper name -> (source in the repo, the TPU kernel it replaces)
     "mmul": ("stark_tpu_torch/csrc/mmul.cu", "stark_tpu/ops/pallas_field.py:174"),
@@ -55,7 +75,27 @@ KERNELS = {
     "blake2s_words": (
         "stark_tpu_torch/csrc/blake2s.cu", "stark_tpu/ops/pallas_blake2s.py:84",
     ),
+    "mpow_scalar": (
+        "stark_tpu_torch/csrc/fieldops.cu", "stark_tpu/ops/pallas_field.py:573",
+    ),
+    "scan_prod": (
+        "stark_tpu_torch/csrc/fieldops.cu", "stark_tpu/ops/pallas_field.py:626",
+    ),
+    "rand_combination": (_PROTOCOL_CU, f"{_PK}:98"),
+    "q1_eval": (_PROTOCOL_CU, f"{_PK}:118"),
+    "q2_eval": (_PROTOCOL_CU, f"{_PK}:137"),
+    "q3_eval": (_PROTOCOL_CU, f"{_PK}:154"),
+    "linear_combination": (_PROTOCOL_CU, f"{_PK}:190"),
+    "horner_eval": (_PROTOCOL_CU, f"{_PK}:214"),
+    "vanishing_eval": (_PROTOCOL_CU, f"{_PK}:236"),
+    "sub_mul": (_PROTOCOL_CU, f"{_PK}:353"),
+    "from_mont_pack_words": (_PROTOCOL_CU, f"{_PK}:373"),
 }
+
+BYTES_PER_S = 3.35e12  # H100 SXM device memory
+INT_OPS_PER_S = 67e12 / 4  # 64 integer lanes an SM against 128 FP32 lanes x 2 flops
+MONT_MUL_OPS = 136  # 32x32->64 multiply-adds of one 8-word CIOS product
+BLAKE2S_OPS = 960  # 32-bit integer operations of one compression
 
 RECORDS: list[dict] = []
 
@@ -67,13 +107,19 @@ def emit(rec: dict) -> None:
 
 def wrappers():
     from stark_tpu_torch.ops import blake2s, field_cuda, ntt
+    from stark_tpu_torch.protocol import fused_kernels as fk
 
-    return {
+    out = {
         "mmul": field_cuda.mmul,
         "butterfly_stage": ntt.butterfly_stage,
         "butterfly_fused": ntt.butterfly_fused,
         "blake2s_words": blake2s.blake2s_words,
+        "mpow_scalar": field_cuda.mpow_scalar,
+        "scan_prod": field_cuda.scan_prod,
     }
+    for name in list(KERNELS)[len(out):]:
+        out[name] = getattr(fk, name)
+    return out
 
 
 def random_planes(rng, spec, n: int, device) -> torch.Tensor:
@@ -113,49 +159,95 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((g - w).abs().max().item())
 
 
-def compare(name: str, kernel_fn, plain_fn, cases: dict, reps=(10, 3)) -> dict:
-    """Run kernel and plain version on each case: exact equality required;
-    times are the medians over the cases' per-call medians."""
+def compare(name: str, kernel_fn, plain_fn, cases: dict, reps=(10, 2)) -> dict:
+    """Run kernel and plain version on each case: exact equality required.
+    A case is (args, bytes moved, integer operations[, dependent
+    products]); `add_bounds` turns the last three into `bound_ms`. With
+    reps[1] == 0 the plain version's time is that of its one comparison
+    call (for plain versions that take seconds)."""
     per_case, err = {}, 0
-    for label, args in cases.items():
+    for label, (args, nbytes, ops, *chain) in cases.items():
         got = kernel_fn(*args)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
         want = plain_fn(*args)
+        end.record()
         torch.cuda.synchronize()
-        e = max_abs_err(got, want)
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name} [{label}]: kernel != plain (max abs err {e})")
-        err = max(err, e)
+        once_ms = start.elapsed_time(end)
+        for g, w in zip(*[(x,) if torch.is_tensor(x) else x for x in (got, want)]):
+            e = max_abs_err(g, w)
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name} [{label}]: kernel != plain (max abs err {e})")
+            err = max(err, e)
         per_case[label] = {"ms": median_ms(lambda: kernel_fn(*args), reps[0]),
-                           "plain_ms": median_ms(lambda: plain_fn(*args), reps[1])}
-    return {"max_abs_err": err,
-            "ms": statistics.median(c["ms"] for c in per_case.values()),
-            "plain_ms": statistics.median(c["plain_ms"] for c in per_case.values()),
-            "cases": per_case}
+                           "plain_ms": (median_ms(lambda: plain_fn(*args), reps[1])
+                                        if reps[1] else once_ms),
+                           "bytes": nbytes, "ops": ops,
+                           "chain": chain[0] if chain else 0}
+    return {"max_abs_err": err, "cases": per_case}
 
 
-def phase_kernels(spec, device, steps: int, precision: int) -> dict:
+def add_bounds(result: dict, dep_ms: float) -> None:
+    """Fill each case's `bound_ms`/`bound_by` (see the module docstring) and
+    the kernel's medians over its cases; dep_ms is the time of one dependent
+    Montgomery product."""
+    for c in result["cases"].values():
+        by_bytes = c["bytes"] / BYTES_PER_S * 1e3
+        by_ops = max(c["ops"] / INT_OPS_PER_S * 1e3, c["chain"] * dep_ms)
+        c["bound_ms"] = max(by_bytes, by_ops)
+        c["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    cases = list(result["cases"].values())
+    for key in ("ms", "plain_ms", "bound_ms"):
+        result[key] = statistics.median(c[key] for c in cases)
+    binding = [c["bound_by"] for c in cases]
+    result["bound_by"] = max(set(binding), key=binding.count)
+
+
+def with_edges(spec, planes: torch.Tensor) -> torch.Tensor:
+    """The same planes with p - 1 in the first two columns (flattened past
+    the limb axis) and 0 in the last."""
+    L = spec.num_limbs
+    out = planes.clone()
+    flat = out.reshape(L, -1)
+    top = torch.tensor([(spec.p - 1 >> 16 * i) & 0xFFFF for i in range(L)],
+                       dtype=torch.int32, device=planes.device)
+    flat[:, :2] = top[:, None]
+    flat[:, -1] = 0
+    return out
+
+
+def phase_kernels(spec, device, steps: int, precision: int, original_steps: int) -> dict:
     """Every kernel against its plain version at the main path's shapes."""
     from stark_tpu_torch.ops import blake2s as b2
     from stark_tpu_torch.ops import field_cuda as fc
+    from stark_tpu_torch.ops import modmath as mm
     from stark_tpu_torch.ops import ntt
+    from stark_tpu_torch.protocol import fused_kernels as fk
 
     rng = np.random.default_rng(SEED)
     g2 = spec.root_of_unity(precision)
     g1 = pow(g2, precision // steps, spec.p)
     big = ntt.NttPlan(spec, g2, precision, "dit", device)
     small = ntt.NttPlan(spec, spec.inv(g1), steps, "dif", device)
-    x_big = random_planes(rng, spec, precision, device)
-    x_small = random_planes(rng, spec, steps, device)
+    N, MM = precision, MONT_MUL_OPS
+    plane = 64 * N  # bytes of one (16, N) int32 plane
+    skips = precision // steps
+    kshift = original_steps // 3 * skips
+    rand = lambda n: random_planes(rng, spec, n, device)  # noqa: E731
+    x_big, y_big = rand(N), rand(N)
+    x_small = rand(steps)
     out = {}
     out["mmul"] = compare(
         "mmul",
         lambda a, b: fc.mmul(spec, a, b),
         lambda a, b: fc.mmul_plain(spec, a, b),
-        {f"(16,{precision})": (x_big, random_planes(rng, spec, precision, device))},
+        {f"(16,{N})": ((x_big, y_big), 3 * plane, N * MM)},
+        reps=(10, 3),
     )
     stage_cases = {
-        f"{kind} n={n} m={m} l={l}": (x, tw, m, l, kind)
-        for kind, n, x, plan in (("dit", precision, x_big, big), ("dif", steps, x_small, small))
+        f"{kind} n={n} m={m} l={l}": ((x, tw, m, l, kind),
+                                      2 * 64 * n + 4 * tw.numel(), n // 2 * MM)
+        for kind, n, x, plan in (("dit", N, x_big, big), ("dif", steps, x_small, small))
         for (m, l, tw) in plan.singles
     }
     out["butterfly_stage"] = compare(
@@ -163,29 +255,115 @@ def phase_kernels(spec, device, steps: int, precision: int) -> dict:
         lambda x, tw, m, l, kind: ntt.butterfly_stage(spec, x, tw, m, l, kind),
         lambda x, tw, m, l, kind: ntt.butterfly_stage_plain(spec, x, tw, m, l, kind),
         stage_cases,
-        reps=(10, 2),
     )
+    fused_work = (2 * plane + 4 * big.fused_tw.numel(),
+                  (big.block.bit_length() - 1) * N // 2 * MM)
     out["butterfly_fused"] = compare(
         "butterfly_fused",
         lambda x, tw, kind: ntt.butterfly_fused(spec, x, tw, big.block, kind),
         lambda x, tw, kind: ntt.butterfly_fused_plain(spec, x, tw, big.block, kind),
-        {f"dit n={precision} block={big.block}": (x_big, big.fused_tw, "dit"),
-         f"dif n={precision} block={big.block}": (x_big, big.fused_tw, "dif")},
-        reps=(10, 2),
+        {f"dit n={N} block={big.block}": ((x_big, big.fused_tw, "dit"), *fused_work),
+         f"dif n={N} block={big.block}": ((x_big, big.fused_tw, "dif"), *fused_work)},
     )
     out["blake2s_words"] = compare(
         "blake2s_words",
         b2.blake2s_words,
         b2.blake2s_words_plain,
-        {f"(64,{precision}) 256-byte leaves": (random_words(rng, 64, precision, device), 256),
-         f"(16,{precision // 2}) 64-byte nodes": (random_words(rng, 16, precision // 2, device), 64)},
-        reps=(10, 2),
+        {f"(64,{N}) 256-byte leaves": ((random_words(rng, 64, N, device), 256),
+                                       4 * (64 + 8) * N, 4 * N * BLAKE2S_OPS),
+         f"(16,{N // 2}) 64-byte nodes": ((random_words(rng, 16, N // 2, device), 64),
+                                          4 * (16 + 8) * (N // 2), N // 2 * BLAKE2S_OPS)},
     )
+
+    e = spec.p - 2
+    chain = e.bit_length() + bin(e).count("1")
+    one_lane = f"(16,1) e=p-2"
+    out["mpow_scalar"] = compare(
+        "mpow_scalar",
+        lambda a: fc.mpow_scalar(spec, a, e),
+        lambda a: fc.mpow_scalar_plain(spec, a, e),
+        {one_lane: ((rand(1),), 2 * 64, chain * MM, chain),
+         "(16,8) e=p-2": ((with_edges(spec, rand(8)),), 2 * 64 * 8, 8 * chain * MM, chain)},
+        reps=(10, 0),
+    )
+    out["scan_prod"] = compare(
+        "scan_prod",
+        lambda x: fc.scan_prod(spec, x),
+        lambda x: fc.scan_prod_plain(spec, x),
+        {f"n={n} level (16,{B},{C})": ((with_edges(spec, rand(B * C).reshape(16, B, C)),),
+                                       2 * 64 * B * C, B * C * MM, B)
+         for n in (steps, N) for (B, C) in mm.scan_levels(n)},
+        reps=(10, 0),
+    )
+
+    r3, k11 = rand(3), rand(11)
+    cols = [rand(N) for _ in range(7)] + [x_big, y_big]
+    out["rand_combination"] = compare(
+        "rand_combination",
+        lambda *a: fk.rand_combination(spec, *a),
+        lambda *a: fk.rand_combination_plain(spec, *a),
+        {f"n={steps}": ((r3, x_small, rand(steps), rand(steps)), 5 * 64 * steps, 3 * steps * MM),
+         f"n={N}": ((r3, *cols[:3]), 5 * plane, 3 * N * MM)},
+    )
+    out["q1_eval"] = compare(
+        "q1_eval",
+        lambda *a: fk.q1_eval(spec, *a),
+        lambda *a: fk.q1_eval_plain(spec, *a),
+        {f"n={N} skips={skips}": ((*cols[:5], skips), 6 * plane, 3 * N * MM)},
+    )
+    out["q2_eval"] = compare(
+        "q2_eval",
+        lambda *a: fk.q2_eval(spec, *a),
+        lambda *a: fk.q2_eval_plain(spec, *a),
+        {f"n={N} kshift={kshift}": ((*cols[:2], kshift), 3 * plane, 2 * N * MM)},
+    )
+    out["q3_eval"] = compare(
+        "q3_eval",
+        lambda *a: fk.q3_eval(spec, *a),
+        lambda *a: fk.q3_eval_plain(spec, *a),
+        {f"n={N} skips={skips}": ((*cols[:3], skips), 4 * plane, 2 * N * MM)},
+    )
+    out["linear_combination"] = compare(
+        "linear_combination",
+        lambda *a: fk.linear_combination(spec, *a),
+        lambda *a: fk.linear_combination_plain(spec, *a),
+        {f"n={N}": ((k11, *cols), 10 * plane, 14 * N * MM)},
+    )
+    out["horner_eval"] = compare(
+        "horner_eval",
+        lambda c, x: fk.horner_eval(spec, c, x),
+        lambda c, x: fk.horner_eval_plain(spec, c, x),
+        {f"n={N} d={d}": ((rand(d), x_big), 2 * plane, (d - 1) * N * MM) for d in (2, 17)},
+    )
+    out["vanishing_eval"] = compare(
+        "vanishing_eval",
+        lambda x, pts: fk.vanishing_eval(spec, x, pts),
+        lambda x, pts: fk.vanishing_eval_plain(spec, x, pts),
+        {f"n={N} points={k}": ((x_big, rand(k)), 2 * plane, k * N * MM) for k in (2, 17)},
+    )
+    a_edge, c_edge = with_edges(spec, x_big), with_edges(spec, y_big).flip(1).contiguous()
+    out["sub_mul"] = compare(
+        "sub_mul",
+        lambda *a: fk.sub_mul(spec, *a),
+        lambda *a: fk.sub_mul_plain(spec, *a),
+        {f"n={N} plane b": ((a_edge, cols[0], c_edge), 4 * plane, N * MM),
+         f"n={N} column b": ((a_edge, mm.mont_one(spec, device), c_edge), 3 * plane, N * MM)},
+    )
+    out["from_mont_pack_words"] = compare(
+        "from_mont_pack_words",
+        lambda c: fk.from_mont_pack_words(spec, c),
+        lambda c: fk.from_mont_pack_words_plain(spec, c),
+        {f"n={N}": ((a_edge,), plane + plane // 2, N * MM)},
+    )
+    dep_ms = out["mpow_scalar"]["cases"][one_lane]["ms"] / chain
+    for result in out.values():
+        add_bounds(result, dep_ms)
+    out["mpow_scalar"]["dependent_product_ms"] = dep_ms
     return out
 
 
 def _fixture(name: str):
-    from stark_tpu.r1cs.reader import read_r1cs, read_witness
+    from stark_tpu_torch.r1cs.reader import read_r1cs, read_witness
 
     with open(os.path.join(FIXTURES, f"{name}.r1cs"), "rb") as f:
         r1cs = read_r1cs(f.read())
@@ -216,7 +394,7 @@ def prove_and_check(name, r1cs, witness, device, golden_text=None, golden_sha=No
 
 
 def phase_goldens(device) -> list[dict]:
-    from stark_tpu.r1cs.synth import ragged_mix
+    from stark_tpu_torch.r1cs.synth import ragged_mix
 
     out = []
     for name, golden in (("compute", "compute_proof_golden.json"),
@@ -230,53 +408,160 @@ def phase_goldens(device) -> list[dict]:
     return out
 
 
-def phase_real(device, n_constraints: int) -> dict:
-    """Cold and warm prove plus verify at full size; launch counts of the
-    cold proving run."""
-    from stark_tpu.protocol.params import derive_params
-    from stark_tpu.fields.field import BN254_FR as spec
-    from stark_tpu.r1cs.synth import squaring_chain
+def phase_real(device, n_constraints: int, profile: bool) -> dict:
+    """Cold and warm prove plus verify at full size, with every kernel's
+    launch count in each proving run."""
+    from stark_tpu_torch.r1cs.synth import squaring_chain
     from stark_tpu_torch.protocol import runner
 
     r1cs, witness = squaring_chain(n_constraints)
     wrap = wrappers()
-    for fn in wrap.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    proof = runner.prove_with_witness(r1cs, witness, device=device)
-    cold_s = time.time() - t0
-    launches = {name: fn.launches for name, fn in wrap.items()}
-    peak_cold = torch.cuda.max_memory_allocated()
+
+    def timed_prove():
+        for fn in wrap.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        proof = runner.prove_with_witness(r1cs, witness, device=device)
+        seconds = time.time() - t0
+        launches = {name: fn.launches for name, fn in wrap.items()}
+        return proof, seconds, launches, torch.cuda.max_memory_allocated()
+
+    proof, cold_s, launches, peak_cold = timed_prove()
     missing = [name for name, n in launches.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the proving run: {missing}")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    proof_warm = runner.prove_with_witness(r1cs, witness, device=device)
-    warm_s = time.time() - t0
-    peak_warm = torch.cuda.max_memory_allocated()
+    proof_warm, warm_s, launches_warm, peak_warm = timed_prove()
     if proof_warm != proof:
         raise AssertionError("warm proof differs from the cold proof")
     t0 = time.time()
     if not runner.verify_with_witness(r1cs, witness[:2], proof, device=device):
         raise AssertionError("the verifier rejected the real-size proof")
     verify_s = time.time() - t0
-    arith = runner._static_arith(spec, r1cs)
-    params = derive_params(spec, arith.original_steps)
-    return {
-        "constraints": n_constraints, "steps": params.steps,
-        "precision": params.precision, "prove_cold_s": cold_s,
+    out = {
+        "constraints": n_constraints, "prove_cold_s": cold_s,
         "prove_warm_s": warm_s, "verify_s": verify_s,
         "peak_bytes_cold": peak_cold, "peak_bytes_warm": peak_warm,
-        "launches": launches,
+        "launches": launches, "launches_warm": launches_warm,
     }
+    if profile:
+        out["profile"] = profile_warm_prove(r1cs, witness, device, proof)
+    return out
+
+
+def profile_warm_prove(r1cs, witness, device, want_proof) -> dict:
+    """`torch.profiler` over one warm prove, then two warm proves with a
+    device synchronise after every stage for the stages' wall times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stark_tpu_torch.fri import fri
+    from stark_tpu_torch.protocol import prove, runner
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runner.prove_with_witness(r1cs, witness, device=device)
+        torch.cuda.synchronize()
+    profiled_s = time.time() - t0
+    kernels, copies, spans = {}, {"count": 0, "us": 0.0}, []
+    for ev in prof.events():
+        if str(ev.device_type).endswith("CUDA"):
+            us = ev.time_range.elapsed_us()
+            spans.append((ev.time_range.start, ev.time_range.end))
+            if ev.name.startswith("Memcpy") or ev.name.startswith("Memset"):
+                copies["count"] += 1
+                copies["us"] += us
+            else:
+                k = kernels.setdefault(ev.name, {"count": 0, "us": 0.0})
+                k["count"] += 1
+                k["us"] += us
+    busy_us, end = 0.0, None
+    for lo, hi in sorted(spans):  # union of the device intervals
+        if end is None or lo > end:
+            busy_us += hi - lo
+            end = hi
+        elif hi > end:
+            busy_us += hi - end
+            end = hi
+    span_us = max(hi for _, hi in spans) - min(lo for lo, _ in spans)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1]["us"])[:25]
+    # the hand-written kernels sit in anonymous namespaces outside at::
+    hand = {}
+    for name, k in kernels.items():
+        if "at::" not in name and "anonymous namespace" in name:
+            short = re.search(r"\w+_kernel\b", name).group(0)
+            h = hand.setdefault(short, {"count": 0, "us": 0.0})
+            h["count"] += k["count"]
+            h["us"] += k["us"]
+    result = {
+        "profiled_prove_s": profiled_s, "device_busy_us": busy_us,
+        "device_span_us": span_us, "device_busy_share": busy_us / span_us,
+        "kernel_launches": sum(k["count"] for k in kernels.values()),
+        "kernel_us": sum(k["us"] for k in kernels.values()),
+        "copies": copies,
+        "hand_kernels": hand, "hand_kernel_us": sum(h["us"] for h in hand.values()),
+        "top_kernels": [{"name": n[:120], **k} for n, k in top],
+    }
+
+    result["stage_wall_s"] = stage_walls(r1cs, witness, device, want_proof)
+    return result
+
+
+def stage_walls(r1cs, witness, device, want_proof, runs: int = 2) -> list[dict]:
+    """Wall seconds of each prover stage over `runs` warm proves, every stage
+    ending in a device synchronise; "rest" is host preparation plus the
+    materializing transfer and formatting."""
+    from stark_tpu_torch import device as devmod
+    from stark_tpu_torch.fields.field import BN254_FR as spec
+    from stark_tpu_torch.fri import fri
+    from stark_tpu_torch.protocol import prove, runner
+    from stark_tpu_torch.protocol.params import derive_params
+
+    arith = runner._static_arith(spec, r1cs)
+    params = derive_params(spec, arith.original_steps)
+    stages = prove._stages_cached(spec, params.steps, params.precision,
+                                  arith.original_steps, "blake2s", devmod.resolve(device))
+    walls: dict[str, float] = {}
+
+    def synced(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            walls[name] = walls.get(name, 0.0) + time.time() - t0
+            return out
+        return run
+
+    names = ("wit_traces", "a_root", "r", "columns", "commit_chain", "pos_gather")
+    saved = {name: stages[name] for name in names}
+    saved_fri = fri.prove_low_degree_pending
+    out = []
+    try:
+        for name in names:
+            stages[name] = synced(name, saved[name])
+        fri.prove_low_degree_pending = synced("fri", saved_fri)
+        for _ in range(runs):
+            walls.clear()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            proof = runner.prove_with_witness(r1cs, witness, device=device)
+            total = time.time() - t0
+            if proof != want_proof:
+                raise AssertionError("a stage-timed proof differs from the cold proof")
+            out.append({**walls, "rest": total - sum(walls.values()), "total": total})
+    finally:
+        stages.update(saved)
+        fri.prove_low_degree_pending = saved_fri
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every phase record to DIR/chip_smoke.json")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one warm prove and time its stages")
     args = ap.parse_args(argv)
 
     t0 = time.time()
@@ -284,8 +569,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    from stark_tpu.fields.field import BN254_FR as spec
-    from stark_tpu.protocol.params import derive_params
+    from stark_tpu_torch.fields.field import BN254_FR as spec
+    from stark_tpu_torch.protocol.params import derive_params
     from stark_tpu_torch.ops import build
 
     device = "cuda"
@@ -309,7 +594,8 @@ def main(argv=None) -> int:
     # a squaring chain fills one slot of each of the 3 regions per constraint
     params = derive_params(spec, 3 * REAL_CONSTRAINTS)
     t0 = time.time()
-    kstats = phase_kernels(spec, device, params.steps, params.precision)
+    kstats = phase_kernels(spec, device, params.steps, params.precision,
+                           params.original_steps)
     emit({"phase": "kernels", "steps": params.steps, "precision": params.precision,
           "tolerance": "exact (torch.equal)", "results": kstats,
           "seconds": time.time() - t0})
@@ -319,14 +605,17 @@ def main(argv=None) -> int:
     emit({"phase": "goldens", "results": goldens, "seconds": time.time() - t0})
 
     t0 = time.time()
-    real = phase_real(device, REAL_CONSTRAINTS)
-    emit({"phase": "real_size", **real, "seconds": time.time() - t0})
+    real = phase_real(device, REAL_CONSTRAINTS, args.profile)
+    emit({"phase": "real_size", "steps": params.steps, "precision": params.precision,
+          **real, "seconds": time.time() - t0})
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": real["launches"][name],
          "max_abs_err": kstats[name]["max_abs_err"],
-         "ms": kstats[name]["ms"], "plain_ms": kstats[name]["plain_ms"]}
+         "ms": kstats[name]["ms"], "plain_ms": kstats[name]["plain_ms"],
+         "bound_ms": kstats[name]["bound_ms"], "bound_by": kstats[name]["bound_by"],
+         "library_ms": None}
         for name, (src, rep) in KERNELS.items()
     ]
     if args.out:

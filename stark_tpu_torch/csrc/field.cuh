@@ -6,9 +6,10 @@
 // 8-word CIOS Montgomery multiply on 32x32->64-bit products instead of the
 // TPU's 16x16-bit schoolbook plus REDC. Same R, so the same canonical output.
 //
-// The modulus p (8 words) and n' = -p^-1 mod 2^32 arrive as a kernel
-// argument built from the caller's FieldSpec; nothing here is BN254-specific
-// beyond the width (p < 2^255, so 2p fits in 8 words).
+// The modulus p (8 words), Montgomery one R mod p (8 words) and
+// n' = -p^-1 mod 2^32 arrive as a kernel argument built from the caller's
+// FieldSpec; nothing here is BN254-specific beyond the width (p < 2^255, so
+// 2p fits in 8 words).
 #pragma once
 
 #include <cstdint>
@@ -21,18 +22,24 @@ constexpr int LIMBS = 16;  // 16-bit limbs per element in the planes
 
 struct Field {
   uint32_t p[NW];
-  uint32_t np;  // -p^-1 mod 2^32
+  uint32_t one[NW];  // R mod p: the Montgomery form of 1
+  uint32_t np;       // -p^-1 mod 2^32
 };
 
-// Host helper: copy the C-ABI modulus words into a by-value kernel argument.
-inline Field make_field(const uint32_t* p_words, uint32_t np) {
+// Host helper: copy the C-ABI field words (p, then R mod p: 16 words) into a
+// by-value kernel argument.
+inline Field make_field(const uint32_t* field_words, uint32_t np) {
   Field f;
-  for (int i = 0; i < NW; ++i) f.p[i] = p_words[i];
+  for (int i = 0; i < NW; ++i) {
+    f.p[i] = field_words[i];
+    f.one[i] = field_words[NW + i];
+  }
   f.np = np;
   return f;
 }
 
-// Element `col` of a (16, n) plane -> 8 packed words.
+// Element `col` of a (16, n) plane -> 8 packed words; also column `col` of a
+// small (16, k) operand (coefficients, points, challenges) with n = k.
 __device__ __forceinline__ void load_elem(const int32_t* __restrict__ planes,
                                           int64_t n, int64_t col,
                                           uint32_t w[NW]) {
@@ -42,6 +49,11 @@ __device__ __forceinline__ void load_elem(const int32_t* __restrict__ planes,
     uint32_t hi = static_cast<uint32_t>(planes[(2 * i + 1) * n + col]);
     w[i] = (lo & 0xFFFFu) | (hi << 16);
   }
+}
+
+__device__ __forceinline__ void set_elem(uint32_t w[NW], const uint32_t v[NW]) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) w[i] = v[i];
 }
 
 __device__ __forceinline__ void store_elem(int32_t* __restrict__ planes,

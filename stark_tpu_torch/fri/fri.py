@@ -14,9 +14,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from stark_tpu.fields.field import FieldSpec
-from stark_tpu.protocol import transcript as ts
-from stark_tpu.utils import poly_host as ph
+from stark_tpu_torch.fields.field import FieldSpec
+from stark_tpu_torch.protocol import transcript as ts
+from stark_tpu_torch.utils import poly_host as ph
 from stark_tpu_torch.merkle import tree as mt
 from stark_tpu_torch.ops import modmath as mm
 from stark_tpu_torch.protocol import device_transcript as dt

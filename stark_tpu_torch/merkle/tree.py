@@ -16,7 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from stark_tpu.protocol.transcript import blake
+from stark_tpu_torch.protocol.transcript import blake
 from stark_tpu_torch.ops import blake2s as b2
 
 

@@ -2,10 +2,11 @@
 
 All `csrc/*.cu` sources compile with `nvcc` into ONE shared library with a
 plain C interface, loaded through `ctypes` (no PyTorch headers, so a build
-takes seconds). The library lands in `stark_tpu_torch/_build/<key>/`, keyed
-by a hash of the sources and of `nvcc --version`, written to a temporary
-name and moved into place with `os.replace` (the first-use pattern of
-`stark_tpu/native/__init__.py`).
+takes seconds): one `nvcc -c` per source, all started together, then one
+link. The library lands in `stark_tpu_torch/_build/<key>/`, keyed by a hash
+of the sources and of `nvcc --version`, written to a temporary name and
+moved into place with `os.replace` (the first-use pattern of
+`stark_tpu_torch/native/__init__.py`).
 
 Unlike that module, a failed build is an error: no plain-PyTorch fallback
 stands in for a kernel. A missing `nvcc` or a compiler error raises
@@ -26,7 +27,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + [
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _vp = ctypes.c_void_p
@@ -42,6 +43,27 @@ _SIGNATURES = {
         _vp,
     ],
     "stark_blake2s_words": [_vp, _vp, _ll, ctypes.c_int, _ll, _vp],
+    "stark_mpow_scalar": [
+        _vp, _vp, ctypes.c_int, _u32p, ctypes.c_int, _u32p, ctypes.c_uint32, _vp,
+    ],
+    "stark_scan_prod": [_vp, _vp, _ll, _ll, _u32p, ctypes.c_uint32, _vp],
+    "stark_rand_combination": [
+        _vp, _vp, _vp, _vp, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp,
+    ],
+    "stark_q1_eval": [
+        _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _u32p, ctypes.c_uint32, _vp,
+    ],
+    "stark_q2_eval": [_vp, _vp, _vp, _ll, _ll, _ll, _u32p, ctypes.c_uint32, _vp],
+    "stark_q3_eval": [_vp, _vp, _vp, _vp, _ll, _ll, _u32p, ctypes.c_uint32, _vp],
+    "stark_linear_combination": [
+        _vp, ctypes.POINTER(_vp), _vp, _ll, _u32p, ctypes.c_uint32, _vp,
+    ],
+    "stark_horner_eval": [_vp, _ll, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp],
+    "stark_vanishing_eval": [_vp, _ll, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp],
+    "stark_sub_mul": [
+        _vp, _vp, ctypes.c_int, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp,
+    ],
+    "stark_from_mont_pack_words": [_vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp],
 }
 
 
@@ -80,16 +102,31 @@ def library_path() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(out_dir, exist_ok=True)
-    tmp = so + f".tmp{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f".tmp{os.getpid()}"
+    objs = [os.path.join(out_dir, os.path.basename(src)[:-3] + tag + ".o")
+            for src in sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for obj, src in zip(objs, sources())]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    failed = any(proc.returncode != 0 for proc in procs)
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", so + tag, *objs]
+    if not failed:
+        done = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        cmds.append(link)
+        outputs.append(done.stdout)
+        failed = done.returncode != 0
+    log = "".join(" ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outputs))
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)
+        f.write(log)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    os.replace(so + tag, so)
     return so
 
 

@@ -1,14 +1,18 @@
-"""Elementwise Montgomery multiply: the CUDA kernel and its plain version.
+"""The field kernels and their plain versions: the elementwise Montgomery
+multiply, the scalar-lane power and the prefix-product scan (the JAX package
+keeps the three in `ops/pallas_field.py`).
 
-`mmul` takes (16, n) int32 limb planes (16-bit limbs, Montgomery form,
-R = 2^256, the JAX package's layout and bit patterns). On a CUDA tensor it
-launches `csrc/mmul.cu` (which replaces `stark_tpu/ops/pallas_field.py:174`)
-or raises; on a CPU tensor it runs `mmul_plain`. Nothing else chooses the
-route: no environment variable, no fallback on error.
+All take int32 limb planes, limbs first (16-bit limbs, Montgomery form,
+R = 2^256, the JAX package's layout and bit patterns). On a CUDA tensor
+`mmul` launches `csrc/mmul.cu` (which replaces
+`stark_tpu/ops/pallas_field.py:174`), `mpow_scalar` and `scan_prod` launch
+`csrc/fieldops.cu` (`:573` and `:626`), or raise; on a CPU tensor each runs
+its `*_plain` version. Nothing else chooses the route: no size gate, no
+environment variable, no fallback on error.
 
 `mmul_plain` is the same function in plain PyTorch (16x16-bit schoolbook
-columns and REDC in int64), also used to hold the kernel to account on the
-card.
+columns and REDC in int64); `mpow_scalar_plain` and `scan_prod_plain` are
+loops of it. They also hold the kernels to account on the card.
 """
 
 from __future__ import annotations
@@ -18,20 +22,25 @@ import functools
 
 import torch
 
-from stark_tpu.fields.field import LIMB_BITS, FieldSpec, int_to_limbs
+from stark_tpu_torch.fields.field import LIMB_BITS, FieldSpec, int_to_limbs
 from stark_tpu_torch.ops import build
 
 _MASK = (1 << LIMB_BITS) - 1
 
 
+def _words8(x: int) -> list[int]:
+    """A 256-bit integer as 8 little-endian uint32 words."""
+    return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+
+
 @functools.lru_cache(maxsize=None)
 def _consts(spec: FieldSpec):
     """Host constants: p as 16-bit limbs, n' = -p^-1 mod R as limbs, and the
-    kernels' (8 x uint32 words of p, -p^-1 mod 2^32)."""
+    kernels' (8 x uint32 words of p then 8 of R mod p, -p^-1 mod 2^32)."""
     L = spec.num_limbs
     R = 1 << spec.r_bits
     n_prime = (-pow(spec.p, -1, R)) % R
-    words = (ctypes.c_uint32 * 8)(*[(spec.p >> (32 * i)) & 0xFFFFFFFF for i in range(8)])
+    words = (ctypes.c_uint32 * 16)(*_words8(spec.p), *_words8(spec.r_mod_p))
     np32 = (-pow(spec.p, -1, 1 << 32)) % (1 << 32)
     return int_to_limbs(spec.p, L), int_to_limbs(n_prime, L), words, np32
 
@@ -100,8 +109,8 @@ def check_planes(spec: FieldSpec, *ts: torch.Tensor) -> None:
 
 
 def cuda_args(spec: FieldSpec, t: torch.Tensor):
-    """(p words, n', stream) for a launch on t's device; raises where the
-    kernels cannot run."""
+    """(field words, n', stream) for a launch on t's device; raises where
+    the kernels cannot run."""
     if t.device.type != "cuda":
         raise ValueError(f"no kernel for device {t.device}")
     if spec.num_limbs != 16:
@@ -132,3 +141,83 @@ def mmul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 mmul.launches = 0
+
+
+def _one_like(spec: FieldSpec, like: torch.Tensor) -> torch.Tensor:
+    """Montgomery one broadcast to `like`'s shape (limbs first)."""
+    one = torch.tensor(int_to_limbs(spec.r_mod_p, spec.num_limbs), dtype=torch.int32,
+                       device=like.device)
+    return one.reshape((-1,) + (1,) * (like.dim() - 1)).expand(like.shape).contiguous()
+
+
+def mpow_scalar_plain(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e of a (16, k) plane, MSB-first square-and-multiply from Montgomery
+    one: 0 -> 0 for e > 0, and e = 0 gives one."""
+    acc = _one_like(spec, a)
+    for i in range(max(e.bit_length(), 1) - 1, -1, -1):
+        acc = mmul_plain(spec, acc, acc)
+        if (e >> i) & 1:
+            acc = mmul_plain(spec, acc, a)
+    return acc
+
+
+def mpow_scalar(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e elementwise for a small (16, k <= 32) Montgomery plane and an
+    exponent 0 <= e < 2^256, the whole chain in one launch."""
+    check_planes(spec, a)
+    if not 0 <= e < 1 << 256:
+        raise ValueError("the exponent must lie in [0, 2^256)")
+    if a.shape[1] > 32:
+        raise ValueError(f"mpow_scalar takes at most 32 lanes, got {a.shape[1]}")
+    if a.device.type == "cpu":
+        return mpow_scalar_plain(spec, a, e)
+    words, np32, stream = cuda_args(spec, a)
+    out = torch.empty_like(a)
+    rc = build.load().stark_mpow_scalar(
+        a.data_ptr(), out.data_ptr(), a.shape[1], (ctypes.c_uint32 * 8)(*_words8(e)),
+        max(e.bit_length(), 1), words, np32, stream,
+    )
+    build.check(rc, "mpow_scalar")
+    mpow_scalar.launches += 1
+    return out
+
+
+mpow_scalar.launches = 0
+
+
+def _check_scan(spec: FieldSpec, x: torch.Tensor) -> None:
+    if x.dtype != torch.int32:
+        raise TypeError(f"limb planes must be torch.int32, got {x.dtype}")
+    if x.dim() != 3 or x.shape[0] != spec.num_limbs:
+        raise ValueError(f"scan_prod takes ({spec.num_limbs}, B, C), got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("limb planes must be contiguous")
+
+
+def scan_prod_plain(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix product along axis 1 of (16, B, C), row by row."""
+    out = torch.empty_like(x)
+    run = _one_like(spec, x[:, 0])
+    for b in range(x.shape[1]):
+        run = mmul_plain(spec, run, x[:, b].contiguous())
+        out[:, b] = run
+    return out
+
+
+def scan_prod(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix product along axis 1 of a (16, B, C) Montgomery
+    array, independently per column c; any B, any C."""
+    _check_scan(spec, x)
+    if x.device.type == "cpu":
+        return scan_prod_plain(spec, x)
+    words, np32, stream = cuda_args(spec, x)
+    out = torch.empty_like(x)
+    rc = build.load().stark_scan_prod(
+        x.data_ptr(), out.data_ptr(), x.shape[1], x.shape[2], words, np32, stream,
+    )
+    build.check(rc, "scan_prod")
+    scan_prod.launches += 1
+    return out
+
+
+scan_prod.launches = 0

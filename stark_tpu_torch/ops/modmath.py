@@ -7,9 +7,10 @@ limbs of 16 bits, little-endian, Montgomery form with R = 2^256. Planes are
 
 Every field product goes through `field_cuda.mmul` (the CUDA kernel on a
 card, its plain version on the CPU). `madd`/`msub` are plain PyTorch, as
-their JAX counterparts are XLA and not Pallas. `prefix_prod`, `multi_inv`
-and `mpow` are the composed (non-Pallas) routes of the JAX package
-(`modmath.py:301-320, 384-459`): loops of `mmul` launches.
+their JAX counterparts are XLA and not Pallas. `mpow` sends long exponents
+on a few lanes to `field_cuda.mpow_scalar`, and `prefix_prod` (so
+`multi_inv`) stitches `field_cuda.scan_prod` launches recursively, as the
+JAX package does on its accelerator (`modmath.py:287-308, 351-381`).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stark_tpu.fields.field import LIMB_BITS, FieldSpec, int_to_limbs
+from stark_tpu_torch.fields.field import LIMB_BITS, FieldSpec, int_to_limbs
 from stark_tpu_torch.ops import field_cuda
 from stark_tpu_torch.ops.field_cuda import cond_sub_p, normalize
 
@@ -158,8 +159,12 @@ def from_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 
 
 def mpow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
-    """a^e elementwise (Montgomery in/out), MSB-first square-and-multiply:
-    two `mmul` launches per exponent bit."""
+    """a^e elementwise (Montgomery in/out), MSB-first square-and-multiply.
+    An exponent of 32 bits or more on a (L, k <= 8) operand is one
+    `mpow_scalar` launch (the shape gate of `stark_tpu/ops/modmath.py:296`);
+    anything else is two `mmul` launches per exponent bit."""
+    if a.dim() == 2 and a.shape[1] <= 8 and e.bit_length() >= 32:
+        return field_cuda.mpow_scalar(spec, a.contiguous(), e)
     nbits = max(e.bit_length(), 1)
     acc = mont_one(spec, a.device).reshape((-1,) + (1,) * (a.dim() - 1)).expand(a.shape)
     for i in range(nbits):
@@ -175,41 +180,49 @@ def minv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# prefix products and batched inversion (blocked two-level scans)
+# prefix products and batched inversion (recursive scans)
 # ---------------------------------------------------------------------------
 
+# Rows of one scan: each thread of `scan_prod` walks a chain of this many
+# dependent products, so it is kept short and the columns many.
+SCAN_ROWS = 64
 
-def _block_size(n: int) -> int:
-    b = 1
-    while b * b < n:
-        b *= 2
-    return min(b, 1024)
+
+def scan_levels(n: int) -> list[tuple[int, int]]:
+    """The (B, C) shapes of the `scan_prod` launches that `prefix_prod`
+    makes for a length-n array, outermost first."""
+    levels = []
+    while True:
+        B, C = (n, 1) if n <= SCAN_ROWS else (SCAN_ROWS, n // SCAN_ROWS)
+        if B * C != n:
+            raise ValueError(
+                f"prefix_prod needs a length of at most {SCAN_ROWS} or a "
+                f"multiple of {SCAN_ROWS} at every level, got {n}"
+            )
+        levels.append((B, C))
+        if C == 1:
+            return levels
+        n = C
 
 
 def prefix_prod(spec: FieldSpec, v: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """Inclusive prefix product along axis 1 of a (L, N) Montgomery array,
-    N a power of two: an in-block scan batched over all blocks, a scan of
-    the block totals, then one combine multiply (B + C + 1 launches)."""
-    L, n = v.shape
+    """Inclusive prefix product along axis 1 of a (L, N) Montgomery array
+    (`stark_tpu/ops/modmath.py:351-381`): contiguous chunks of B elements
+    ride the rows of one `scan_prod` launch with the chunks side by side on
+    the columns, the chunk totals recurse, and one combine multiply stitches
+    them. Prefix products are canonical field values, so the chunking does
+    not change a bit of the result."""
     if reverse:
-        v = v.flip(1)
-    B = _block_size(n)
-    C = n // B
-    if C * B != n:
-        raise ValueError("prefix_prod requires a power-of-two length")
-    vb = v.reshape(L, C, B)
-    pref = torch.empty((L, C, B), dtype=torch.int32, device=v.device)
-    carry = mont_one(spec, v.device).expand(L, C)
-    for j in range(B):
-        carry = mmul(spec, carry, vb[:, :, j])
-        pref[:, :, j] = carry
-    one = mont_one(spec, v.device)
-    exc = [one]
-    for i in range(C - 1):
-        exc.append(mmul(spec, exc[-1], carry[:, i : i + 1]))
-    cpref_exc = torch.cat(exc, dim=1)  # (L, C) exclusive block prefixes
-    out = mmul(spec, pref, cpref_exc[:, :, None]).reshape(L, n)
-    return out.flip(1) if reverse else out
+        return prefix_prod(spec, v.flip(1)).flip(1)
+    L, n = v.shape
+    B, C = scan_levels(n)[0]
+    vb = v.reshape(L, C, B).transpose(1, 2).contiguous()  # chunks on the columns
+    pref = field_cuda.scan_prod(spec, vb)  # (L, B, C), inclusive per chunk
+    if C == 1:
+        return pref.reshape(L, n)
+    ctot_inc = prefix_prod(spec, pref[:, B - 1, :])  # (L, C)
+    ctot_exc = torch.cat([mont_one(spec, v.device), ctot_inc[:, :-1]], dim=1)
+    return mmul(spec, pref.transpose(1, 2), ctot_exc[:, :, None]).reshape(L, n)
 
 
 def multi_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
@@ -220,7 +233,7 @@ def multi_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     z = (a == 0).all(dim=0)[None]
     v = torch.where(z, one, a)
     pre_inc = prefix_prod(spec, v)
-    suf_inc = prefix_prod(spec, v.flip(1)).flip(1)
+    suf_inc = prefix_prod(spec, v, reverse=True)
     total_inv = minv(spec, pre_inc[:, -1:])
     pre_exc = torch.cat([one, pre_inc[:, :-1]], dim=1)
     suf_exc = torch.cat([suf_inc[:, 1:], one], dim=1)

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from stark_tpu.fields.field import FieldSpec
+from stark_tpu_torch.fields.field import FieldSpec
 from stark_tpu_torch.ops import build
 from stark_tpu_torch.ops import field_cuda as fc
 from stark_tpu_torch.ops import modmath as mm

@@ -12,12 +12,13 @@ from __future__ import annotations
 
 import torch
 
-from stark_tpu.fields.field import FieldSpec
-from stark_tpu.protocol.params import SPOT_CHECK_SECURITY_FACTOR
+from stark_tpu_torch.fields.field import FieldSpec
+from stark_tpu_torch.protocol.params import SPOT_CHECK_SECURITY_FACTOR
 from stark_tpu_torch.merkle import tree as mt
 from stark_tpu_torch.ops import modmath as mm
 from stark_tpu_torch.ops import ntt as nttm
 from stark_tpu_torch.protocol import device_transcript as dt
+from stark_tpu_torch.protocol import fused_kernels
 from stark_tpu_torch.protocol import kernels
 
 # Above this the JAX package switches to periodic (L, skips) domain bases
@@ -28,25 +29,19 @@ TRACE_NAMES = ("k", "f0", "f1", "f2", "s", "p", "idx", "perm")
 COL_NAMES = ("p", "a", "s", "d1", "d2", "d3", "b2", "b3")
 
 
-def _i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 values < 2^32 -> int32 with the same bit pattern."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
-
-
 def leaves_to_words(spec: FieldSpec, columns) -> torch.Tensor:
     """Montgomery columns -> (W, M) int32 words of the concatenated
     canonical little-endian 32-byte encodings, zero-padded to whole blake
-    blocks (`stark_tpu/parallel/prove_sharded.py:390-408`)."""
-    word_cols = []
-    for col in columns:
-        canon = mm.from_mont(spec, col).to(torch.int64)
-        word_cols.append(_i32(canon[0::2] | (canon[1::2] << 16)))
-    words = torch.cat(word_cols, dim=0)
+    blocks (`stark_tpu/protocol/core.py:966-983 _words_best`): one
+    `from_mont_pack_words` launch per column, each straight into its 8 rows
+    of the leaf buffer."""
     nblocks = max(1, (32 * len(columns) + 63) // 64)
-    padw = nblocks * 16 - words.shape[0]
-    if padw:
-        words = torch.cat([words, words.new_zeros((padw, words.shape[1]))], dim=0)
-    return words.contiguous()
+    m = columns[0].shape[1]
+    words = torch.empty((nblocks * 16, m), dtype=torch.int32, device=columns[0].device)
+    for j, col in enumerate(columns):
+        fused_kernels.from_mont_pack_words(spec, col.contiguous(), out=words[8 * j : 8 * j + 8])
+    words[8 * len(columns) :] = 0
+    return words
 
 
 def build_proof_stages(spec: FieldSpec, steps: int, precision: int,

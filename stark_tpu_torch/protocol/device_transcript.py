@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from stark_tpu.fields.field import FieldSpec, int_to_limbs
+from stark_tpu_torch.fields.field import FieldSpec, int_to_limbs
 from stark_tpu_torch.ops import blake2s as b2
 from stark_tpu_torch.ops import modmath as mm
 

@@ -15,10 +15,10 @@ import functools
 import numpy as np
 import torch
 
-from stark_tpu.fields.field import FieldSpec
-from stark_tpu.protocol.params import SPOT_CHECK_SECURITY_FACTOR, derive_params
-from stark_tpu.r1cs.arithmetize import Arithmetization
-from stark_tpu.utils import poly_host as ph
+from stark_tpu_torch.fields.field import FieldSpec
+from stark_tpu_torch.protocol.params import SPOT_CHECK_SECURITY_FACTOR, derive_params
+from stark_tpu_torch.r1cs.arithmetize import Arithmetization
+from stark_tpu_torch.utils import poly_host as ph
 from stark_tpu_torch import device as devmod
 from stark_tpu_torch.fri import fri
 from stark_tpu_torch.merkle import tree as mt

@@ -11,10 +11,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from stark_tpu import native
-from stark_tpu.fields.field import BN254_FR, FieldSpec
-from stark_tpu.r1cs.arithmetize import Arithmetization, arithmetize, slot_wire_ids_np
-from stark_tpu.r1cs.reader import R1csContents, read_r1cs, read_witness
+from stark_tpu_torch import native
+from stark_tpu_torch.fields.field import BN254_FR, FieldSpec
+from stark_tpu_torch.r1cs.arithmetize import Arithmetization, arithmetize, slot_wire_ids_np
+from stark_tpu_torch.r1cs.reader import R1csContents, read_r1cs, read_witness
 from stark_tpu_torch.protocol import proof as proof_mod
 from stark_tpu_torch.protocol.prove import mk_r1cs_proof
 from stark_tpu_torch.protocol.verify import verify_r1cs_proof

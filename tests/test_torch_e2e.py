@@ -19,13 +19,13 @@ import sys
 import pytest
 import torch
 
-from stark_tpu.fields.field import BN254_FR as spec
-from stark_tpu.r1cs.reader import read_r1cs, read_witness
 from stark_tpu_torch import cli
+from stark_tpu_torch.fields.field import BN254_FR as spec
 from stark_tpu_torch.fri.fri import FriLast, FriMiddle
 from stark_tpu_torch.merkle.tree import MerkleProof
 from stark_tpu_torch.protocol import proof as proof_mod
 from stark_tpu_torch.protocol import runner
+from stark_tpu_torch.r1cs.reader import read_r1cs, read_witness
 
 torch.set_num_threads(2)
 

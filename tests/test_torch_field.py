@@ -12,6 +12,7 @@ import torch
 
 from stark_tpu.fields.field import BN254_FR as spec
 from stark_tpu.ops import modmath as jmm
+from stark_tpu_torch.fields.field import BN254_FR as tspec
 from stark_tpu_torch import device as devmod
 from stark_tpu_torch.interop import planes_from_numpy, planes_to_numpy
 from stark_tpu_torch.ops import field_cuda as fc
@@ -44,23 +45,23 @@ def _eq(port: torch.Tensor, jax_arr) -> None:
 
 def test_limb_codecs_match_jax():
     vals = _values(1)
-    assert np.array_equal(mm.ints_to_limbs_np(vals, spec), jmm.ints_to_limbs_np(vals, spec))
+    assert np.array_equal(mm.ints_to_limbs_np(vals, tspec), jmm.ints_to_limbs_np(vals, spec))
     limbs = jmm.ints_to_limbs_np(vals, spec)
-    assert mm.limbs_to_ints_np(limbs, spec) == vals
+    assert mm.limbs_to_ints_np(limbs, tspec) == vals
     by = jmm.limbs_to_bytes_le_np(limbs, spec)
-    assert np.array_equal(mm.limbs_to_bytes_le_np(limbs, spec), by)
-    assert np.array_equal(mm.bytes_le_to_limbs_np(by, spec), limbs)
-    _eq(mm.bytes_le_to_limbs(spec, torch.from_numpy(by)), limbs)
+    assert np.array_equal(mm.limbs_to_bytes_le_np(limbs, tspec), by)
+    assert np.array_equal(mm.bytes_le_to_limbs_np(by, tspec), limbs)
+    _eq(mm.bytes_le_to_limbs(tspec, torch.from_numpy(by)), limbs)
 
 
 def test_mont_roundtrip_matches_jax():
     canon = jmm.ints_to_limbs_np(_values(2), spec)
     want = _mont_np(_values(2))
-    got = mm.to_mont(spec, _t(canon))
+    got = mm.to_mont(tspec, _t(canon))
     _eq(got, want)
-    _eq(mm.from_mont(spec, got), canon)
-    _eq(mm.mont_consts(spec, _values(2), "cpu"), want)
-    _eq(mm.mont_const(spec, 12345, "cpu"), np.asarray(jmm.mont_const(spec, 12345)))
+    _eq(mm.from_mont(tspec, got), canon)
+    _eq(mm.mont_consts(tspec, _values(2), "cpu"), want)
+    _eq(mm.mont_const(tspec, 12345, "cpu"), np.asarray(jmm.mont_const(spec, 12345)))
 
 
 @pytest.mark.parametrize("op", ["mmul", "madd", "msub"])
@@ -87,32 +88,32 @@ def test_broadcast_operands(op):
 def test_wrapper_runs_plain_on_cpu_tensors():
     a, b = _t(_mont_np(_values(6))), _t(_mont_np(_values(7)))
     before = fc.mmul.launches
-    assert torch.equal(fc.mmul(spec, a, b), fc.mmul_plain(spec, a, b))
+    assert torch.equal(fc.mmul(tspec, a, b), fc.mmul_plain(tspec, a, b))
     assert fc.mmul.launches == before  # the counter counts kernel launches only
 
 
 def test_wrapper_rejects_bad_planes():
     a = _t(_mont_np(_values(8)))
     with pytest.raises(TypeError):
-        fc.mmul(spec, a.to(torch.int64), a.to(torch.int64))
+        fc.mmul(tspec, a.to(torch.int64), a.to(torch.int64))
     with pytest.raises(ValueError):
-        fc.mmul(spec, a[:, ::2], a[:, ::2])
+        fc.mmul(tspec, a[:, ::2], a[:, ::2])
     with pytest.raises(ValueError):
-        fc.mmul(spec, a, a[:, :32].contiguous())
+        fc.mmul(tspec, a, a[:, :32].contiguous())
 
 
 @pytest.mark.parametrize("e", [0, 1, 2, 5, 2**64 + 3, spec.p - 2])
 def test_mpow_matches_jax(e):
     a = _mont_np(_values(9, 8))
-    _eq(mm.mpow(spec, _t(a), e), jmm.mpow(spec, a, e))
+    _eq(mm.mpow(tspec, _t(a), e), jmm.mpow(spec, a, e))
 
 
 def test_minv_matches_jax_and_inverts():
     a = _mont_np(_values(10, 8))
-    inv = mm.minv(spec, _t(a))
+    inv = mm.minv(tspec, _t(a))
     _eq(inv, jmm.minv(spec, a))
-    prod = mm.from_mont(spec, fc.mmul_plain(spec, inv, _t(a)))
-    ints = mm.limbs_to_ints_np(planes_to_numpy(prod), spec)
+    prod = mm.from_mont(tspec, fc.mmul_plain(tspec, inv, _t(a)))
+    ints = mm.limbs_to_ints_np(planes_to_numpy(prod), tspec)
     assert ints == [0 if v == 0 else 1 for v in _values(10, 8)]
 
 
@@ -120,18 +121,18 @@ def test_minv_matches_jax_and_inverts():
 @pytest.mark.parametrize("reverse", [False, True])
 def test_prefix_prod_matches_jax(n, reverse):
     v = _mont_np(_values(11, max(n, 8))[:n])
-    _eq(mm.prefix_prod(spec, _t(v), reverse), jmm.prefix_prod(spec, v, reverse))
+    _eq(mm.prefix_prod(tspec, _t(v), reverse), jmm.prefix_prod(spec, v, reverse))
 
 
 def test_multi_inv_matches_jax_with_zeros():
     v = _mont_np(_values(12))  # holds 0 (skipped, maps to 0), 1 and p-1
-    _eq(mm.multi_inv(spec, _t(v)), jmm.multi_inv(spec, v))
+    _eq(mm.multi_inv(tspec, _t(v)), jmm.multi_inv(spec, v))
 
 
 @pytest.mark.parametrize("n", [1, 2, 256])
 def test_power_table_matches_jax(n):
     g = spec.root_of_unity(512)
-    _eq(mm.power_table(spec, g, n, "cpu"), jmm.power_table(spec, g, n))
+    _eq(mm.power_table(tspec, g, n, "cpu"), jmm.power_table(spec, g, n))
 
 
 def test_cuda_request_without_card_raises():

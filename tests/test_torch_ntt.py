@@ -19,6 +19,7 @@ import torch
 from stark_tpu.fields.field import BN254_FR as spec
 from stark_tpu.ops import modmath as jmm
 from stark_tpu.ops import ntt as jntt
+from stark_tpu_torch.fields.field import BN254_FR as tspec
 from stark_tpu_torch.interop import planes_from_numpy, planes_to_numpy
 from stark_tpu_torch.ops import ntt
 
@@ -49,11 +50,11 @@ def _jax_case(n: int, kind: str):
 @pytest.mark.parametrize("n", SIZES)
 def test_plan_matches_jax_core(n, kind, block):
     x, want = _jax_case(n, kind)
-    plan = ntt.NttPlan(spec, spec.root_of_unity(n), n, kind, "cpu", block=block)
+    plan = ntt.NttPlan(tspec, spec.root_of_unity(n), n, kind, "cpu", block=block)
     assert plan.block == min(n, block)
     if n > block:
         assert plan.singles and plan.fused_tw is not None  # both paths run
-    got = ntt.run(spec, planes_from_numpy(x, "cpu"), plan)
+    got = ntt.run(tspec, planes_from_numpy(x, "cpu"), plan)
     assert np.array_equal(planes_to_numpy(got), want)
 
 
@@ -61,7 +62,7 @@ def test_split_does_not_change_values():
     n = 1 << 10
     x = planes_from_numpy(_random_mont(n, seed=3), "cpu")
     outs = [
-        planes_to_numpy(ntt.run(spec, x, ntt.NttPlan(spec, spec.root_of_unity(n), n,
+        planes_to_numpy(ntt.run(tspec, x, ntt.NttPlan(tspec, spec.root_of_unity(n), n,
                                                      "dit", "cpu", block=b)))
         for b in (2, 32, n)
     ]
@@ -72,7 +73,7 @@ def test_stage_tables_match_jax_power_table():
     n = 1 << 9
     root = spec.root_of_unity(n)
     w_half = np.asarray(jmm.power_table(spec, root, n // 2))
-    plan = ntt.NttPlan(spec, root, n, "dit", "cpu", block=16)
+    plan = ntt.NttPlan(tspec, root, n, "dit", "cpu", block=16)
     for m, l, tw in plan.singles:
         assert np.array_equal(planes_to_numpy(tw), w_half[:, ::m][:, :l])
     # fused tables: stage l at columns l-1 .. 2l-2
@@ -85,11 +86,11 @@ def test_wrappers_check_shapes():
     x = planes_from_numpy(_random_mont(64, seed=4), "cpu")
     tw = x[:, :8].contiguous()
     with pytest.raises(ValueError):
-        ntt.butterfly_stage(spec, x, tw, 4, 16, "dit")  # tw too narrow
+        ntt.butterfly_stage(tspec, x, tw, 4, 16, "dit")  # tw too narrow
     with pytest.raises(ValueError):
-        ntt.butterfly_fused(spec, x, tw, 24, "dit")  # block not a power of 2
+        ntt.butterfly_fused(tspec, x, tw, 24, "dit")  # block not a power of 2
     with pytest.raises(ValueError):
-        ntt.butterfly_stage(spec, x, x[:, :32].contiguous(), 1, 32, "fft")
+        ntt.butterfly_stage(tspec, x, x[:, :32].contiguous(), 1, 32, "fft")
 
 
 @pytest.mark.parametrize("block", [16, 2048])
@@ -99,8 +100,8 @@ def test_lde_matches_jax(block):
     g1 = pow(g2, precision // steps, spec.p)
     trace = _random_mont(steps, seed=5)
     want = _jax_lde(steps, precision, trace.tobytes())
-    plan = ntt.make_lde_plan(spec, g1, g2, steps, precision, "cpu", block=block)
-    got = ntt.lde(spec, planes_from_numpy(trace, "cpu"), plan)
+    plan = ntt.make_lde_plan(tspec, g1, g2, steps, precision, "cpu", block=block)
+    got = ntt.lde(tspec, planes_from_numpy(trace, "cpu"), plan)
     assert np.array_equal(planes_to_numpy(got), want)
 
 

@@ -28,11 +28,12 @@ from stark_tpu.ops import modmath as jmm
 from stark_tpu.protocol import device_transcript as jdt
 from stark_tpu.protocol import kernels as jk
 from stark_tpu.protocol import transcript as ts
-from stark_tpu.r1cs.reader import read_r1cs, read_witness
+from stark_tpu_torch.fields.field import BN254_FR as tspec
 from stark_tpu_torch.interop import planes_from_numpy, planes_to_numpy
 from stark_tpu_torch.ops import modmath as mm
 from stark_tpu_torch.protocol import device_transcript as dt
 from stark_tpu_torch.protocol import kernels as k
+from stark_tpu_torch.r1cs.reader import read_r1cs, read_witness
 from torch_stage_check import check_stages_match_jax
 
 torch.set_num_threads(2)
@@ -65,29 +66,29 @@ def test_rand_combination_and_accumulator():
     (r,) = _cols(2, width=3)  # (L, 3) randomness columns
     idx, perm, s = _cols(3, count=3)
     jn, jd = jk.rand_combination(spec, r, idx, perm, s)
-    tn, td = k.rand_combination(spec, _t(r), _t(idx), _t(perm), _t(s))
+    tn, td = k.rand_combination(tspec, _t(r), _t(idx), _t(perm), _t(s))
     _eq(tn, jn)
     _eq(td, jd)
-    _eq(k.accumulator_mini(spec, tn, td), jk.accumulator_mini(spec, jn, jd))
+    _eq(k.accumulator_mini(tspec, tn, td), jk.accumulator_mini(spec, jn, jd))
 
 
 @pytest.mark.parametrize("skips", [1, 8])
 def test_quotients(skips):
     s, kk, p, f0, f1, f2, a, vn, vd = _cols(4, count=9)
-    _eq(k.q1_eval(spec, _t(s), _t(kk), _t(p), _t(f0), _t(f1), skips),
+    _eq(k.q1_eval(tspec, _t(s), _t(kk), _t(p), _t(f0), _t(f1), skips),
         jk.q1_eval(spec, s, kk, p, f0, f1, skips))
-    _eq(k.q2_eval(spec, _t(p), _t(f2), 3 * skips), jk.q2_eval(spec, p, f2, 3 * skips))
-    _eq(k.q3_eval(spec, _t(a), _t(vn), _t(vd), skips), jk.q3_eval(spec, a, vn, vd, skips))
+    _eq(k.q2_eval(tspec, _t(p), _t(f2), 3 * skips), jk.q2_eval(spec, p, f2, 3 * skips))
+    _eq(k.q3_eval(tspec, _t(a), _t(vn), _t(vd), skips), jk.q3_eval(spec, a, vn, vd, skips))
 
 
 def test_horner_vanishing_sub_mul_periodic():
     xs, a, b, c, table = _cols(5, count=5)
     (coeffs,) = _cols(6, width=5)
     (pts,) = _cols(7, width=3)
-    _eq(k.horner_eval(spec, _t(coeffs), _t(xs)), jk.horner_eval(spec, coeffs, xs))
-    _eq(k.vanishing_eval(spec, _t(xs), _t(pts)), jk.vanishing_eval(spec, xs, pts))
-    _eq(k.sub_mul_ev(spec, _t(a), _t(b), _t(c)), jk.sub_mul_ev(spec, a, b, c))
-    _eq(k.mmul_periodic_const(spec, _t(a), _t(table)),
+    _eq(k.horner_eval(tspec, _t(coeffs), _t(xs)), jk.horner_eval(spec, coeffs, xs))
+    _eq(k.vanishing_eval(tspec, _t(xs), _t(pts)), jk.vanishing_eval(spec, xs, pts))
+    _eq(k.sub_mul_ev(tspec, _t(a), _t(b), _t(c)), jk.sub_mul_ev(spec, a, b, c))
+    _eq(k.mmul_periodic_const(tspec, _t(a), _t(table)),
         jk.mmul_periodic_const(spec, a, table))
 
 
@@ -95,7 +96,7 @@ def test_linear_combination():
     (km,) = _cols(8, width=11)
     x2s, p, a, s, d1, d2, d3, b2, b3 = _cols(9, count=9)
     args = (p, a, s, d1, d2, d3, b2, b3)
-    _eq(k.linear_combination(spec, _t(km), _t(x2s), *map(_t, args)),
+    _eq(k.linear_combination(tspec, _t(km), _t(x2s), *map(_t, args)),
         jk.linear_combination(spec, km, x2s, *args))
 
 
@@ -109,7 +110,7 @@ def _words(seed: bytes) -> torch.Tensor:
 
 
 def _ints(mont) -> list[int]:
-    return mm.limbs_to_ints_np(planes_to_numpy(mm.from_mont(spec, mont)), spec)
+    return mm.limbs_to_ints_np(planes_to_numpy(mm.from_mont(tspec, mont)), tspec)
 
 
 @pytest.mark.parametrize("seed", SEEDS, ids=range(len(SEEDS)))
@@ -117,14 +118,14 @@ def test_transcript_matches_host(seed):
     for modulus, count, excl in [(2048, 80, 8), (65536, 40, 8), (7, 5, 0), (2**20, 24, 0)]:
         got = dt.pseudorandom_indices(_words(seed), modulus, count, excl).tolist()
         assert got == ts.get_pseudorandom_indices(seed, modulus, count, excl)
-    assert _ints(dt.random_ff_mont(spec, _words(seed), 2**20, 3)) == \
+    assert _ints(dt.random_ff_mont(tspec, _words(seed), 2**20, 3)) == \
         ts.get_random_ff_values(spec, seed, 2**20, 3)
-    assert _ints(dt.k_coeffs_mont(spec, _words(seed))) == [1] + [
+    assert _ints(dt.k_coeffs_mont(tspec, _words(seed))) == [1] + [
         ts.seed_to_field(spec, [seed, bytes([i])]) for i in range(1, 11)
     ]
-    assert _ints(dt.digest_le_int_mont(spec, _words(seed))) == [spec.from_bytes_le(seed)]
+    assert _ints(dt.digest_le_int_mont(tspec, _words(seed))) == [spec.from_bytes_le(seed)]
     jw = jnp.asarray(np.frombuffer(seed, "<u4").copy())
-    _eq(dt.digest_be_int_mont(spec, _words(seed)), jdt.digest_be_int_mont(spec, jw))
+    _eq(dt.digest_be_int_mont(tspec, _words(seed)), jdt.digest_be_int_mont(spec, jw))
 
 
 # --- prover stages ------------------------------------------------------------

@@ -7,7 +7,7 @@ Tolerance: exact equality (integer field arithmetic, canonical outputs).
 
 import torch
 
-from stark_tpu.r1cs.synth import ragged_mix
+from stark_tpu_torch.r1cs.synth import ragged_mix
 from torch_stage_check import check_stages_match_jax
 
 torch.set_num_threads(2)

@@ -11,6 +11,7 @@ from stark_tpu.ops import modmath as jmm
 from stark_tpu.protocol.core import build_proof_stages as jax_stages
 from stark_tpu.protocol.params import derive_params
 from stark_tpu.utils import poly_host as ph
+from stark_tpu_torch.fields.field import BN254_FR as tspec
 from stark_tpu_torch.interop import planes_from_numpy, tree_from_numpy, tree_to_numpy
 from stark_tpu_torch.protocol import prove as tprove
 from stark_tpu_torch.protocol import runner
@@ -47,13 +48,13 @@ def assert_same(port, jax_out, what: str) -> None:
 
 def check_stages_match_jax(r1cs, witness) -> None:
     h = r1cs.header
-    arith = runner._static_arith(spec, r1cs)
+    arith = runner._static_arith(tspec, r1cs)
     n_pub = 1 + h.n_public_inputs + h.n_public_outputs
     pub = [spec.from_bytes_le(w) for w in witness[:n_pub]]
     params = derive_params(spec, arith.original_steps)
     steps, precision, skips = params.steps, params.precision, params.skips
     J = jax_stages(spec, steps, precision, arith.original_steps, None, "blake2s")
-    T = build_proof_stages(spec, steps, precision, arith.original_steps, "blake2s",
+    T = build_proof_stages(tspec, steps, precision, arith.original_steps, "blake2s",
                            "cpu", block=16)
     t = lambda a: planes_from_numpy(np.asarray(a), "cpu")  # noqa: E731
 
@@ -67,8 +68,8 @@ def check_stages_match_jax(r1cs, witness) -> None:
     wids = np.zeros(steps, np.uint32)
     wids[: arith.original_steps] = arith.slot_wire_ids
     inputs = [
-        tprove._col_bytes_np(spec, tprove._pad_col(arith.coefficients, steps)),
-        tprove._col_bytes_np(spec, wit),
+        tprove._col_bytes_np(tspec, tprove._pad_col(arith.coefficients, steps)),
+        tprove._col_bytes_np(tspec, wit),
         wids,
         np.asarray(tprove._pad_col(arith.flag1, steps), np.uint8),
         np.asarray(tprove._pad_col(arith.flag2, steps), np.uint8),
