@@ -9,36 +9,49 @@ non-zero and no phase's error is swallowed:
 1. device: a CUDA card must be present (its name and power limit are
    printed as `nvidia-smi --query-gpu=name,power.limit` gives them);
 2. build: the kernel library is built with nvcc from stark_tpu_torch/csrc;
-3. kernels: each of the 15 CUDA kernels against its plain PyTorch version
+3. kernels: each of the 17 CUDA kernels against its plain PyTorch version
    on the card, at the prover's shapes for 43,690 constraints (steps 2^17,
    precision 2^20), inputs from a numpy seed; tolerance: exact equality
-   (integer field arithmetic with canonical outputs), with median times of
-   both and the least time the card could take (`bound_ms`);
+   (integer field arithmetic with canonical outputs), with the median time
+   of both per case and the least time the card could take (`bound_ms`);
 4. goldens: the `compute` and `poseidon3_test` proofs must be byte-identical
    to the committed goldens and the `ragged_mix(120)` proof must match its
    committed sha256; the port's verifier must accept each;
 5. real size: `squaring_chain(43690)` proved twice (cold and warm) and
-   verified; every kernel's launch counter must be > 0 for the cold proving
-   run, and the warm run's counts are recorded;
+   verified; the launch counter of every kernel of the prover's path must
+   be > 0 for the cold proving run, and the warm run's counts are recorded;
 6. only with `--profile`: `torch.profiler` over one more warm prove (device
    busy share, launches, copies, device time by kernel) and the wall of
    each stage with a device synchronise after it.
 
-The line before the last lists the kernels as JSON; the last line is
-{"ok": true, "device": {...}}. `--out DIR` also writes every phase record
-to DIR/chip_smoke.json.
+The line before the card's lists the kernels of the prover's path as JSON
+(`kernels`; each with the numbers of its first case, the largest shape the
+proving run gives it, named under `case`) and, under `off_path`, the one
+ported kernel the path does not run: `linear_combination` on the (16, n)
+x^steps table, whose place the stages' Shoup pattern pair takes. The last
+line is {"ok": true, "device": {...}}. `--out DIR` also writes every phase
+record, with every case, to DIR/chip_smoke.json.
 
 `bound_ms` is the larger of the bytes a kernel must move (each input read
 once, each output written once) over 3.35 TB/s and its integer operations
 over 16.75e12 a second: an H100 SM executes 64 32-bit integer operations a
 clock, half of the 128 FP32 lanes behind the published 67 TFLOP/s. A
 Montgomery product counts 136 multiply-adds (two 8x8-word products and 8
-for the reduction factors), a Blake2s compression 960 (10 rounds of 8 G of
-12). `mpow_scalar` and `scan_prod` walk chains of dependent products on few
-threads, so their bound is the chain's length times the time of one
-dependent product, which is read off this run's single-lane `mpow_scalar`.
-No single PyTorch call computes any of these functions, so `library_ms` is
-null throughout.
+for the reduction factors), as does a Shoup product (one 8x8-word product
+and two low halves of 36), a Blake2s compression 960 (10 rounds of 8 G of
+12). `bound_by` is "bytes" unless the operations take strictly longer.
+
+`mpow_scalar` and `scan_prod` walk chains of dependent products on few
+threads, which that bound does not see. Beside it, and not as a bound, they
+get `chain_ms`: the chain's length times the critical path of one CIOS
+product under a stated model, over the card's highest SM clock as
+`nvidia-smi --query-gpu=clocks.max.sm` gives it. The model: each of the 8
+rounds hands its lowest word to the next after 4 dependent multiply-adds
+(product word 0, the reduction factor, reduction words 0 and 1), the last
+round drains 7 more words, and the top word and the conditional subtraction
+add 10: 48 dependent 64-bit multiply-adds, each counted as two dependent
+integer instructions of 4 cycles. No single PyTorch call computes any of
+these functions, so `library_ms` is null throughout.
 """
 
 from __future__ import annotations
@@ -86,6 +99,8 @@ KERNELS = {
     "q2_eval": (_PROTOCOL_CU, f"{_PK}:137"),
     "q3_eval": (_PROTOCOL_CU, f"{_PK}:154"),
     "linear_combination": (_PROTOCOL_CU, f"{_PK}:190"),
+    "shoup_mul_periodic": (_PROTOCOL_CU, f"{_PK}:268"),
+    "linear_combination_shoup": (_PROTOCOL_CU, f"{_PK}:319"),
     "horner_eval": (_PROTOCOL_CU, f"{_PK}:214"),
     "vanishing_eval": (_PROTOCOL_CU, f"{_PK}:236"),
     "sub_mul": (_PROTOCOL_CU, f"{_PK}:353"),
@@ -96,6 +111,11 @@ BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12 / 4  # 64 integer lanes an SM against 128 FP32 lanes x 2 flops
 MONT_MUL_OPS = 136  # 32x32->64 multiply-adds of one 8-word CIOS product
 BLAKE2S_OPS = 960  # 32-bit integer operations of one compression
+
+# ported, but not run by the prover's stages (see the module docstring)
+OFF_PATH = ("linear_combination",)
+CHAIN_STEPS = 48  # dependent 64-bit multiply-adds on one CIOS product's critical path
+CYCLES_PER_STEP = 8  # two dependent integer instructions of 4 cycles
 
 RECORDS: list[dict] = []
 
@@ -162,9 +182,10 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
 def compare(name: str, kernel_fn, plain_fn, cases: dict, reps=(10, 2)) -> dict:
     """Run kernel and plain version on each case: exact equality required.
     A case is (args, bytes moved, integer operations[, dependent
-    products]); `add_bounds` turns the last three into `bound_ms`. With
-    reps[1] == 0 the plain version's time is that of its one comparison
-    call (for plain versions that take seconds)."""
+    products]); `add_bounds` turns these into `bound_ms` and `chain_ms`.
+    The first case is the one the `kernels` line reports. With reps[1] == 0
+    the plain version's time is that of its one comparison call (for plain
+    versions that take seconds)."""
     per_case, err = {}, 0
     for label, (args, nbytes, ops, *chain) in cases.items():
         got = kernel_fn(*args)
@@ -187,20 +208,17 @@ def compare(name: str, kernel_fn, plain_fn, cases: dict, reps=(10, 2)) -> dict:
     return {"max_abs_err": err, "cases": per_case}
 
 
-def add_bounds(result: dict, dep_ms: float) -> None:
-    """Fill each case's `bound_ms`/`bound_by` (see the module docstring) and
-    the kernel's medians over its cases; dep_ms is the time of one dependent
-    Montgomery product."""
+def add_bounds(result: dict, sm_hz: float) -> None:
+    """Fill each case's `bound_ms`/`bound_by` and, for a chain of dependent
+    products, `chain_ms` (see the module docstring)."""
     for c in result["cases"].values():
         by_bytes = c["bytes"] / BYTES_PER_S * 1e3
-        by_ops = max(c["ops"] / INT_OPS_PER_S * 1e3, c["chain"] * dep_ms)
+        by_ops = c["ops"] / INT_OPS_PER_S * 1e3
         c["bound_ms"] = max(by_bytes, by_ops)
-        c["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
-    cases = list(result["cases"].values())
-    for key in ("ms", "plain_ms", "bound_ms"):
-        result[key] = statistics.median(c[key] for c in cases)
-    binding = [c["bound_by"] for c in cases]
-    result["bound_by"] = max(set(binding), key=binding.count)
+        c["bound_by"] = "operations" if by_ops > by_bytes else "bytes"
+        chain = c.pop("chain")
+        c["chain_ms"] = (chain * CHAIN_STEPS * CYCLES_PER_STEP / sm_hz * 1e3
+                         if chain else None)
 
 
 def with_edges(spec, planes: torch.Tensor) -> torch.Tensor:
@@ -216,7 +234,8 @@ def with_edges(spec, planes: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def phase_kernels(spec, device, steps: int, precision: int, original_steps: int) -> dict:
+def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
+                  sm_hz: float) -> dict:
     """Every kernel against its plain version at the main path's shapes."""
     from stark_tpu_torch.ops import blake2s as b2
     from stark_tpu_torch.ops import field_cuda as fc
@@ -298,12 +317,13 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int)
 
     r3, k11 = rand(3), rand(11)
     cols = [rand(N) for _ in range(7)] + [x_big, y_big]
+    a_edge, c_edge = with_edges(spec, x_big), with_edges(spec, y_big).flip(1).contiguous()
     out["rand_combination"] = compare(
         "rand_combination",
         lambda *a: fk.rand_combination(spec, *a),
         lambda *a: fk.rand_combination_plain(spec, *a),
-        {f"n={steps}": ((r3, x_small, rand(steps), rand(steps)), 5 * 64 * steps, 3 * steps * MM),
-         f"n={N}": ((r3, *cols[:3]), 5 * plane, 3 * N * MM)},
+        {f"n={N}": ((r3, *cols[:3]), 5 * plane, 3 * N * MM),
+         f"n={steps}": ((r3, x_small, rand(steps), rand(steps)), 5 * 64 * steps, 3 * steps * MM)},
     )
     out["q1_eval"] = compare(
         "q1_eval",
@@ -329,6 +349,30 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int)
         lambda *a: fk.linear_combination_plain(spec, *a),
         {f"n={N}": ((k11, *cols), 10 * plane, 14 * N * MM)},
     )
+    # a pattern of `skips` plain constants, as the stages build it: 0 (the
+    # first of Z^-1), 1 and p - 1 among them
+    consts = [0, 1, spec.p - 1] + [
+        int.from_bytes(rng.bytes(32), "little") % spec.p for _ in range(skips - 3)
+    ]
+    pats = mm.shoup_consts(spec, consts, device)
+    pat_bytes = 2 * 64 * skips
+    # the same constants tiled wider than a thread block: the kernels' other
+    # way to stage a pattern, which the prover's stages do not use
+    wide = tuple(p.repeat(1, 1024 // skips) for p in pats)
+    out["shoup_mul_periodic"] = compare(
+        "shoup_mul_periodic",
+        lambda *a: fk.shoup_mul_periodic(spec, *a),
+        lambda *a: fk.shoup_mul_periodic_plain(spec, *a),
+        {f"n={N} t={skips}": ((*pats, a_edge), 2 * plane + pat_bytes, N * MM),
+         f"n={N} t=1024": ((*wide, a_edge), 2 * plane + 2 * 64 * 1024, N * MM)},
+    )
+    out["linear_combination_shoup"] = compare(
+        "linear_combination_shoup",
+        lambda *a: fk.linear_combination_shoup(spec, *a),
+        lambda *a: fk.linear_combination_shoup_plain(spec, *a),
+        {f"n={N} t={skips}": ((k11, *pats, *cols[1:]), 9 * plane + pat_bytes, 14 * N * MM),
+         f"n={N} t=1024": ((k11, *wide, *cols[1:]), 9 * plane + 2 * 64 * 1024, 14 * N * MM)},
+    )
     out["horner_eval"] = compare(
         "horner_eval",
         lambda c, x: fk.horner_eval(spec, c, x),
@@ -341,7 +385,6 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int)
         lambda x, pts: fk.vanishing_eval_plain(spec, x, pts),
         {f"n={N} points={k}": ((x_big, rand(k)), 2 * plane, k * N * MM) for k in (2, 17)},
     )
-    a_edge, c_edge = with_edges(spec, x_big), with_edges(spec, y_big).flip(1).contiguous()
     out["sub_mul"] = compare(
         "sub_mul",
         lambda *a: fk.sub_mul(spec, *a),
@@ -355,10 +398,12 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int)
         lambda c: fk.from_mont_pack_words_plain(spec, c),
         {f"n={N}": ((a_edge,), plane + plane // 2, N * MM)},
     )
-    dep_ms = out["mpow_scalar"]["cases"][one_lane]["ms"] / chain
     for result in out.values():
-        add_bounds(result, dep_ms)
-    out["mpow_scalar"]["dependent_product_ms"] = dep_ms
+        add_bounds(result, sm_hz)
+    # measured, for the record: the time of one dependent product on one lane
+    out["mpow_scalar"]["dependent_product_ms"] = (
+        out["mpow_scalar"]["cases"][one_lane]["ms"] / chain
+    )
     return out
 
 
@@ -429,7 +474,7 @@ def phase_real(device, n_constraints: int, profile: bool) -> dict:
         return proof, seconds, launches, torch.cuda.max_memory_allocated()
 
     proof, cold_s, launches, peak_cold = timed_prove()
-    missing = [name for name, n in launches.items() if n <= 0]
+    missing = [name for name, n in launches.items() if n <= 0 and name not in OFF_PATH]
     if missing:
         raise AssertionError(f"kernels not launched by the proving run: {missing}")
     proof_warm, warm_s, launches_warm, peak_warm = timed_prove()
@@ -575,12 +620,17 @@ def main(argv=None) -> int:
 
     device = "cuda"
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    def nvidia_smi(query: str) -> str:
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+
+    smi = nvidia_smi("name,power.limit")
+    sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
-          "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nvidia_smi": smi, "clocks_max_sm_mhz": sm_mhz,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
           "seconds": time.time() - t0})
 
     t0 = time.time()
@@ -595,7 +645,7 @@ def main(argv=None) -> int:
     params = derive_params(spec, 3 * REAL_CONSTRAINTS)
     t0 = time.time()
     kstats = phase_kernels(spec, device, params.steps, params.precision,
-                           params.original_steps)
+                           params.original_steps, sm_mhz * 1e6)
     emit({"phase": "kernels", "steps": params.steps, "precision": params.precision,
           "tolerance": "exact (torch.equal)", "results": kstats,
           "seconds": time.time() - t0})
@@ -609,20 +659,24 @@ def main(argv=None) -> int:
     emit({"phase": "real_size", "steps": params.steps, "precision": params.precision,
           **real, "seconds": time.time() - t0})
 
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": real["launches"][name],
-         "max_abs_err": kstats[name]["max_abs_err"],
-         "ms": kstats[name]["ms"], "plain_ms": kstats[name]["plain_ms"],
-         "bound_ms": kstats[name]["bound_ms"], "bound_by": kstats[name]["bound_by"],
-         "library_ms": None}
-        for name, (src, rep) in KERNELS.items()
-    ]
+    def line_entry(name):
+        src, rep = KERNELS[name]
+        label, case = next(iter(kstats[name]["cases"].items()))
+        return {"name": name, "route": "cuda", "source": src, "replaces": rep,
+                "launches": real["launches"][name],
+                "max_abs_err": kstats[name]["max_abs_err"], "case": label,
+                "ms": case["ms"], "plain_ms": case["plain_ms"],
+                "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+                "chain_ms": case["chain_ms"], "library_ms": None}
+
+    kernels = [line_entry(name) for name in KERNELS if name not in OFF_PATH]
+    off_path = [line_entry(name) for name in OFF_PATH]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump({"records": RECORDS, "kernels": kernels}, f, indent=1)
-    print(json.dumps({"kernels": kernels}))
+            json.dump({"records": RECORDS, "kernels": kernels, "off_path": off_path},
+                      f, indent=1)
+    print(json.dumps({"kernels": kernels, "off_path": off_path}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

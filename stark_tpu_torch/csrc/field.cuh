@@ -123,6 +123,56 @@ __device__ __forceinline__ void mont_mul(const Field& f, const uint32_t a[NW],
   cond_sub_p(f, t[NW], r);
 }
 
+// Shoup product by a constant: w < p is a plain (non-Montgomery) value and
+// wp = floor(w * 2^256 / p) its companion. r = w*x - q*p with
+// q = floor(wp*x / 2^256) equals w*x mod p up to one subtraction of p:
+// 0 <= r < p + x*p/2^256, so r < 2p for any x < 2^256. A Montgomery x stays
+// Montgomery: w*(xR) = (wx)R. q is exact (the whole high half of the 16-word
+// product), the two other products need their low 8 words only, and 2p < 2^256
+// makes the difference mod 2^256 the true difference.
+__device__ __forceinline__ void shoup_mul(const Field& f, const uint32_t w[NW],
+                                          const uint32_t wp[NW],
+                                          const uint32_t x[NW], uint32_t r[NW]) {
+  uint32_t t[2 * NW];
+#pragma unroll
+  for (int i = 0; i < 2 * NW; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      uint64_t s = static_cast<uint64_t>(wp[j]) * x[i] + t[i + j] + c;
+      t[i + j] = static_cast<uint32_t>(s);
+      c = s >> 32;
+    }
+    t[i + NW] = static_cast<uint32_t>(c);
+  }
+  // lo = (w*x mod 2^256) - (q*p mod 2^256), word by word with a borrow
+  uint32_t wx[NW], qp[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) wx[i] = qp[i] = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t c = 0, d = 0;
+#pragma unroll
+    for (int j = 0; i + j < NW; ++j) {
+      uint64_t s = static_cast<uint64_t>(w[j]) * x[i] + wx[i + j] + c;
+      wx[i + j] = static_cast<uint32_t>(s);
+      c = s >> 32;
+      uint64_t u = static_cast<uint64_t>(f.p[j]) * t[NW + i] + qp[i + j] + d;
+      qp[i + j] = static_cast<uint32_t>(u);
+      d = u >> 32;
+    }
+  }
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t s = static_cast<uint64_t>(wx[i]) - qp[i] - borrow;
+    r[i] = static_cast<uint32_t>(s);
+    borrow = (s >> 32) & 1u;
+  }
+}
+
 // (a + b) mod p for a, b < p.
 __device__ __forceinline__ void mod_add(const Field& f, const uint32_t a[NW],
                                         const uint32_t b[NW], uint32_t r[NW]) {

@@ -4,7 +4,7 @@
 // `mpow_scalar` (body `_mpow_kernel`: a fori_loop that squares, multiplies
 // always and selects, with the exponent bits in SMEM).
 //   What bounds it on an H100: a chain of bit_length + popcount dependent
-//   Montgomery products on at most 8 lanes; it moves 128 bytes per lane.
+//   Montgomery products on at most 32 lanes; it moves 128 bytes per lane.
 //   What the design does about it: nothing can shorten the chain, so the
 //   kernel only removes everything around it: one block, one thread per
 //   lane, operand and accumulator in registers, the exponent (up to 256 bits)

@@ -10,6 +10,8 @@
 //   linear_combination    :190  sum k_j*term_j, three terms times x^steps
 //   horner_eval           :214  a polynomial of d coefficients at every x
 //   vanishing_eval        :236  prod_i (x - x_i)
+//   shoup_mul_periodic    :268  x times periodic plain constants, Shoup form
+//   linear_combination_shoup :319  the same sum, x^steps as a Shoup pattern pair
 //   sub_mul               :353  (a - b)*c
 //   from_mont_pack_words  :373  REDC by 1, limb pairs to little-endian words
 //
@@ -39,6 +41,19 @@
 //   x^steps value kept for three terms): about 40 words live at the widest.
 // - `from_mont_pack_words` stores the 8 packed words as they sit in
 //   registers: they are the little-endian words of the canonical value.
+// - The Shoup kernels multiply by constants that repeat along the domain with
+//   a short period (Z^-1 and x^steps: the extension factor, 8). On the TPU the
+//   form saves limb products (1.7 against 3). Here an exact Shoup product
+//   costs the 136 multiply-adds of a CIOS product, and what it saves is
+//   bytes: the (16, n) table is never read, so `shoup_mul_periodic` moves 2
+//   planes where `mmul` by the table moves 3, and the linear combination 9
+//   where the table form moves 10. The pattern pair (w and floor(w*2^256/p),
+//   any width t that divides n) is staged per block in shared memory as
+//   packed words, whole when t <= THREADS (with a padded stride so that the
+//   columns a warp reads fall in different banks), else each thread's own
+//   column; the products read it from there at each use, which keeps 16
+//   words out of the registers. `linear_combination_shoup` feeds the lazy [0, 2p)
+//   products straight to the k_j multiply, whose reduction takes them.
 #include "field.cuh"
 
 namespace {
@@ -155,10 +170,10 @@ q3_kernel(const int32_t* __restrict__ a_ev, const int32_t* __restrict__ nmr,
 }
 
 struct LincombCols {
-  const int32_t *x2s, *p, *a, *s, *d1, *d2, *d3, *b2, *b3;
+  const int32_t *p, *a, *s, *d1, *d2, *d3, *b2, *b3;
 };
 
-// acc += k_j * term.
+// acc += k_j * term; term may be lazy (< 2p), acc stays canonical.
 __device__ __forceinline__ void lincomb_term(const Field& f,
                                              const uint32_t kj[NW],
                                              const uint32_t term[NW],
@@ -169,39 +184,139 @@ __device__ __forceinline__ void lincomb_term(const Field& f,
   stark::set_elem(acc, u);
 }
 
-__global__ void __launch_bounds__(THREADS)
-linear_combination_kernel(const int32_t* __restrict__ k, LincombCols c,
-                          int32_t* __restrict__ out, int64_t n, Field f) {
-  __shared__ uint32_t ks[11][NW];
-  stage_cols(k, 11, 0, 11, ks);
-  __syncthreads();
-  int64_t i = global_index();
-  if (i >= n) return;
-  uint32_t acc[NW], x[NW], v[NW], t[NW];
+// The two ways to multiply a column value by x^steps at this element.
+struct TimesMont {  // x^steps in Montgomery form, from the (16, n) table
+  uint32_t x[NW];
+  __device__ __forceinline__ void operator()(const Field& f,
+                                             const uint32_t v[NW],
+                                             uint32_t t[NW]) const {
+    stark::mont_mul(f, v, x, t);
+  }
+};
+
+struct TimesShoup {  // plain x^steps and its companion; the product is < 2p
+  const uint32_t *w, *wp;  // in shared memory, read again at each use
+  __device__ __forceinline__ void operator()(const Field& f,
+                                             const uint32_t v[NW],
+                                             uint32_t t[NW]) const {
+    stark::shoup_mul(f, w, wp, v, t);
+  }
+};
+
+// sum_j k_j * term_j at element i, term by term.
+template <class TimesX>
+__device__ __forceinline__ void lincomb_sum(const Field& f,
+                                            const uint32_t (*ks)[NW],
+                                            const LincombCols& c, int64_t n,
+                                            int64_t i, const TimesX& times_x,
+                                            int32_t* __restrict__ out) {
+  uint32_t acc[NW], v[NW], t[NW];
   stark::load_elem(c.d1, n, i, v);
   stark::mont_mul(f, ks[0], v, acc);
   stark::load_elem(c.d2, n, i, v);
   lincomb_term(f, ks[1], v, acc);
   stark::load_elem(c.d3, n, i, v);
   lincomb_term(f, ks[2], v, acc);
-  stark::load_elem(c.x2s, n, i, x);
   stark::load_elem(c.p, n, i, v);
   lincomb_term(f, ks[3], v, acc);
-  stark::mont_mul(f, v, x, t);
+  times_x(f, v, t);
   lincomb_term(f, ks[4], t, acc);
   stark::load_elem(c.b2, n, i, v);
   lincomb_term(f, ks[5], v, acc);
-  stark::mont_mul(f, v, x, t);
+  times_x(f, v, t);
   lincomb_term(f, ks[6], t, acc);
   stark::load_elem(c.b3, n, i, v);
   lincomb_term(f, ks[7], v, acc);
-  stark::mont_mul(f, v, x, t);
+  times_x(f, v, t);
   lincomb_term(f, ks[8], t, acc);
   stark::load_elem(c.a, n, i, v);
   lincomb_term(f, ks[9], v, acc);
   stark::load_elem(c.s, n, i, v);
   lincomb_term(f, ks[10], v, acc);
   stark::store_elem(out, n, i, acc);
+}
+
+__global__ void __launch_bounds__(THREADS)
+linear_combination_kernel(const int32_t* __restrict__ k,
+                          const int32_t* __restrict__ x2s, LincombCols c,
+                          int32_t* __restrict__ out, int64_t n, Field f) {
+  __shared__ uint32_t ks[11][NW];
+  stage_cols(k, 11, 0, 11, ks);
+  __syncthreads();
+  int64_t i = global_index();
+  if (i >= n) return;
+  TimesMont times_x;
+  stark::load_elem(x2s, n, i, times_x.x);
+  lincomb_sum(f, ks, c, n, i, times_x, out);
+}
+
+// A (16, t) Shoup pattern pair for the elements of one block, as packed words
+// in shared memory. Element i takes column i mod t. A pattern of at most
+// THREADS columns is staged whole, row = column (stride NW + 1 words: the
+// few columns a warp reads then lie in different banks); of a wider one
+// each thread stages its own column in its own row.
+struct PatternTile {
+  uint32_t w[THREADS][NW + 1];
+  uint32_t wp[THREADS][NW + 1];
+};
+
+// Returns the tile row of element i's constants. The block must reach this
+// together, and a barrier must follow before the rows are read.
+__device__ __forceinline__ int stage_pattern(const int32_t* __restrict__ w_pat,
+                                             const int32_t* __restrict__ wp_pat,
+                                             int64_t t, int64_t i,
+                                             PatternTile& tile) {
+  uint32_t v[NW];
+  if (t <= THREADS) {
+    for (int j = threadIdx.x; j < t; j += blockDim.x) {
+      stark::load_elem(w_pat, t, j, v);
+      stark::set_elem(tile.w[j], v);
+      stark::load_elem(wp_pat, t, j, v);
+      stark::set_elem(tile.wp[j], v);
+    }
+    return static_cast<int>(i % t);
+  }
+  stark::load_elem(w_pat, t, i % t, v);
+  stark::set_elem(tile.w[threadIdx.x], v);
+  stark::load_elem(wp_pat, t, i % t, v);
+  stark::set_elem(tile.wp[threadIdx.x], v);
+  return threadIdx.x;
+}
+
+__global__ void __launch_bounds__(THREADS)
+linear_combination_shoup_kernel(const int32_t* __restrict__ k,
+                                const int32_t* __restrict__ xw_pat,
+                                const int32_t* __restrict__ xwp_pat, int64_t t,
+                                LincombCols c, int32_t* __restrict__ out,
+                                int64_t n, Field f) {
+  __shared__ uint32_t ks[11][NW];
+  __shared__ PatternTile tile;
+  int64_t i = global_index();
+  stage_cols(k, 11, 0, 11, ks);
+  int row = stage_pattern(xw_pat, xwp_pat, t, i, tile);
+  __syncthreads();
+  if (i >= n) return;
+  TimesShoup times_x{tile.w[row], tile.wp[row]};
+  lincomb_sum(f, ks, c, n, i, times_x, out);
+}
+
+// out[i] = x[i] * w[i mod t] mod p, canonical: one Shoup product and one
+// conditional subtraction of p.
+__global__ void __launch_bounds__(THREADS)
+shoup_mul_periodic_kernel(const int32_t* __restrict__ w_pat,
+                          const int32_t* __restrict__ wp_pat, int64_t t,
+                          const int32_t* __restrict__ x,
+                          int32_t* __restrict__ out, int64_t n, Field f) {
+  __shared__ PatternTile tile;
+  int64_t i = global_index();
+  int row = stage_pattern(w_pat, wp_pat, t, i, tile);
+  __syncthreads();
+  if (i >= n) return;
+  uint32_t v[NW], r[NW];
+  stark::load_elem(x, n, i, v);
+  stark::shoup_mul(f, tile.w[row], tile.wp[row], v, r);
+  stark::cond_sub_p(f, 0, r);
+  stark::store_elem(out, n, i, r);
 }
 
 // out = (..(c[d-1]*x + c[d-2])*x + ..)*x + c[0], from acc = 0; d >= 0.
@@ -362,10 +477,34 @@ extern "C" int stark_linear_combination(const void* k, const void* const* cols,
                                         void* out, long long n,
                                         const uint32_t* field_words,
                                         uint32_t np, void* stream) {
-  LincombCols c{in(cols[0]), in(cols[1]), in(cols[2]), in(cols[3]), in(cols[4]),
+  LincombCols c{in(cols[1]), in(cols[2]), in(cols[3]), in(cols[4]),
                 in(cols[5]), in(cols[6]), in(cols[7]), in(cols[8])};
-  STARK_LAUNCH(linear_combination_kernel, n, stream, in(k), c, outp(out), n,
+  STARK_LAUNCH(linear_combination_kernel, n, stream, in(k), in(cols[0]), c,
+               outp(out), n, stark::make_field(field_words, np));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cols: 8 device pointers in the order p, a, s, d1, d2, d3, b2, b3; the
+// (16, t) pattern pair holds plain x^steps and its companions, t divides n.
+extern "C" int stark_linear_combination_shoup(
+    const void* k, const void* xw_pat, const void* xwp_pat, long long t,
+    const void* const* cols, void* out, long long n,
+    const uint32_t* field_words, uint32_t np, void* stream) {
+  LincombCols c{in(cols[0]), in(cols[1]), in(cols[2]), in(cols[3]),
+                in(cols[4]), in(cols[5]), in(cols[6]), in(cols[7])};
+  STARK_LAUNCH(linear_combination_shoup_kernel, n, stream, in(k), in(xw_pat),
+               in(xwp_pat), t, c, outp(out), n,
                stark::make_field(field_words, np));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int stark_shoup_mul_periodic(const void* w_pat, const void* wp_pat,
+                                        long long t, const void* x, void* out,
+                                        long long n,
+                                        const uint32_t* field_words,
+                                        uint32_t np, void* stream) {
+  STARK_LAUNCH(shoup_mul_periodic_kernel, n, stream, in(w_pat), in(wp_pat), t,
+               in(x), outp(out), n, stark::make_field(field_words, np));
   return static_cast<int>(cudaGetLastError());
 }
 

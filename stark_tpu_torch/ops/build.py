@@ -58,6 +58,13 @@ _SIGNATURES = {
     "stark_linear_combination": [
         _vp, ctypes.POINTER(_vp), _vp, _ll, _u32p, ctypes.c_uint32, _vp,
     ],
+    "stark_linear_combination_shoup": [
+        _vp, _vp, _vp, _ll, ctypes.POINTER(_vp), _vp, _ll, _u32p, ctypes.c_uint32,
+        _vp,
+    ],
+    "stark_shoup_mul_periodic": [
+        _vp, _vp, _ll, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp,
+    ],
     "stark_horner_eval": [_vp, _ll, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp],
     "stark_vanishing_eval": [_vp, _ll, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp],
     "stark_sub_mul": [

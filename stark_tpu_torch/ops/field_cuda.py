@@ -161,14 +161,19 @@ def mpow_scalar_plain(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
     return acc
 
 
+MPOW_LANES = 32  # columns of one `mpow_scalar` launch: one warp
+
+
 def mpow_scalar(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
-    """a^e elementwise for a small (16, k <= 32) Montgomery plane and an
+    """a^e elementwise for a small (16, k <= MPOW_LANES) Montgomery plane and an
     exponent 0 <= e < 2^256, the whole chain in one launch."""
     check_planes(spec, a)
     if not 0 <= e < 1 << 256:
         raise ValueError("the exponent must lie in [0, 2^256)")
-    if a.shape[1] > 32:
-        raise ValueError(f"mpow_scalar takes at most 32 lanes, got {a.shape[1]}")
+    if a.shape[1] > MPOW_LANES:
+        raise ValueError(
+            f"mpow_scalar takes at most {MPOW_LANES} lanes, got {a.shape[1]}"
+        )
     if a.device.type == "cpu":
         return mpow_scalar_plain(spec, a, e)
     words, np32, stream = cuda_args(spec, a)

@@ -7,8 +7,8 @@ limbs of 16 bits, little-endian, Montgomery form with R = 2^256. Planes are
 
 Every field product goes through `field_cuda.mmul` (the CUDA kernel on a
 card, its plain version on the CPU). `madd`/`msub` are plain PyTorch, as
-their JAX counterparts are XLA and not Pallas. `mpow` sends long exponents
-on a few lanes to `field_cuda.mpow_scalar`, and `prefix_prod` (so
+their JAX counterparts are XLA and not Pallas. `mpow` sends operands of a
+few lanes to `field_cuda.mpow_scalar`, and `prefix_prod` (so
 `multi_inv`) stitches `field_cuda.scan_prod` launches recursively, as the
 JAX package does on its accelerator (`modmath.py:287-308, 351-381`).
 """
@@ -103,6 +103,23 @@ def mont_consts(spec: FieldSpec, xs, device) -> torch.Tensor:
     return _planes(ints_to_limbs_np(vals, spec), device)
 
 
+def shoup_consts(spec: FieldSpec, xs, device):
+    """Host ints -> the Shoup constant-multiplier pair: (L, N) limb planes of
+    the plain (non-Montgomery) values w and of their companions
+    floor(w * 2^r_bits / p). w * (xR) = (w*x)R, so a plain constant keeps
+    Montgomery data in Montgomery form. The companions range over
+    [0, 2^r_bits) and are not reduced mod p."""
+    R = 1 << spec.r_bits
+    nbytes = 2 * spec.num_limbs
+    plain = [int(x) % spec.p for x in xs]
+
+    def raw_limbs(vals):
+        buf = b"".join(v.to_bytes(nbytes, "little") for v in vals)
+        return _planes(np.frombuffer(buf, "<u2").reshape(len(vals), -1).T, device)
+
+    return raw_limbs(plain), raw_limbs([v * R // spec.p for v in plain])
+
+
 # ---------------------------------------------------------------------------
 # add / sub (plain PyTorch) and the multiply (kernel)
 # ---------------------------------------------------------------------------
@@ -160,10 +177,12 @@ def from_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 
 def mpow(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
     """a^e elementwise (Montgomery in/out), MSB-first square-and-multiply.
-    An exponent of 32 bits or more on a (L, k <= 8) operand is one
-    `mpow_scalar` launch (the shape gate of `stark_tpu/ops/modmath.py:296`);
-    anything else is two `mmul` launches per exponent bit."""
-    if a.dim() == 2 and a.shape[1] <= 8 and e.bit_length() >= 32:
+    A (L, k) operand of at most `field_cuda.MPOW_LANES` columns is one
+    `mpow_scalar` launch whatever the exponent (one launch beats the two
+    `mmul` launches per bit at any length; the JAX package's gate of 8 lanes
+    and 32 bits, `stark_tpu/ops/modmath.py:296`, weighs a TPU compile);
+    a wider or higher-rank operand is the loop of `mmul` launches."""
+    if a.dim() == 2 and a.shape[1] <= field_cuda.MPOW_LANES:
         return field_cuda.mpow_scalar(spec, a.contiguous(), e)
     nbits = max(e.bit_length(), 1)
     acc = mont_one(spec, a.device).reshape((-1,) + (1,) * (a.dim() - 1)).expand(a.shape)

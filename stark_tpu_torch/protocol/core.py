@@ -72,9 +72,12 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
     ]
     pow_scalars = [pow(omega, t, p) for t in range(skips)]
     x_last_mont = mm.mont_const(spec, pow(g2, precision - skips, p), dev)
-    reps = precision // skips
-    inv_z_full = mm.mont_consts(spec, inv_z_scalars, dev).repeat(1, reps)
-    x2s_full = mm.mont_consts(spec, pow_scalars, dev).repeat(1, reps)
+    # Z^-1 and x^steps repeat along the domain with period `skips`: they
+    # travel as (L, skips) Shoup pattern pairs (`core.py:34-47` tiles them to
+    # its kernels' block width; a CUDA thread takes column i mod skips), and
+    # no (L, N) table of either is made.
+    iz_pats = mm.shoup_consts(spec, inv_z_scalars, dev)
+    x2_pats = mm.shoup_consts(spec, pow_scalars, dev)
     inv_zb3 = mm.multi_inv(spec, mm.msub(spec, xs_full, x_last_mont))
     lde_plan = nttm.make_lde_plan(spec, g1, g2, steps, precision, dev, block)
 
@@ -164,7 +167,8 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
         q_bad = torch.stack(
             [(q[:, ::skips] != 0).any() for q in (q1, q2, q3)]
         ).to(torch.int32)
-        d1, d2, d3 = (kernels.mmul_periodic_const(spec, q, inv_z_full) for q in (q1, q2, q3))
+        d1, d2, d3 = (kernels.mmul_periodic_const(spec, q, None, iz_pats)
+                      for q in (q1, q2, q3))
         i2_ev = kernels.horner_eval(spec, i2_mont, xs_full)
         one_big = mm.mont_one(spec, dev)
         b2_ev = kernels.sub_mul_ev(spec, evs["s"], i2_ev, inv_zb2_table)
@@ -187,7 +191,7 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
         m_layers = mt.build_layers(m_words, 256)
         k_mont = dt.k_coeffs_mont(spec, m_layers[-1][:, 0])
         l_ev = kernels.linear_combination(
-            spec, k_mont, x2s_full, *[cols[n] for n in COL_NAMES]
+            spec, k_mont, None, *[cols[n] for n in COL_NAMES], x2s_pats=x2_pats
         )
         l_words = leaves_to_words(spec, [l_ev])
         l_layers = mt.build_layers(l_words, 32)

@@ -3,8 +3,9 @@
 Counterpart of `stark_tpu/protocol/pallas_kernels.py` for its kernels
 `rand_combination` (`:98`), `q1_eval` (`:118`), `q2_eval` (`:137`),
 `q3_eval` (`:154`), `linear_combination` (`:190`), `horner_eval` (`:214`),
-`vanishing_eval` (`:236`), `sub_mul` (`:353`) and `from_mont_pack_words`
-(`:373`), with the same signatures. The kernels are `csrc/protocol.cu`,
+`vanishing_eval` (`:236`), `shoup_mul_periodic` (`:268`),
+`linear_combination_shoup` (`:319`), `sub_mul` (`:353`) and
+`from_mont_pack_words` (`:373`), with the same signatures. The kernels are `csrc/protocol.cu`,
 whose header says what bounds each on an H100 and what the design does
 about it.
 
@@ -17,8 +18,10 @@ environment variable, no fallback on error.
 
 The `*_plain` functions are the compositions the JAX package runs when its
 Pallas kernels are off (`stark_tpu/protocol/kernels.py`), in plain PyTorch
-throughout: `mmul_plain`, `madd`, `msub`, `torch.roll`. They also hold the
-kernels to account on the card.
+throughout: `mmul_plain`, `madd`, `msub`, `torch.roll`. The plain versions
+of the two Shoup kernels turn the pattern's plain constants into a
+Montgomery table and multiply by it, without the companions. They also hold
+the kernels to account on the card.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import ctypes
 
 import torch
 
-from stark_tpu_torch.fields.field import FieldSpec
+from stark_tpu_torch.fields.field import FieldSpec, int_to_limbs
 from stark_tpu_torch.ops import build
 from stark_tpu_torch.ops import field_cuda as fc
 from stark_tpu_torch.ops import modmath as mm
@@ -178,6 +181,71 @@ def linear_combination(spec: FieldSpec, k_mont, x_to_steps, p_ev, a_ev, s_ev,
     return out
 
 
+# --- periodic plain constants in Shoup form ---------------------------------
+
+
+def _pattern_table(spec: FieldSpec, w_pat: torch.Tensor, n: int) -> torch.Tensor:
+    """The (16, t) plain constants as a (16, n) Montgomery table, repeated."""
+    r2 = torch.tensor(int_to_limbs(spec.r2_mod_p, spec.num_limbs), dtype=torch.int32,
+                      device=w_pat.device).reshape(-1, 1)
+    return _mul(spec, w_pat, r2).repeat(1, n // w_pat.shape[1])
+
+
+def _check_pattern(w_pat, wp_pat, n: int) -> None:
+    t = w_pat.shape[1]
+    if wp_pat.shape != w_pat.shape or t < 1 or n % t:
+        raise ValueError(
+            f"a Shoup pattern pair must be two (16, t) planes with t dividing "
+            f"{n}, got {tuple(w_pat.shape)} and {tuple(wp_pat.shape)}"
+        )
+
+
+def shoup_mul_periodic_plain(spec, w_pat, wp_pat, x):
+    return _mul(spec, x, _pattern_table(spec, w_pat, x.shape[1]))
+
+
+def shoup_mul_periodic(spec: FieldSpec, w_pat, wp_pat, x):
+    """x[i] * w[i mod t] for Montgomery x and the (16, t) pattern pair of
+    `modmath.shoup_consts` (plain constants and their companions), t
+    dividing n; canonical output."""
+    _check(spec, (x,), (w_pat, wp_pat))
+    _check_pattern(w_pat, wp_pat, x.shape[1])
+    if x.device.type == "cpu":
+        return shoup_mul_periodic_plain(spec, w_pat, wp_pat, x)
+    out = torch.empty_like(x)
+    _launch(shoup_mul_periodic, spec, x, lambda lib, w, np32, st: lib.stark_shoup_mul_periodic(
+        w_pat.data_ptr(), wp_pat.data_ptr(), w_pat.shape[1], x.data_ptr(),
+        out.data_ptr(), x.shape[1], w, np32, st))
+    return out
+
+
+def linear_combination_shoup_plain(spec, k_mont, xw_pat, xwp_pat, p_ev, a_ev, s_ev,
+                                   d1, d2, d3, b2, b3):
+    x_to_steps = _pattern_table(spec, xw_pat, s_ev.shape[1])
+    return linear_combination_plain(spec, k_mont, x_to_steps, p_ev, a_ev, s_ev,
+                                    d1, d2, d3, b2, b3)
+
+
+def linear_combination_shoup(spec: FieldSpec, k_mont, xw_pat, xwp_pat, p_ev, a_ev,
+                             s_ev, d1, d2, d3, b2, b3):
+    """`linear_combination` with x^steps as a (16, t) Shoup pattern pair
+    instead of the (16, n) table."""
+    cols = (p_ev, a_ev, s_ev, d1, d2, d3, b2, b3)
+    _check(spec, cols, (k_mont, xw_pat, xwp_pat))
+    _check_pattern(xw_pat, xwp_pat, s_ev.shape[1])
+    if k_mont.shape[1] != 11:
+        raise ValueError(f"k_mont must be (16, 11), got {tuple(k_mont.shape)}")
+    if s_ev.device.type == "cpu":
+        return linear_combination_shoup_plain(spec, k_mont, xw_pat, xwp_pat, *cols)
+    out = torch.empty_like(s_ev)
+    ptrs = (ctypes.c_void_p * 8)(*[c.data_ptr() for c in cols])
+    _launch(linear_combination_shoup, spec, s_ev,
+            lambda lib, w, np32, st: lib.stark_linear_combination_shoup(
+                k_mont.data_ptr(), xw_pat.data_ptr(), xwp_pat.data_ptr(),
+                xw_pat.shape[1], ptrs, out.data_ptr(), s_ev.shape[1], w, np32, st))
+    return out
+
+
 # --- boundary helpers -------------------------------------------------------
 
 
@@ -278,5 +346,6 @@ def from_mont_pack_words(spec: FieldSpec, col, out=None):
 
 
 for _wrapper in (rand_combination, q1_eval, q2_eval, q3_eval, linear_combination,
-                 horner_eval, vanishing_eval, sub_mul, from_mont_pack_words):
+                 shoup_mul_periodic, linear_combination_shoup, horner_eval,
+                 vanishing_eval, sub_mul, from_mont_pack_words):
     _wrapper.launches = 0

@@ -8,9 +8,11 @@ hands its operands, made contiguous, to its wrapper in
 a CPU tensor to the composed plain version beside it (`q1_eval_plain`,
 ...), and nothing else decides.
 
-`mmul_periodic_const` multiplies by the full (L, N) table through `mmul`
-(its Shoup-form kernel is not ported yet), and `accumulator_mini` composes
-the scan and power kernels of `ops/field_cuda.py`.
+As in the JAX package, `mmul_periodic_const` and `linear_combination` take
+the periodic constants (Z^-1, x^steps) either as a Shoup pattern pair, which
+the prover's stages always pass, or as the full (L, N) Montgomery table.
+`accumulator_mini` composes the scan and power kernels of
+`ops/field_cuda.py`.
 """
 
 from __future__ import annotations
@@ -34,8 +36,12 @@ def sub_mul_ev(spec: FieldSpec, a, b, c):
     return fk.sub_mul(spec, *_c(a, b, c))
 
 
-def mmul_periodic_const(spec: FieldSpec, q, mont_table):
-    """q * a per-domain constant given as a full (L, N) Montgomery table."""
+def mmul_periodic_const(spec: FieldSpec, q, mont_table, shoup_pats=None):
+    """q * a periodic per-domain constant (Z^-1): through the Shoup pattern
+    pair of `modmath.shoup_consts` where one is given, which never reads a
+    table, else by the full (L, N) Montgomery table."""
+    if shoup_pats is not None:
+        return fk.shoup_mul_periodic(spec, *_c(*shoup_pats, q))
     return mm.mmul(spec, q, mont_table)
 
 
@@ -83,10 +89,16 @@ def vanishing_eval(spec: FieldSpec, xs_full, points_mont):
 
 
 def linear_combination(spec: FieldSpec, k_mont, x_to_steps, p_ev, a_ev, s_ev,
-                       d1, d2, d3, b2, b3):
+                       d1, d2, d3, b2, b3, x2s_pats=None):
     """L = k0*D1 + k1*D2 + k2*D3 + k3*P + k4*P*x^steps + k5*B2
-    + k6*B2*x^steps + k7*B3 + k8*B3*x^steps + k9*A + k10*S, with the full
-    (L, N) x^steps table; k_mont: (L, 11)."""
+    + k6*B2*x^steps + k7*B3 + k8*B3*x^steps + k9*A + k10*S; k_mont: (L, 11).
+    x^steps comes as the Shoup pattern pair `x2s_pats` where one is given
+    (`x_to_steps` is then not read and may be None), else as the full (L, N)
+    table `x_to_steps`."""
+    if x2s_pats is not None:
+        return fk.linear_combination_shoup(
+            spec, *_c(k_mont, *x2s_pats, p_ev, a_ev, s_ev, d1, d2, d3, b2, b3)
+        )
     return fk.linear_combination(
         spec, *_c(k_mont, x_to_steps, p_ev, a_ev, s_ev, d1, d2, d3, b2, b3)
     )

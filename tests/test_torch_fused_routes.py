@@ -5,8 +5,11 @@ CPU, at the sizes and shapes a tiny interpret-mode run cannot show.
   (the JAX package's composed branch, `STARK_TPU_PALLAS=0`);
 * `prefix_prod` through the recursive `scan_prod` stitching at 4096 and
   2^13, forward and reversed, and `multi_inv` with zeros;
-* `mpow`'s routing: a (16, 8) operand with a long exponent goes to
-  `mpow_scalar`, a (16, 9) operand or a 16-bit exponent do not;
+* `mpow`'s routing: a 2-D operand of at most `MPOW_LANES` columns goes to
+  `mpow_scalar` whatever the exponent, a wider or 3-D one does not;
+* the Shoup-pattern stages at n = 2048, with the (16, 8) pattern pair the
+  prover's stages build and with a pattern wider than a block, against the
+  composed JAX branch on the Montgomery table;
 * `leaves_to_words` against the JAX package's `_leaves_to_words` for 1 and
   8 columns.
 
@@ -143,9 +146,11 @@ def test_multi_inv_with_zeros_matches_jax():
 
 
 @pytest.mark.parametrize("width,e,routed", [
-    (8, spec.p - 2, True), (1, 1 << 31, True), (9, spec.p - 2, False),
-    (8, 0xFFFF, False), (8, (1 << 31) - 1, False),
-], ids=["8 lanes p-2", "1 lane 2^31", "9 lanes", "16-bit e", "31-bit e"])
+    (8, spec.p - 2, True), (1, 1 << 31, True), (9, spec.p - 2, True),
+    (8, 0xFFFF, True), (8, (1 << 31) - 1, True), (fc.MPOW_LANES, 5, True),
+    (fc.MPOW_LANES + 1, spec.p - 2, False), (8, 0, True),
+], ids=["8 lanes p-2", "1 lane 2^31", "9 lanes", "16-bit e", "31-bit e",
+        "32 lanes", "33 lanes", "e=0"])
 def test_mpow_routing(width, e, routed, monkeypatch):
     calls = []
     real = fc.mpow_scalar_plain
@@ -162,6 +167,52 @@ def test_mpow_three_dimensional_operand_is_composed(monkeypatch):
     (a,) = _cols(10, width=8)
     a3 = a.reshape(16, 2, 4)
     _eq(mm.mpow(tspec, _t(a3), 1 << 40), jmm.mpow(spec, a3, 1 << 40))
+
+
+# --- periodic constants as Shoup patterns -----------------------------------------
+
+
+def _pattern(seed: int, t: int):
+    """t plain constants (0, 1 and p - 1 among them), their Shoup pattern
+    pair for the port and for the JAX package, and their Montgomery table
+    tiled to N columns."""
+    rng = np.random.default_rng(seed)
+    vals = [0, 1, spec.p - 1] + [
+        int.from_bytes(rng.bytes(32), "little") % spec.p for _ in range(t - 3)
+    ]
+    table = np.tile(np.asarray(jmm.mont_consts(spec, vals)), (1, N // t))
+    return mm.shoup_consts(tspec, vals, "cpu"), jmm.shoup_consts(spec, vals), table
+
+
+@pytest.mark.parametrize("t", [8, 1024])
+def test_shoup_consts_match_jax(t):
+    pats, jpats, _ = _pattern(12, t)
+    for got, want in zip(pats, jpats):
+        assert got.is_contiguous()
+        _eq(got, want)
+
+
+@pytest.mark.parametrize("t", [8, 1024])
+def test_mmul_periodic_const_patterns_match_composed_jax(t, composed):
+    pats, _, table = _pattern(13, t)
+    (q,) = _cols(14)
+    _eq(k.mmul_periodic_const(tspec, _t(q), None, pats),
+        jk.mmul_periodic_const(spec, q, table))
+
+
+def test_linear_combination_patterns_match_composed_jax(composed):
+    pats, _, table = _pattern(15, 8)
+    cols = _cols(16, count=8)
+    (kk,) = _cols(17, width=11)
+    _eq(k.linear_combination(tspec, _t(kk), None, *map(_t, cols), x2s_pats=pats),
+        jk.linear_combination(spec, kk, table, *cols))
+
+
+def test_pattern_width_must_divide_the_domain():
+    pats, _, _ = _pattern(18, 8)
+    (q,) = _cols(19, width=20)
+    with pytest.raises(ValueError):
+        k.mmul_periodic_const(tspec, _t(q), None, pats)
 
 
 # --- leaf packing ----------------------------------------------------------------------------

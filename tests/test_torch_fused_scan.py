@@ -6,9 +6,10 @@ the two field wrappers refuse.
 two ragged shapes. The same numpy-seeded inputs go through the port's wrapper, which on a CPU
 tensor runs the plain PyTorch version. Tolerance: exact equality of the
 uint32 values (integer field arithmetic with canonical outputs). Interpret
-mode takes seconds per kernel, so the eleven kernels are spread over
-`test_torch_fused.py`, `test_torch_fused_loops.py`, `test_torch_fused_scan.py`
-and `test_torch_fused_lincomb.py`, each under a minute on one worker.
+mode takes seconds per kernel, so the thirteen kernels are spread over
+`test_torch_fused.py`, `test_torch_fused_loops.py`, `test_torch_fused_scan.py`,
+`test_torch_fused_lincomb.py` and `test_torch_fused_shoup.py`, each under a
+minute on one worker.
 """
 
 import pytest

@@ -12,7 +12,9 @@
   `test_torch_protocol_ragged.py`, to keep each file's compile time short).
 
 Inputs come from a numpy seed or the fixtures. Tolerance: exact equality
-(integer field arithmetic with canonical outputs, Shoup off).
+(integer field arithmetic with canonical outputs; the JAX package's Shoup
+kernels are off on the CPU, the port's stages take Z^-1 and x^steps as Shoup
+pattern pairs and run the plain versions of their kernels).
 """
 
 import hashlib
