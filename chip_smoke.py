@@ -9,25 +9,42 @@ non-zero and no phase's error is swallowed:
 1. device: a CUDA card must be present (its name and power limit are
    printed as `nvidia-smi --query-gpu=name,power.limit` gives them);
 2. build: the kernel library is built with nvcc from stark_tpu_torch/csrc;
-3. kernels: each of the 17 CUDA kernels against its plain PyTorch version
+3. kernels: each of the 19 CUDA kernels against its plain PyTorch version
    on the card, at the prover's shapes for 43,690 constraints (steps 2^17,
    precision 2^20), inputs from a numpy seed; tolerance: exact equality
    (integer field arithmetic with canonical outputs), with the median time
    of both per case and the least time the card could take (`bound_ms`);
-4. goldens: the `compute` and `poseidon3_test` proofs must be byte-identical
-   to the committed goldens and the `ragged_mix(120)` proof must match its
-   committed sha256; the port's verifier must accept each;
-5. real size: `squaring_chain(43690)` proved twice (cold and warm) and
-   verified; the launch counter of every kernel of the prover's path must
-   be > 0 for the cold proving run, and the warm run's counts are recorded;
-6. only with `--profile`: `torch.profiler` over one more warm prove (device
-   busy share, launches, copies, device time by kernel) and the wall of
-   each stage with a device synchronise after it.
+   then, run by nothing, the bounds of the three CRT-engine kernels that are
+   not ported yet, reckoned from the JAX package's code (`reckon_crt_bounds`);
+4. goldens: the `compute` and `poseidon3_test` proofs, on both of FRI's fold
+   routes, must be byte-identical to the committed goldens and the
+   `ragged_mix(120)` proof must match its committed sha256; the port's
+   verifier must accept each;
+5. real size: `squaring_chain(43690)` proved twice (cold and warm) on the
+   default route (the radix-4 inverse-DFT fold) and verified; the launch
+   counter of every kernel of that route must be > 0 for the cold proving
+   run, and the warm run's counts are recorded;
+6. serve: the proving worker (`stark_tpu_torch.serve.serve`, the loop behind
+   `python -m stark_tpu_torch.cli serve --device cuda --fri-fold lagrange`)
+   on the Lagrange fold route, fed the same circuit as files: ping, warmup,
+   two proves, a verify, an unknown method (answered as an error, the worker
+   alive) and shutdown. Every launch counter is set to 0 just before and
+   read just after, and between requests: each prove must launch
+   `fri_fold_pre` and `fri_fold_post`, every kernel of the route must
+   launch, and the proof must equal phase 5's byte for byte. Then
+   `runner.prove_many` pipelines four witnesses of the circuit (depth 2) on
+   the same route: each proof must equal a single prove's, and the seconds
+   and proofs per second of both ways are recorded with the peak memory;
+7. only with `--profile`: for each fold route, `torch.profiler` over one
+   more warm prove (device busy share, launches, copies, device time by
+   kernel) and the wall of each stage with a device synchronise after it.
 
-The line before the card's lists the kernels of the prover's path as JSON
+The line before the card's lists the kernels of the two paths as JSON
 (`kernels`; each with the numbers of its first case, the largest shape the
-proving run gives it, named under `case`) and, under `off_path`, the one
-ported kernel the path does not run: `linear_combination` on the (16, n)
+proving run gives it, named under `case`; `path` names the phase whose run
+counted its `launches`: `real_size`, or `serve` for the two fold kernels,
+which the default route does not run) and, under `off_path`, the one
+ported kernel no path runs: `linear_combination` on the (16, n)
 x^steps table, whose place the stages' Shoup pattern pair takes. The last
 line is {"ok": true, "device": {...}}. `--out DIR` also writes every phase
 record, with every case, to DIR/chip_smoke.json.
@@ -58,12 +75,15 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import io
 import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -76,6 +96,7 @@ SEED = 20261016
 
 _PK = "stark_tpu/protocol/pallas_kernels.py"
 _PROTOCOL_CU = "stark_tpu_torch/csrc/protocol.cu"
+_FRI_CU = "stark_tpu_torch/csrc/fri.cu"
 KERNELS = {
     # wrapper name -> (source in the repo, the TPU kernel it replaces)
     "mmul": ("stark_tpu_torch/csrc/mmul.cu", "stark_tpu/ops/pallas_field.py:174"),
@@ -105,6 +126,8 @@ KERNELS = {
     "vanishing_eval": (_PROTOCOL_CU, f"{_PK}:236"),
     "sub_mul": (_PROTOCOL_CU, f"{_PK}:353"),
     "from_mont_pack_words": (_PROTOCOL_CU, f"{_PK}:373"),
+    "fri_fold_pre": (_FRI_CU, f"{_PK}:433"),
+    "fri_fold_post": (_FRI_CU, f"{_PK}:478"),
 }
 
 BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -114,6 +137,9 @@ BLAKE2S_OPS = 960  # 32-bit integer operations of one compression
 
 # ported, but not run by the prover's stages (see the module docstring)
 OFF_PATH = ("linear_combination",)
+# run only on FRI's Lagrange fold route: counted in the serve phase
+LAGRANGE_ONLY = ("fri_fold_pre", "fri_fold_post")
+PROVE_MANY_X0 = (3, 5, 7, 11)  # start values of the four pipelined witnesses
 CHAIN_STEPS = 48  # dependent 64-bit multiply-adds on one CIOS product's critical path
 CYCLES_PER_STEP = 8  # two dependent integer instructions of 4 cycles
 
@@ -221,6 +247,63 @@ def add_bounds(result: dict, sm_hz: float) -> None:
                          if chain else None)
 
 
+def reckon_crt_bounds(spec, precision: int) -> dict:
+    """Bounds of the three CRT-engine kernels that are not ported yet
+    (`stark_tpu/ops/pallas_crt.py:106`, `:176`, `:254`), reckoned from that
+    code at the largest call a `precision`-point LDE would make of each: the
+    second contraction of the big transform (`ops/mxu_ntt.py:142 ntt_mxu`:
+    n1 = n2 = 1024 at 2^20, the twiddle pre-multiplied). Nothing is run.
+
+    The basis holds P primes of 14 bits whose product exceeds 2^bits_b
+    (`crt.select_primes`, `mxu_ntt.py:113`) and one redundant lane. Bytes:
+    each input read once, each output written once (limbs and residues in
+    4 bytes, digit planes in 2). Matrix products at the card's 989e12 bf16
+    operations a second, the integer folds and carries at `INT_OPS_PER_S`,
+    a fold as 4 operations, a conditional subtraction as 3, a carried digit
+    row as 3."""
+    def is_prime(q):
+        return q > 1 and all(q % d for d in range(2, int(q ** 0.5) + 1))
+
+    def folds(bits, dmax_bits=10):  # crt._fold_count
+        count = 0
+        while bits >= 16:
+            bits, count = max(bits - 14 + dmax_bits, 14) + 1, count + 1
+        return count
+
+    N = precision
+    n1 = 1 << ((N.bit_length()) // 2)
+    n2 = N // n1
+    bits_b = (n2 - 1).bit_length() + 3 * spec.p.bit_length() + 2
+    P, logs, q = 0, 0.0, 16128
+    while logs <= bits_b:
+        if is_prime(q):
+            P, logs = P + 1, logs + float(np.log2(q))
+        q -= 1
+    P1, ND, TENSOR = P + 1, 35, 989e12
+
+    def bound(nbytes, tensor_ops, int_ops):
+        times = {"bytes": nbytes / BYTES_PER_S * 1e3,
+                 "operations": (tensor_ops / TENSOR + int_ops / INT_OPS_PER_S) * 1e3}
+        by = max(times, key=times.get)
+        return {"bytes": nbytes, "tensor_ops": tensor_ops, "int_ops": int_ops,
+                "bound_ms": times[by], "bound_by": by}
+
+    return {
+        "case": f"n={N} n1={n1} n2={n2} primes={P}+1 (reckoned, not run)",
+        "residues_in": bound(
+            64 * N + 4 * P1 * N + 2 * 2 * P1 * N, 2 * (2 * P1) * 32 * N,
+            P1 * N * (5 + 4 * (folds(29) + folds(28)) + 4 * 3 + 1 + 2)),
+        "matmul_fold": bound(
+            2 * 2 * P1 * n2 * n2 + 2 * 2 * P1 * n2 * n1 + 4 * P1 * N,
+            4 * 2 * P1 * n2 * n2 * n1,
+            P1 * N * (2 * 4 + 6 + 4 * folds(32) + 2 * 3)),
+        "reconstruct": bound(
+            4 * P1 * N + 64 * N,
+            (2 * 2 * (ND + 2) * P + 2 * 32 * 32 + 2 * 65 * 32) * N,
+            N * (2 * 3 * P1 + 4 * ND + 3 * (ND + 1 + 32 + 66) + 16 * 3 + 64)),
+    }
+
+
 def with_edges(spec, planes: torch.Tensor) -> torch.Tensor:
     """The same planes with p - 1 in the first two columns (flattened past
     the limb axis) and 0 in the last."""
@@ -305,13 +388,15 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
          "(16,8) e=p-2": ((with_edges(spec, rand(8)),), 2 * 64 * 8, 8 * chain * MM, chain)},
         reps=(10, 0),
     )
+    # the Lagrange fold inverts all N denominators of round 0; the accumulator
+    # scans `steps`
     out["scan_prod"] = compare(
         "scan_prod",
         lambda x: fc.scan_prod(spec, x),
         lambda x: fc.scan_prod_plain(spec, x),
         {f"n={n} level (16,{B},{C})": ((with_edges(spec, rand(B * C).reshape(16, B, C)),),
                                        2 * 64 * B * C, B * C * MM, B)
-         for n in (steps, N) for (B, C) in mm.scan_levels(n)},
+         for n in (N, steps) for (B, C) in mm.scan_levels(n)},
         reps=(10, 0),
     )
 
@@ -398,6 +483,35 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
         lambda c: fk.from_mont_pack_words_plain(spec, c),
         {f"n={N}": ((a_edge,), plane + plane // 2, N * MM)},
     )
+
+    def fold_inputs(q):
+        """x and y rows of a fold with 0, 1 and p - 1 among them (each in a
+        row of its own, so a row's x stay distinct), the cubics, and the
+        inverted denominators as the prover makes them."""
+        xs4, ys4 = (with_edges(spec, rand(4 * q)).reshape(16, 4, q) for _ in range(2))
+        xs4[:, 1, 2:3] = mm.mont_one(spec, device)
+        ys4[:, 2, 3:4] = mm.mont_one(spec, device)
+        eqs, dens = fk.fri_fold_pre(spec, xs4)
+        invs = mm.multi_inv(spec, dens.reshape(16, 4 * q)).reshape(16, 4, q)
+        return xs4, ys4, eqs, invs
+
+    # the rounds' quarters from 2^18 down to 2^6, and one that is no multiple
+    # of a block (nor of 128)
+    folds = {q: fold_inputs(q) for q in (N // 4, 64, 192)}
+    sx = rand(1)
+    out["fri_fold_pre"] = compare(
+        "fri_fold_pre",
+        lambda x: fk.fri_fold_pre(spec, x),
+        lambda x: fk.fri_fold_pre_plain(spec, x),
+        {f"q={q}": ((xs4,), 1536 * q, 18 * q * MM) for q, (xs4, _, _, _) in folds.items()},
+    )
+    out["fri_fold_post"] = compare(
+        "fri_fold_post",
+        lambda *a: fk.fri_fold_post(spec, *a),
+        lambda *a: fk.fri_fold_post_plain(spec, *a),
+        {f"q={q}": ((sx, eqs, ys4, invs), 1600 * q + 64, 23 * q * MM)
+         for q, (_, ys4, eqs, invs) in folds.items()},
+    )
     for result in out.values():
         add_bounds(result, sm_hz)
     # measured, for the record: the time of one dependent product on one lane
@@ -417,12 +531,14 @@ def _fixture(name: str):
     return r1cs, witness
 
 
-def prove_and_check(name, r1cs, witness, device, golden_text=None, golden_sha=None):
+def prove_and_check(name, r1cs, witness, device, golden_text=None, golden_sha=None,
+                    fri_fold="dft"):
     from stark_tpu_torch.protocol import proof as proof_mod
     from stark_tpu_torch.protocol import runner
 
     t0 = time.time()
-    text = proof_mod.to_json(runner.prove_with_witness(r1cs, witness, device=device))
+    text = proof_mod.to_json(runner.prove_with_witness(r1cs, witness, device=device,
+                                                       fri_fold=fri_fold))
     prove_s = time.time() - t0
     if golden_text is not None and text != golden_text:
         raise AssertionError(f"{name}: proof JSON differs from the golden")
@@ -434,8 +550,8 @@ def prove_and_check(name, r1cs, witness, device, golden_text=None, golden_sha=No
     if not runner.verify_with_witness(r1cs, witness[:n_pub], proof_mod.from_json(text),
                                       device=device):
         raise AssertionError(f"{name}: the verifier rejected the proof")
-    return {"circuit": name, "prove_s": prove_s, "verify_s": time.time() - t0,
-            "proof_bytes": len(text), "sha256": sha}
+    return {"circuit": name, "fri_fold": fri_fold, "prove_s": prove_s,
+            "verify_s": time.time() - t0, "proof_bytes": len(text), "sha256": sha}
 
 
 def phase_goldens(device) -> list[dict]:
@@ -446,20 +562,22 @@ def phase_goldens(device) -> list[dict]:
                          ("poseidon3_test", "poseidon3_proof_golden.json")):
         with open(os.path.join(FIXTURES, golden)) as f:
             want = f.read()
-        out.append(prove_and_check(name, *_fixture(name), device, golden_text=want))
+        circuit = _fixture(name)
+        for fri_fold in ("dft", "lagrange"):
+            out.append(prove_and_check(name, *circuit, device, golden_text=want,
+                                       fri_fold=fri_fold))
     with open(os.path.join(FIXTURES, "ragged120_proof_sha256.txt")) as f:
         sha = f.read().strip()
     out.append(prove_and_check("ragged_mix(120)", *ragged_mix(120), device, golden_sha=sha))
     return out
 
 
-def phase_real(device, n_constraints: int, profile: bool) -> dict:
-    """Cold and warm prove plus verify at full size, with every kernel's
-    launch count in each proving run."""
-    from stark_tpu_torch.r1cs.synth import squaring_chain
+def phase_real(device, r1cs, witness, profile: bool):
+    """Cold and warm prove plus verify at full size on the default fold
+    route, with every kernel's launch count in each proving run. Returns the
+    record and the proof."""
     from stark_tpu_torch.protocol import runner
 
-    r1cs, witness = squaring_chain(n_constraints)
     wrap = wrappers()
 
     def timed_prove():
@@ -474,7 +592,8 @@ def phase_real(device, n_constraints: int, profile: bool) -> dict:
         return proof, seconds, launches, torch.cuda.max_memory_allocated()
 
     proof, cold_s, launches, peak_cold = timed_prove()
-    missing = [name for name, n in launches.items() if n <= 0 and name not in OFF_PATH]
+    missing = [name for name, n in launches.items()
+               if n <= 0 and name not in OFF_PATH + LAGRANGE_ONLY]
     if missing:
         raise AssertionError(f"kernels not launched by the proving run: {missing}")
     proof_warm, warm_s, launches_warm, peak_warm = timed_prove()
@@ -485,28 +604,30 @@ def phase_real(device, n_constraints: int, profile: bool) -> dict:
         raise AssertionError("the verifier rejected the real-size proof")
     verify_s = time.time() - t0
     out = {
-        "constraints": n_constraints, "prove_cold_s": cold_s,
+        "constraints": r1cs.header.n_constraints, "prove_cold_s": cold_s,
         "prove_warm_s": warm_s, "verify_s": verify_s,
         "peak_bytes_cold": peak_cold, "peak_bytes_warm": peak_warm,
         "launches": launches, "launches_warm": launches_warm,
     }
     if profile:
-        out["profile"] = profile_warm_prove(r1cs, witness, device, proof)
-    return out
+        out["profile"] = {fri_fold: profile_warm_prove(r1cs, witness, device, proof, fri_fold)
+                          for fri_fold in ("dft", "lagrange")}
+    return out, proof
 
 
-def profile_warm_prove(r1cs, witness, device, want_proof) -> dict:
-    """`torch.profiler` over one warm prove, then two warm proves with a
-    device synchronise after every stage for the stages' wall times."""
+def profile_warm_prove(r1cs, witness, device, want_proof, fri_fold) -> dict:
+    """On one fold route: a warm-up prove, `torch.profiler` over one warm
+    prove, then two warm proves with a device synchronise after every stage
+    for the stages' wall times."""
     from torch.profiler import ProfilerActivity, profile
 
-    from stark_tpu_torch.fri import fri
-    from stark_tpu_torch.protocol import prove, runner
+    from stark_tpu_torch.protocol import runner
 
+    runner.prove_with_witness(r1cs, witness, device=device, fri_fold=fri_fold)
     torch.cuda.synchronize()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        runner.prove_with_witness(r1cs, witness, device=device)
+        runner.prove_with_witness(r1cs, witness, device=device, fri_fold=fri_fold)
         torch.cuda.synchronize()
     profiled_s = time.time() - t0
     kernels, copies, spans = {}, {"count": 0, "us": 0.0}, []
@@ -549,11 +670,11 @@ def profile_warm_prove(r1cs, witness, device, want_proof) -> dict:
         "top_kernels": [{"name": n[:120], **k} for n, k in top],
     }
 
-    result["stage_wall_s"] = stage_walls(r1cs, witness, device, want_proof)
+    result["stage_wall_s"] = stage_walls(r1cs, witness, device, want_proof, fri_fold)
     return result
 
 
-def stage_walls(r1cs, witness, device, want_proof, runs: int = 2) -> list[dict]:
+def stage_walls(r1cs, witness, device, want_proof, fri_fold, runs: int = 2) -> list[dict]:
     """Wall seconds of each prover stage over `runs` warm proves, every stage
     ending in a device synchronise; "rest" is host preparation plus the
     materializing transfer and formatting."""
@@ -591,7 +712,8 @@ def stage_walls(r1cs, witness, device, want_proof, runs: int = 2) -> list[dict]:
             walls.clear()
             torch.cuda.synchronize()
             t0 = time.time()
-            proof = runner.prove_with_witness(r1cs, witness, device=device)
+            proof = runner.prove_with_witness(r1cs, witness, device=device,
+                                              fri_fold=fri_fold)
             total = time.time() - t0
             if proof != want_proof:
                 raise AssertionError("a stage-timed proof differs from the cold proof")
@@ -600,6 +722,139 @@ def stage_walls(r1cs, witness, device, want_proof, runs: int = 2) -> list[dict]:
         stages.update(saved)
         fri.prove_low_degree_pending = saved_fri
     return out
+
+
+def write_circuit_files(r1cs, witness, r1cs_path: str, wtns_path: str) -> None:
+    """A parsed circuit and its witness as iden3 `.r1cs` and circom `.wtns`
+    files, the inverse of `stark_tpu_torch/r1cs/reader.py`."""
+    h = r1cs.header
+    header = struct.pack("<I", h.field_size) + h.prime_number + struct.pack(
+        "<IIIIQI", h.n_wires, h.n_public_outputs, h.n_public_inputs,
+        h.n_private_inputs, h.n_labels, h.n_constraints)
+    body = bytearray()
+    for constraint in r1cs.constraints:
+        for factor in constraint.factors:
+            body += struct.pack("<I", len(factor.coefficients))
+            for c in factor.coefficients:
+                body += struct.pack("<I", c.wire_id) + c.value.ljust(32, b"\0")
+    with open(r1cs_path, "wb") as f:
+        f.write(b"r1cs" + struct.pack("<II", r1cs.version, 3))
+        for kind, section in ((1, header), (2, bytes(body)), (3, b"")):
+            f.write(struct.pack("<IQ", kind, len(section)) + section)
+    with open(wtns_path, "wb") as f:
+        # version 2, two sections: the header (id 1), then the values (id 2)
+        f.write(b"wtns" + struct.pack("<IIIQ", 2, 2, 1, 8 + h.field_size))
+        f.write(struct.pack("<I", h.field_size) + h.prime_number)
+        f.write(struct.pack("<I", len(witness)))
+        f.write(struct.pack("<IQ", 2, len(witness) * h.field_size))
+        for w in witness:
+            f.write(w.ljust(h.field_size, b"\0"))
+
+
+def phase_serve(device, r1cs, witness, want_proof) -> dict:
+    """The proving worker on the Lagrange fold route, then `prove_many`
+    (see the module docstring, phase 6)."""
+    from stark_tpu_torch import serve
+    from stark_tpu_torch.protocol import proof as proof_mod
+    from stark_tpu_torch.protocol import runner
+    from stark_tpu_torch.r1cs.synth import squaring_chain
+
+    wrap = wrappers()
+    want_json = proof_mod.to_json(want_proof)
+    counts = lambda: {name: fn.launches for name, fn in wrap.items()}  # noqa: E731
+    snapshots = []
+
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {"r1cs": os.path.join(tmp, "chain.r1cs"), "wtns": os.path.join(tmp, "chain.wtns")}
+        proof_path = os.path.join(tmp, "proof.json")
+        write_circuit_files(r1cs, witness, files["r1cs"], files["wtns"])
+        requests = [
+            {"id": 1, "method": "ping"},
+            {"id": 2, "method": "warmup", "params": {"r1cs": files["r1cs"]}},
+            {"id": 3, "method": "prove", "params": {**files, "inline": True}},
+            {"id": 4, "method": "prove", "params": {**files, "proof_json": proof_path}},
+            {"id": 5, "method": "verify", "params": {**files, "proof_json": proof_path}},
+            {"id": 6, "method": "frobnicate"},
+            {"id": 7, "method": "ping"},
+            {"id": 8, "method": "shutdown"},
+        ]
+
+        def feed():
+            # the worker answers a request before it reads the next line
+            for req in requests:
+                torch.cuda.synchronize()
+                snapshots.append((counts(), time.time()))
+                yield json.dumps(req) + "\n"
+
+        replies_io = io.StringIO()
+        for fn in wrap.values():
+            fn.launches = 0
+        rc = serve.serve(feed(), replies_io, device=device, fri_fold="lagrange")
+        torch.cuda.synchronize()
+        snapshots.append((counts(), time.time()))
+        launches = counts()
+        with open(proof_path) as f:
+            proof_file = f.read()
+
+    lines = replies_io.getvalue().splitlines()
+    if rc != 0 or not all(ln.startswith("RPC ") for ln in lines):
+        raise AssertionError(f"the worker returned {rc} or wrote a line without the RPC prefix")
+    replies = [json.loads(ln[4:]) for ln in lines]
+    if replies[0] != {"id": None, "result": {"ok": True, "event": "ready"}}:
+        raise AssertionError(f"no ready event: {lines[0][:200]}")
+    by_id = {r["id"]: r for r in replies[1:]}
+    if sorted(by_id) != [r["id"] for r in requests]:
+        raise AssertionError(f"replies for {sorted(by_id)}, requests {len(requests)}")
+    for i in (1, 2, 3, 4, 5, 7, 8):
+        if not by_id[i].get("result", {}).get("ok"):
+            raise AssertionError(f"request {i} failed: {json.dumps(by_id[i])[:500]}")
+    if by_id[6].get("error", {}).get("type") != "ValueError":
+        raise AssertionError(f"the unknown method was not refused: {by_id[6]}")
+    if by_id[3]["result"]["proof"] != want_json or proof_file != want_json:
+        raise AssertionError("the worker's Lagrange-route proof differs from the DFT route's")
+    if by_id[5]["result"].get("verified") is not True:
+        raise AssertionError("the worker's verifier rejected the proof")
+    per_request = {}
+    for req, (before, t_before), (after, t_after) in zip(requests, snapshots, snapshots[1:]):
+        per_request[f"{req['id']} {req['method']}"] = {
+            "seconds": t_after - t_before,
+            "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]}}
+    for key in ("3 prove", "4 prove"):
+        for name in LAGRANGE_ONLY:
+            if per_request[key]["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"{name} was not launched by request {key}")
+    missing = [name for name, n in launches.items() if n <= 0 and name not in OFF_PATH]
+    if missing:
+        raise AssertionError(f"kernels not launched by the worker's run: {missing}")
+
+    # prove_many against a loop of single proves, each way twice, in turns
+    witnesses = [squaring_chain(r1cs.header.n_constraints, x0=x0)[1] for x0 in PROVE_MANY_X0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        proofs = fn()
+        torch.cuda.synchronize()
+        return proofs, time.time() - t0, torch.cuda.max_memory_allocated()
+
+    loop = lambda: [runner.prove_with_witness(r1cs, w, device=device, fri_fold="lagrange")  # noqa: E731
+                    for w in witnesses]
+    many = lambda: runner.prove_many(r1cs, witnesses, pipeline=2, device=device,  # noqa: E731
+                                     fri_fold="lagrange")
+    runs = []
+    singles = None
+    for way, fn in (("loop", loop), ("prove_many", many), ("prove_many", many), ("loop", loop)):
+        proofs, seconds, peak = timed(fn)
+        singles = singles or proofs
+        if proofs != singles:
+            raise AssertionError(f"{way}: a proof differs from the first loop's")
+        runs.append({"way": way, "seconds": seconds, "proofs_per_s": len(proofs) / seconds,
+                     "peak_bytes": peak})
+    if singles[0] != want_proof or len({proof_mod.to_json(p) for p in singles}) != len(singles):
+        raise AssertionError("the pipelined witnesses' proofs are not the expected ones")
+    return {"fri_fold": "lagrange", "launches": launches, "requests": per_request,
+            "prove_many": {"witnesses": len(witnesses), "pipeline": 2, "runs": runs}}
 
 
 def main(argv=None) -> int:
@@ -637,7 +892,8 @@ def main(argv=None) -> int:
     so = build.library_path()
     build.load()
     with open(os.path.join(os.path.dirname(so), "build.log")) as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "Compiling entry" in ln]
+        ptxas = [ln.strip() for ln in f
+                 if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
     emit({"phase": "build", "library": os.path.relpath(so, ROOT), "ptxas": ptxas,
           "seconds": time.time() - t0})
 
@@ -650,20 +906,31 @@ def main(argv=None) -> int:
           "tolerance": "exact (torch.equal)", "results": kstats,
           "seconds": time.time() - t0})
 
+    emit({"phase": "reckoned", "kernels_not_ported": reckon_crt_bounds(spec, params.precision)})
+
     t0 = time.time()
     goldens = phase_goldens(device)
     emit({"phase": "goldens", "results": goldens, "seconds": time.time() - t0})
 
+    from stark_tpu_torch.r1cs.synth import squaring_chain
+
+    r1cs, witness = squaring_chain(REAL_CONSTRAINTS)
     t0 = time.time()
-    real = phase_real(device, REAL_CONSTRAINTS, args.profile)
+    real, proof = phase_real(device, r1cs, witness, args.profile)
     emit({"phase": "real_size", "steps": params.steps, "precision": params.precision,
           **real, "seconds": time.time() - t0})
+
+    t0 = time.time()
+    served = phase_serve(device, r1cs, witness, proof)
+    emit({"phase": "serve", "steps": params.steps, "precision": params.precision,
+          **served, "seconds": time.time() - t0})
 
     def line_entry(name):
         src, rep = KERNELS[name]
         label, case = next(iter(kstats[name]["cases"].items()))
+        path, run = ("serve", served) if name in LAGRANGE_ONLY else ("real_size", real)
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": real["launches"][name],
+                "path": path, "launches": run["launches"][name],
                 "max_abs_err": kstats[name]["max_abs_err"], "case": label,
                 "ms": case["ms"], "plain_ms": case["plain_ms"],
                 "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],

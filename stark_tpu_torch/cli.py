@@ -1,9 +1,13 @@
 """Command-line interface of the port.
 
     python -m stark_tpu_torch.cli run c.r1cs w.wtns proof.json --device cuda
+    python -m stark_tpu_torch.cli serve --device cuda --fri-fold lagrange
 
-`prove`, `verify` and `run` (prove then verify) mirror `stark_tpu.cli`;
-the bare 3-argument form means `run`, like the reference's binary.
+`prove`, `verify`, `run` (prove then verify) and `serve` (the long-lived
+proving worker, line-delimited JSON-RPC on stdio: `stark_tpu_torch/serve.py`)
+mirror `stark_tpu.cli`; the bare 3-argument form means `run`, like the
+reference's binary. `--fri-fold` names FRI's fold route for the proving
+commands; the proof is the same on either.
 """
 
 from __future__ import annotations
@@ -12,35 +16,47 @@ import argparse
 import sys
 import time
 
+_COMMANDS = ("prove", "verify", "run", "serve")
+
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] not in ("prove", "verify", "run", "-h", "--help"):
+    if argv and argv[0] not in _COMMANDS + ("-h", "--help"):
         argv = ["run"] + argv  # bare 3-arg form
     parser = argparse.ArgumentParser(prog="stark-tpu-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name in ("prove", "verify", "run"):
+    for name in _COMMANDS:
         sp = sub.add_parser(name)
-        sp.add_argument("r1cs")
-        sp.add_argument("wtns")
-        sp.add_argument("proof_json")
+        if name != "serve":
+            sp.add_argument("r1cs")
+            sp.add_argument("wtns")
+            sp.add_argument("proof_json")
         sp.add_argument("--device", default="cuda",
                         help="cuda (the default; needs a card) or cpu")
+        if name != "verify":
+            sp.add_argument("--fri-fold", choices=("dft", "lagrange"), default="dft",
+                            help="FRI's fold route: the radix-4 inverse DFT (the "
+                            "default) or the Lagrange fold kernels")
     args = parser.parse_args(argv)
+
+    if args.cmd == "serve":
+        from stark_tpu_torch.serve import serve
+
+        return serve(device=args.device, fri_fold=args.fri_fold)
 
     from stark_tpu_torch.protocol import runner
 
     t0 = time.time()
     if args.cmd == "prove":
         runner.prove_with_file_path(args.r1cs, args.wtns, args.proof_json,
-                                    device=args.device)
+                                    device=args.device, fri_fold=args.fri_fold)
     elif args.cmd == "verify":
         runner.verify_with_file_path(args.r1cs, args.wtns, args.proof_json,
                                      device=args.device)
         print("Done proof verification")
     else:
         runner.run_with_file_path(args.r1cs, args.wtns, args.proof_json,
-                                  device=args.device)
+                                  device=args.device, fri_fold=args.fri_fold)
         print("Done proof verification")
     print(f"{args.cmd}: {time.time() - t0:.3f}s")
     return 0

@@ -1,10 +1,17 @@
 """FRI low-degree proofs (4x folding, 40 queries a round, direct check at 16).
 
-Counterpart of `stark_tpu/fri/fri.py`: the radix-4 inverse-DFT fold
-(`_fold_j :163-190`), the recursion with every challenge derived on the
-device (`_fri_chain_j :244`, `prove_low_degree_pending :304`), host
-assembly (`assemble_fri :395`) and the host verifier
-(`verify_low_degree_proof :417`).
+Counterpart of `stark_tpu/fri/fri.py`: the fold on its two routes, the
+radix-4 inverse DFT (`_fold_j :163-190`) and the general Lagrange
+interpolation through the kernels `fri_fold_pre` / `fri_fold_post`
+(`:149-155`), the recursion with every challenge derived on the device
+(`_fri_chain_j :244`, `prove_low_degree_pending :304`), host assembly
+(`assemble_fri :395`) and the host verifier (`verify_low_degree_proof :417`).
+
+The route is an explicit argument, `fri_fold="dft"` (the default, as in the
+JAX package) or `"lagrange"` (the JAX package's `STARK_TPU_FRI_LAGRANGE=1`).
+Both give the same field values, so the proof does not depend on it. On the
+Lagrange route the two kernels run in every round whatever its size: their
+wrappers choose by the tensor's device alone.
 """
 
 from __future__ import annotations
@@ -20,10 +27,18 @@ from stark_tpu_torch.utils import poly_host as ph
 from stark_tpu_torch.merkle import tree as mt
 from stark_tpu_torch.ops import modmath as mm
 from stark_tpu_torch.protocol import device_transcript as dt
+from stark_tpu_torch.protocol import fused_kernels as fk
 from stark_tpu_torch.protocol.core import leaves_to_words
 
 MIN_DEG_DIRECT_CHECKING = 16
 QUERIES_PER_ROUND = 40
+FOLD_ROUTES = ("dft", "lagrange")
+
+
+def check_fold_route(route: str) -> str:
+    if route not in FOLD_ROUTES:
+        raise ValueError(f"fri_fold must be one of {FOLD_ROUTES}, got {route!r}")
+    return route
 
 
 @dataclass
@@ -38,15 +53,27 @@ class FriMiddle:
     poly_branches: list[mt.MerkleProof]
 
 
-def fold(spec: FieldSpec, values, xs, sx):
-    """The 4x fold at special_x. The row points are a coset of the 4th
-    roots of unity, x_j = x * I^j with I = g^(n/4), so the degree-3
-    interpolation is an exact radix-4 inverse DFT:
+def fold(spec: FieldSpec, values, xs, sx, route: str = "dft"):
+    """The 4x fold at special_x: row i holds the values at the four points
+    x_j[i] = xs[j*n/4 + i], and the folded column is their degree-3
+    interpolant at sx. values, xs: contiguous (L, n); sx: (L, 1).
+
+    "dft": the row points are a coset of the 4th roots of unity, x_j =
+    x * I^j with I = g^(n/4), so the interpolation is an exact radix-4
+    inverse DFT:
         p(sx) = (1/4) * sum_k u_k t^k,  u_k = sum_j v_j I^(-jk),
         t = sx * x^-1,
-    with x_i^-1 = xs[(n - i) mod n]. values, xs: (L, n); sx: (L, 1)."""
+    with x_i^-1 = xs[(n - i) mod n].
+
+    "lagrange": general 4-point Lagrange interpolation, `fri_fold_pre`
+    (vanishing cubics and denominators), one `multi_inv` over all n
+    denominators, `fri_fold_post` (combine and Horner at sx)."""
     L, n = values.shape
     quarter = n // 4
+    if check_fold_route(route) == "lagrange":
+        eqs, dens = fk.fri_fold_pre(spec, xs.reshape(L, 4, quarter))
+        invs = mm.multi_inv(spec, dens.reshape(L, n)).reshape(L, 4, quarter)
+        return fk.fri_fold_post(spec, sx, eqs, values.reshape(L, 4, quarter), invs)
     v0, v1, v2, v3 = (values[:, j * quarter : (j + 1) * quarter] for j in range(4))
     i_root = xs[:, quarter : quarter + 1]  # I = g^(n/4)
     a = mm.madd(spec, v0, v2)
@@ -75,13 +102,16 @@ def n_rounds(max_deg_plus_1: int, cutoff: int = MIN_DEG_DIRECT_CHECKING) -> int:
 
 
 def prove_low_degree_pending(spec: FieldSpec, values, xs_full, max_deg_plus_1: int,
-                             exclude_multiples_of: int, first_tree: mt.DeviceMerkleTree):
+                             exclude_multiples_of: int, first_tree: mt.DeviceMerkleTree,
+                             fri_fold: str = "dft"):
     """The whole FRI recursion, enqueued without a host sync. `first_tree`
     is the caller's tree over `values` with 32-byte leaves (the prover's
-    l-tree; the reference recommits identical content). Returns the
+    l-tree; the reference recommits identical content); `fri_fold` names
+    the fold's route in every round. Returns the
     pending record whose `device_arrays` the caller materializes with the
     rest of the proof: per round (root2, col_flat, val_flat), then the
     direct-check `last` words."""
+    check_fold_route(fri_fold)
     rounds = n_rounds(max_deg_plus_1)
     values, xs = values, xs_full
     words, layers = first_tree.leaf_words, first_tree.layers
@@ -89,7 +119,7 @@ def prove_low_degree_pending(spec: FieldSpec, values, xs_full, max_deg_plus_1: i
     for _ in range(rounds):
         quarter = values.shape[1] // 4
         sx = dt.digest_le_int_mont(spec, layers[-1][:, 0])
-        column = fold(spec, values, xs, sx)
+        column = fold(spec, values, xs, sx, fri_fold)
         c_words = leaves_to_words(spec, [column])
         c_layers = mt.build_layers(c_words, 32)
         root2_w = c_layers[-1][:, 0]

@@ -4,14 +4,16 @@ Counterpart of `stark_tpu/protocol/pallas_kernels.py` for its kernels
 `rand_combination` (`:98`), `q1_eval` (`:118`), `q2_eval` (`:137`),
 `q3_eval` (`:154`), `linear_combination` (`:190`), `horner_eval` (`:214`),
 `vanishing_eval` (`:236`), `shoup_mul_periodic` (`:268`),
-`linear_combination_shoup` (`:319`), `sub_mul` (`:353`) and
-`from_mont_pack_words` (`:373`), with the same signatures. The kernels are `csrc/protocol.cu`,
-whose header says what bounds each on an H100 and what the design does
-about it.
+`linear_combination_shoup` (`:319`), `sub_mul` (`:353`),
+`from_mont_pack_words` (`:373`), `fri_fold_pre` (`:433`) and `fri_fold_post`
+(`:478`), with the same signatures. The kernels are `csrc/protocol.cu` and,
+for the two halves of FRI's Lagrange fold, `csrc/fri.cu`; each header says
+what bounds its kernels on an H100 and what the design does about it.
 
 Every wrapper takes contiguous (16, n) int32 Montgomery planes on one device
 (`field_cuda.check_planes` refuses anything else, views included: the
-callers in `protocol/kernels.py` make their operands contiguous). On a CUDA
+callers in `protocol/kernels.py` make their operands contiguous); the fold
+kernels take contiguous (16, 4, q) and (16, 16, q) arrays. On a CUDA
 tensor it launches its kernel or raises; on a CPU tensor it runs the
 `*_plain` function beside it. Nothing else chooses: no size gate, no
 environment variable, no fallback on error.
@@ -345,7 +347,102 @@ def from_mont_pack_words(spec: FieldSpec, col, out=None):
     return out
 
 
+# --- FRI's Lagrange fold: two kernels around the shared batched inversion -----
+#
+# A round's n = 4q points as (16, 4, q) planes: member j of row i at
+# [:, j, i], the view `xs.reshape(16, 4, q)` of the flat (16, n) plane.
+
+# for member j of a row, the other three
+_OTHERS = ((1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2))
+
+
+def _check_rows(spec: FieldSpec, like: torch.Tensor, **arrays) -> None:
+    """`name=(tensor, rows)`: each a contiguous int32 (16, rows, q) array on
+    `like`'s device, with `like`'s q."""
+    for name, (t, rows) in arrays.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be torch.int32, got {t.dtype}")
+        want = (spec.num_limbs, rows, like.shape[-1])
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != like.device:
+            raise ValueError("limb planes must share one device")
+
+
+def fri_fold_pre_plain(spec, xs4):
+    L, _, q = xs4.shape
+    x = [xs4[:, j] for j in range(4)]
+    zero = torch.zeros_like(x[0])
+    neg = lambda a: mm.msub(spec, zero, a)  # noqa: E731
+    pair = {(a, b): _mul(spec, x[a], x[b]) for a in range(4) for b in range(a + 1, 4)}
+    eqs = torch.empty((L, 16, q), dtype=torch.int32, device=xs4.device)
+    dens = torch.empty((L, 4, q), dtype=torch.int32, device=xs4.device)
+    for j, (a, b, c) in enumerate(_OTHERS):
+        c0 = neg(_mul(spec, pair[(a, b)], x[c]))
+        c1 = mm.madd(spec, mm.madd(spec, pair[(a, b)], pair[(a, c)]), pair[(b, c)])
+        c2 = neg(mm.madd(spec, mm.madd(spec, x[a], x[b]), x[c]))
+        eqs[:, 4 * j + 0] = c0
+        eqs[:, 4 * j + 1] = c1
+        eqs[:, 4 * j + 2] = c2
+        eqs[:, 4 * j + 3] = mm.mont_one(spec, xs4.device)
+        acc = mm.madd(spec, x[j], c2)
+        acc = mm.madd(spec, _mul(spec, acc, x[j]), c1)
+        dens[:, j] = mm.madd(spec, _mul(spec, acc, x[j]), c0)
+    return eqs, dens
+
+
+def fri_fold_pre(spec: FieldSpec, xs4):
+    """xs4: (16, 4, q), the four x of each row -> (eqs (16, 16, q), dens
+    (16, 4, q)): coefficient k (low to high) of the monic cubic eq_j that
+    vanishes at the row's other three x at eqs[:, 4j + k], and
+    dens[:, j] = eq_j(x_j), the Lagrange denominator."""
+    _check_rows(spec, xs4, xs4=(xs4, 4))
+    if xs4.device.type == "cpu":
+        return fri_fold_pre_plain(spec, xs4)
+    q = xs4.shape[2]
+    eqs = torch.empty((spec.num_limbs, 16, q), dtype=torch.int32, device=xs4.device)
+    dens = torch.empty_like(xs4)
+    _launch(fri_fold_pre, spec, xs4, lambda lib, w, np32, st: lib.stark_fri_fold_pre(
+        xs4.data_ptr(), eqs.data_ptr(), dens.data_ptr(), q, w, np32, st))
+    return eqs, dens
+
+
+def fri_fold_post_plain(spec, sx, eqs, ys4, invs):
+    poly = [None] * 4
+    for j in range(4):
+        w = _mul(spec, ys4[:, j], invs[:, j])
+        for k in range(4):
+            term = _mul(spec, eqs[:, 4 * j + k], w)
+            poly[k] = term if poly[k] is None else mm.madd(spec, poly[k], term)
+    acc = poly[3]
+    for k in (2, 1, 0):
+        acc = mm.madd(spec, _mul(spec, acc, sx), poly[k])
+    return acc
+
+
+def fri_fold_post(spec: FieldSpec, sx, eqs, ys4, invs):
+    """The folded column (16, q): with w_j = ys4[:, j] * invs[:, j], the
+    interpolant sum_j w_j * eq_j of each row evaluated at the one (16, 1)
+    point sx; eqs as `fri_fold_pre` lays them out, invs the inverted
+    denominators."""
+    _check_rows(spec, ys4, ys4=(ys4, 4), invs=(invs, 4), eqs=(eqs, 16))
+    fc.check_planes(spec, sx)
+    if sx.shape[1] != 1 or sx.device != ys4.device:
+        raise ValueError(f"sx must be (16, 1) on ys4's device, got {tuple(sx.shape)}")
+    if ys4.device.type == "cpu":
+        return fri_fold_post_plain(spec, sx, eqs, ys4, invs)
+    q = ys4.shape[2]
+    out = torch.empty((spec.num_limbs, q), dtype=torch.int32, device=ys4.device)
+    _launch(fri_fold_post, spec, ys4, lambda lib, w, np32, st: lib.stark_fri_fold_post(
+        sx.data_ptr(), eqs.data_ptr(), ys4.data_ptr(), invs.data_ptr(),
+        out.data_ptr(), q, w, np32, st))
+    return out
+
+
 for _wrapper in (rand_combination, q1_eval, q2_eval, q3_eval, linear_combination,
                  shoup_mul_periodic, linear_combination_shoup, horner_eval,
-                 vanishing_eval, sub_mul, from_mont_pack_words):
+                 vanishing_eval, sub_mul, from_mont_pack_words, fri_fold_pre,
+                 fri_fold_post):
     _wrapper.launches = 0

@@ -102,31 +102,39 @@ def _stages_cached(spec, steps, precision, original_steps, digest, device):
 def _check_scope(mesh, digest: str):
     if mesh is not None:
         raise NotImplementedError(
-            "mesh: multi-GPU proving is not ported (ROADMAP.md Queue 1, Multi-GPU)"
+            "mesh: multi-GPU proving is not ported (ROADMAP.md Queue 1 item 16, "
+            "Multi-GPU)"
         )
     if digest != "blake2s":
         raise NotImplementedError(
-            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1, "
-            "Poseidon digest)"
+            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1 "
+            "item 12, Poseidon digest)"
         )
 
 
 def mk_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires, n_constraints: int,
                   n_wires: int, mesh=None, digest: str = "blake2s",
-                  device="cuda") -> StarkProof:
+                  device="cuda", fri_fold: str = "dft") -> StarkProof:
     return materialize_r1cs_proof(
         spec,
         enqueue_r1cs_proof(spec, arith, public_wires, n_constraints, n_wires,
-                           mesh=mesh, digest=digest, device=device),
+                           mesh=mesh, digest=digest, device=device,
+                           fri_fold=fri_fold),
     )
 
 
 def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
                        n_constraints: int, n_wires: int, mesh=None,
-                       digest: str = "blake2s", device="cuda") -> dict:
+                       digest: str = "blake2s", device="cuda",
+                       fri_fold: str = "dft") -> dict:
     """Enqueue the proof as one chain of device work; `arith` must carry
-    the device-arithmetization inputs (`witness_le`, `slot_wire_ids`)."""
+    the device-arithmetization inputs (`witness_le`, `slot_wire_ids`).
+    `witness_le` is the (n_wires, 32) uint8 rows as a numpy array, or as a
+    tensor already on `device` (`runner.prove_many` uploads it ahead).
+    `fri_fold` names FRI's fold route ("dft" or "lagrange"); the proof is
+    the same on either."""
     _check_scope(mesh, digest)
+    fri.check_fold_route(fri_fold)
     dev = devmod.resolve(device)
     p = spec.p
     original_steps = arith.original_steps
@@ -148,9 +156,17 @@ def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
     wids = np.zeros(steps, dtype=np.int64)
     wids[:original_steps] = arith.slot_wire_ids
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    witness = arith.witness_le
+    if not torch.is_tensor(witness):
+        witness = to_dev(_col_bytes_np(spec, witness))
+    elif witness.device != dev or witness.dtype != torch.uint8:
+        raise ValueError(
+            f"a witness tensor must be uint8 on {dev}, got {witness.dtype} on "
+            f"{witness.device}"
+        )
     traces = stages["wit_traces"](
         to_dev(_col_bytes_np(spec, _pad_col(arith.coefficients, steps))),
-        to_dev(_col_bytes_np(spec, arith.witness_le)),
+        witness,
         to_dev(wids),
         to_dev(np.asarray(_pad_col(arith.flag1, steps), dtype=np.uint8)),
         to_dev(np.asarray(_pad_col(arith.flag2, steps), dtype=np.uint8)),
@@ -187,7 +203,8 @@ def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
 
     # --- FRI; the l-tree is round 0's value tree ---
     pending = fri.prove_low_degree_pending(
-        spec, l_ev, xs_full, precision // 4, skips, first_tree=l_tree
+        spec, l_ev, xs_full, precision // 4, skips, first_tree=l_tree,
+        fri_fold=fri_fold,
     )
     return {
         "pending": pending,

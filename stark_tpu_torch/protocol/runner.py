@@ -1,22 +1,31 @@
 """Top-level prove/verify entry points over parsed circuits.
 
-Counterpart of `stark_tpu/protocol/runner.py:43, 233, 298-323`. Every entry
-point takes `device=` ("cuda" by default; "cpu" runs the plain PyTorch
-versions of the kernels). The prover always derives S and P on the device
-from the witness; the circuit-static arithmetization comes from the C++
-host library when it builds, from the pure-Python arithmetizer otherwise.
+Counterpart of `stark_tpu/protocol/runner.py:43, 88, 233, 298-323`. Every
+entry point takes `device=` ("cuda" by default; "cpu" runs the plain PyTorch
+versions of the kernels), and the proving ones `fri_fold=` ("dft" by
+default, or "lagrange": FRI's fold route, the JAX package's
+`STARK_TPU_FRI_LAGRANGE`; the proof is the same on either). The prover
+always derives S and P on the device from the witness; the circuit-static
+arithmetization comes from the C++ host library when it builds, from the
+pure-Python arithmetizer otherwise.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from stark_tpu_torch import device as devmod
 from stark_tpu_torch import native
 from stark_tpu_torch.fields.field import BN254_FR, FieldSpec
 from stark_tpu_torch.r1cs.arithmetize import Arithmetization, arithmetize, slot_wire_ids_np
 from stark_tpu_torch.r1cs.reader import R1csContents, read_r1cs, read_witness
 from stark_tpu_torch.protocol import proof as proof_mod
-from stark_tpu_torch.protocol.prove import mk_r1cs_proof
+from stark_tpu_torch.protocol.prove import (
+    enqueue_r1cs_proof,
+    materialize_r1cs_proof,
+    mk_r1cs_proof,
+)
 from stark_tpu_torch.protocol.verify import verify_r1cs_proof
 
 # the BN254/circom scalar field is the only one the reference accepts
@@ -63,21 +72,96 @@ def _static_arith(spec: FieldSpec, r1cs: R1csContents) -> Arithmetization:
     return arith
 
 
-def prove_with_witness(r1cs: R1csContents, witness_bytes: list[bytes], mesh=None,
-                       digest: str = "blake2s", device="cuda"):
-    """run.rs:310-452 -> a StarkProof."""
-    spec = _spec_for(r1cs)
-    h = r1cs.header
+def _public_wires(spec: FieldSpec, r1cs: R1csContents, witness_bytes) -> list[int]:
     public_wires = [spec.from_bytes_le(w) for w in witness_bytes[: _n_pub(r1cs)]]
     if public_wires[0] != 1:
         raise ValueError("witness[0] must be 1")
-    arith = _static_arith(spec, r1cs)
-    wit_np = np.zeros((h.n_wires, 32), np.uint8)
+    return public_wires
+
+
+def _witness_rows(r1cs: R1csContents, witness_bytes) -> np.ndarray:
+    """The witness as (n_wires, 32) uint8 little-endian rows."""
+    wit_np = np.zeros((r1cs.header.n_wires, 32), np.uint8)
     for i, wb in enumerate(witness_bytes):
         wit_np[i, : len(wb[:32])] = np.frombuffer(wb[:32], np.uint8)
-    arith.witness_le = wit_np
+    return wit_np
+
+
+def prove_with_witness(r1cs: R1csContents, witness_bytes: list[bytes], mesh=None,
+                       digest: str = "blake2s", device="cuda", fri_fold: str = "dft"):
+    """run.rs:310-452 -> a StarkProof."""
+    spec = _spec_for(r1cs)
+    h = r1cs.header
+    public_wires = _public_wires(spec, r1cs, witness_bytes)
+    arith = _static_arith(spec, r1cs)
+    arith.witness_le = _witness_rows(r1cs, witness_bytes)
     return mk_r1cs_proof(spec, arith, public_wires, h.n_constraints, h.n_wires,
-                         mesh=mesh, digest=digest, device=device)
+                         mesh=mesh, digest=digest, device=device, fri_fold=fri_fold)
+
+
+def prove_many(r1cs: R1csContents, witness_bytes_list, pipeline: int = 2, mesh=None,
+               device="cuda", fri_fold: str = "dft") -> list:
+    """Prove many witnesses of ONE circuit, for a proving service.
+
+    The circuit is arithmetized once. Each proof is enqueued as one chain of
+    device work without a host synchronise (`enqueue_r1cs_proof`), and at
+    most `pipeline` chains are in flight: the oldest is materialized (one
+    blocking transfer, then host formatting) only after the next has been
+    enqueued, so the device works on proof i+1 while the host waits for and
+    formats proof i. Each in-flight chain holds O(precision) device arrays.
+
+    On a card the next witness is uploaded one proof ahead: from pinned
+    memory, `non_blocking`, on a side stream, with an event that the proving
+    stream waits on before it reads the tensor. On the CPU the same loop
+    runs without streams. Returns the proofs in the witnesses' order.
+    """
+    if pipeline < 1:
+        raise ValueError(f"pipeline must be at least 1, got {pipeline}")
+    spec = _spec_for(r1cs)
+    h = r1cs.header
+    dev = devmod.resolve(device)
+    arith = _static_arith(spec, r1cs)
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def upload(i):
+        """Witness i as a tensor on the device and the event that says it has
+        arrived (None on the CPU). The pinned source may go out of scope at
+        once: PyTorch's host allocator holds a pinned block until the copies
+        that read it are done."""
+        rows = torch.from_numpy(_witness_rows(r1cs, witness_bytes_list[i]))
+        if side is None:
+            return rows, None
+        with torch.cuda.stream(side):
+            on_dev = rows.pin_memory().to(dev, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return on_dev, ready
+
+    proofs: list = []
+    in_flight: list = []
+    nxt = upload(0) if witness_bytes_list else None
+    for i, witness_bytes in enumerate(witness_bytes_list):
+        public_wires = _public_wires(spec, r1cs, witness_bytes)
+        on_dev, ready = nxt
+        if ready is not None:
+            main = torch.cuda.current_stream(dev)
+            main.wait_event(ready)
+            on_dev.record_stream(main)  # allocated on the side stream, read here
+        # `arith` is shared and `witness_le` is one slot on it: the enqueued
+        # chain has put the tensor into its launches before the slot is reset
+        arith.witness_le = on_dev
+        in_flight.append(enqueue_r1cs_proof(
+            spec, arith, public_wires, h.n_constraints, h.n_wires, mesh=mesh,
+            device=dev, fri_fold=fri_fold))
+        arith.witness_le = None
+        del on_dev
+        if i + 1 < len(witness_bytes_list):
+            nxt = upload(i + 1)
+        if len(in_flight) >= pipeline:
+            proofs.append(materialize_r1cs_proof(spec, in_flight.pop(0)))
+    while in_flight:
+        proofs.append(materialize_r1cs_proof(spec, in_flight.pop(0)))
+    return proofs
 
 
 def verify_with_witness(r1cs: R1csContents, public_wires_bytes: list[bytes], proof,
@@ -101,10 +185,11 @@ def _read(path: str) -> bytes:
 
 
 def prove_with_file_path(r1cs_path, witness_path, proof_json_path,
-                         digest: str = "blake2s", device="cuda") -> None:
+                         digest: str = "blake2s", device="cuda",
+                         fri_fold: str = "dft") -> None:
     r1cs = read_r1cs(_read(r1cs_path))
     proof = prove_with_witness(r1cs, read_witness(_read(witness_path)),
-                               digest=digest, device=device)
+                               digest=digest, device=device, fri_fold=fri_fold)
     with open(proof_json_path, "w") as f:
         f.write(proof_mod.to_json(proof))
 
@@ -121,7 +206,9 @@ def verify_with_file_path(r1cs_path, witness_path, proof_json_path,
 
 
 def run_with_file_path(r1cs_path, witness_path, proof_json_path,
-                       digest: str = "blake2s", device="cuda") -> None:
+                       digest: str = "blake2s", device="cuda",
+                       fri_fold: str = "dft") -> None:
     """Prove, write the JSON, verify (run.rs:590-625)."""
-    prove_with_file_path(r1cs_path, witness_path, proof_json_path, digest, device)
+    prove_with_file_path(r1cs_path, witness_path, proof_json_path, digest, device,
+                         fri_fold)
     verify_with_file_path(r1cs_path, witness_path, proof_json_path, digest, device)

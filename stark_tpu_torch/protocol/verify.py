@@ -93,8 +93,8 @@ def verify_r1cs_proof(spec: FieldSpec, proof: StarkProof, public_wires,
     """Raises (ValueError / AssertionError) on a bad proof; True otherwise."""
     if digest != "blake2s":
         raise NotImplementedError(
-            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1, "
-            "Poseidon digest)"
+            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1 "
+            "item 12, Poseidon digest)"
         )
     dev = devmod.resolve(device)
     p = spec.p

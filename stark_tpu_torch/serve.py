@@ -1,0 +1,171 @@
+"""Persistent proving worker: line-delimited JSON-RPC over stdio.
+
+Counterpart of `stark_tpu/serve.py`, with the same line protocol: one
+long-lived process holds the built kernel library, the parsed-circuit
+cache, the circuit-static arithmetizations and the prover's stage sets (the
+domain tables on the device), so repeat calls pay only the proof itself.
+
+Protocol (one JSON object per line on stdin; one `RPC {...}` line per
+response on stdout: the prefix keeps stray library prints from corrupting
+the stream). The first line out is the ready event,
+`RPC {"id": null, "result": {"ok": true, "event": "ready"}}`.
+
+    {"id": 1, "method": "prove",
+     "params": {"r1cs": "c.r1cs", "wtns": "w.wtns", "proof_json": "p.json"}}
+    -> RPC {"id": 1, "result": {"ok": true, "proof_bytes": 3649501,
+                                "seconds": 0.25}}
+
+Methods: ping, prove, verify, run (prove+verify), warmup, shutdown.
+`prove` accepts "inline": true to return the proof JSON in the response
+instead of (or beside) writing a file; `prove`/`verify`/`run` accept
+"digest", of which only "blake2s" is ported: "poseidon" comes back as an
+error naming its ROADMAP item. Errors come back as
+{"id", "error": {"type", "message"}}: the worker never dies on a bad
+request.
+
+`warmup` takes {"r1cs": path}. The JAX worker compiles its executables
+there; this one has none to compile. It builds and loads the CUDA kernel
+library (on a card), parses and arithmetizes the circuit, and builds the
+stage set for its size (power tables, NTT plans, pattern pairs on the
+device), and answers {"ok", "warmed", "steps"} with `warmed` the number of
+stages made ready. The device and FRI's fold route are the worker's, fixed
+when it starts: `python -m stark_tpu_torch.cli serve --device cuda
+--fri-fold dft`.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+from stark_tpu_torch import device as devmod
+from stark_tpu_torch.fri.fri import check_fold_route
+from stark_tpu_torch.ops import build
+from stark_tpu_torch.protocol import proof as proof_mod
+from stark_tpu_torch.protocol import prove, runner
+from stark_tpu_torch.protocol.params import derive_params
+from stark_tpu_torch.r1cs.reader import read_r1cs, read_witness
+
+
+class _CircuitCache:
+    """Parsed circuits keyed by (path, mtime, size). The runner attaches the
+    static arithmetization to the parsed object, so repeat requests for one
+    circuit skip parsing and arithmetizing."""
+
+    def __init__(self, max_entries: int = 8):
+        self._d: dict = {}
+        self._max = max_entries
+
+    def get(self, path: str):
+        st = os.stat(path)
+        key = (os.path.abspath(path), st.st_mtime_ns, st.st_size)
+        hit = self._d.get(key)
+        if hit is not None:
+            return hit
+        with open(path, "rb") as f:
+            r1cs = read_r1cs(f.read())
+        if len(self._d) >= self._max:
+            self._d.pop(next(iter(self._d)))
+        self._d[key] = r1cs
+        return r1cs
+
+
+def _read_witness(path: str):
+    with open(path, "rb") as f:
+        return read_witness(f.read())
+
+
+def _warmup(r1cs, dev) -> dict:
+    if dev.type == "cuda":
+        build.load()
+    spec = runner._spec_for(r1cs)
+    arith = runner._static_arith(spec, r1cs)
+    params = derive_params(spec, arith.original_steps)
+    stages = prove._stages_cached(spec, params.steps, params.precision,
+                                  arith.original_steps, "blake2s", dev)
+    warmed = sum(callable(stage) for stage in stages.values())
+    return {"ok": True, "warmed": warmed, "steps": params.steps}
+
+
+def serve(stdin=None, stdout=None, device="cuda", fri_fold: str = "dft") -> int:
+    """Blocking request loop; returns on EOF or the shutdown method. Raises
+    before the ready event if `device` cannot be had or `fri_fold` names no
+    route."""
+    dev = devmod.resolve(device)
+    check_fold_route(fri_fold)
+    stdin = stdin if stdin is not None else sys.stdin
+    stdout = stdout if stdout is not None else sys.stdout
+    circuits = _CircuitCache()
+
+    def _emit(obj):
+        stdout.write("RPC " + json.dumps(obj, separators=(",", ":")) + "\n")
+        stdout.flush()
+
+    _emit({"id": None, "result": {"ok": True, "event": "ready"}})
+
+    for line in stdin:
+        line = line.strip()
+        if not line:
+            continue
+        req_id = None
+        try:
+            req = json.loads(line)
+            req_id = req.get("id")
+            method = req.get("method")
+            prm = req.get("params") or {}
+            t0 = time.time()
+
+            if method == "ping":
+                result = {"ok": True}
+
+            elif method == "shutdown":
+                _emit({"id": req_id, "result": {"ok": True}})
+                return 0
+
+            elif method == "warmup":
+                result = _warmup(circuits.get(prm["r1cs"]), dev)
+
+            elif method in ("prove", "verify", "run"):
+                digest = prm.get("digest", "blake2s")
+                r1cs = circuits.get(prm["r1cs"])
+                witness = _read_witness(prm["wtns"])
+                result = {"ok": True}
+                if method in ("prove", "run"):
+                    proof = runner.prove_with_witness(
+                        r1cs, witness, digest=digest, device=dev, fri_fold=fri_fold
+                    )
+                    pj = proof_mod.to_json(proof)
+                    result["proof_bytes"] = len(pj)
+                    if prm.get("inline"):
+                        result["proof"] = pj
+                    if prm.get("proof_json"):
+                        with open(prm["proof_json"], "w") as f:
+                            f.write(pj)
+                if method in ("verify", "run"):
+                    if method == "verify":
+                        with open(prm["proof_json"]) as f:
+                            proof = proof_mod.from_json(f.read())
+                    ok = runner.verify_with_witness(
+                        r1cs, witness[: runner._n_pub(r1cs)], proof, digest=digest,
+                        device=dev,
+                    )
+                    result["verified"] = bool(ok)
+
+            else:
+                raise ValueError(f"unknown method {method!r}")
+
+            result["seconds"] = round(time.time() - t0, 3)
+            _emit({"id": req_id, "result": result})
+        except Exception as e:  # keep serving; report the failure
+            _emit(
+                {
+                    "id": req_id,
+                    "error": {
+                        "type": type(e).__name__,
+                        "message": str(e)[:2000],
+                    },
+                }
+            )
+    return 0

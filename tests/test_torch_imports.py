@@ -71,13 +71,15 @@ def test_port_imports_nothing_of_the_jax_package():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k == 'stark_tpu'\n"
         "             or k.startswith('stark_tpu.'))\n"
         "assert not bad, bad\n"
+        "for name in ('serve', 'cli', 'ops.quartic', 'fri.fri', 'protocol.runner'):\n"
+        "    assert 'stark_tpu_torch.' + name in sys.modules, name\n"
         "print('ok', sum(k.startswith('stark_tpu_torch.') for k in sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     word, count = out.stdout.split()
-    assert word == "ok" and int(count) >= 25  # every module of the port was loaded
+    assert word == "ok" and int(count) >= 27  # every module of the port was loaded
 
 
 def test_port_sources_name_no_import_of_the_jax_package():
