@@ -14,8 +14,6 @@ non-zero and no phase's error is swallowed:
    precision 2^20), inputs from a numpy seed; tolerance: exact equality
    (integer field arithmetic with canonical outputs), with the median time
    of both per case and the least time the card could take (`bound_ms`);
-   then, run by nothing, the bounds of the three CRT-engine kernels that are
-   not ported yet, reckoned from the JAX package's code (`reckon_crt_bounds`);
 4. goldens: the `compute` and `poseidon3_test` proofs, on both of FRI's fold
    routes, must be byte-identical to the committed goldens and the
    `ragged_mix(120)` proof must match its committed sha256; the port's
@@ -245,63 +243,6 @@ def add_bounds(result: dict, sm_hz: float) -> None:
         chain = c.pop("chain")
         c["chain_ms"] = (chain * CHAIN_STEPS * CYCLES_PER_STEP / sm_hz * 1e3
                          if chain else None)
-
-
-def reckon_crt_bounds(spec, precision: int) -> dict:
-    """Bounds of the three CRT-engine kernels that are not ported yet
-    (`stark_tpu/ops/pallas_crt.py:106`, `:176`, `:254`), reckoned from that
-    code at the largest call a `precision`-point LDE would make of each: the
-    second contraction of the big transform (`ops/mxu_ntt.py:142 ntt_mxu`:
-    n1 = n2 = 1024 at 2^20, the twiddle pre-multiplied). Nothing is run.
-
-    The basis holds P primes of 14 bits whose product exceeds 2^bits_b
-    (`crt.select_primes`, `mxu_ntt.py:113`) and one redundant lane. Bytes:
-    each input read once, each output written once (limbs and residues in
-    4 bytes, digit planes in 2). Matrix products at the card's 989e12 bf16
-    operations a second, the integer folds and carries at `INT_OPS_PER_S`,
-    a fold as 4 operations, a conditional subtraction as 3, a carried digit
-    row as 3."""
-    def is_prime(q):
-        return q > 1 and all(q % d for d in range(2, int(q ** 0.5) + 1))
-
-    def folds(bits, dmax_bits=10):  # crt._fold_count
-        count = 0
-        while bits >= 16:
-            bits, count = max(bits - 14 + dmax_bits, 14) + 1, count + 1
-        return count
-
-    N = precision
-    n1 = 1 << ((N.bit_length()) // 2)
-    n2 = N // n1
-    bits_b = (n2 - 1).bit_length() + 3 * spec.p.bit_length() + 2
-    P, logs, q = 0, 0.0, 16128
-    while logs <= bits_b:
-        if is_prime(q):
-            P, logs = P + 1, logs + float(np.log2(q))
-        q -= 1
-    P1, ND, TENSOR = P + 1, 35, 989e12
-
-    def bound(nbytes, tensor_ops, int_ops):
-        times = {"bytes": nbytes / BYTES_PER_S * 1e3,
-                 "operations": (tensor_ops / TENSOR + int_ops / INT_OPS_PER_S) * 1e3}
-        by = max(times, key=times.get)
-        return {"bytes": nbytes, "tensor_ops": tensor_ops, "int_ops": int_ops,
-                "bound_ms": times[by], "bound_by": by}
-
-    return {
-        "case": f"n={N} n1={n1} n2={n2} primes={P}+1 (reckoned, not run)",
-        "residues_in": bound(
-            64 * N + 4 * P1 * N + 2 * 2 * P1 * N, 2 * (2 * P1) * 32 * N,
-            P1 * N * (5 + 4 * (folds(29) + folds(28)) + 4 * 3 + 1 + 2)),
-        "matmul_fold": bound(
-            2 * 2 * P1 * n2 * n2 + 2 * 2 * P1 * n2 * n1 + 4 * P1 * N,
-            4 * 2 * P1 * n2 * n2 * n1,
-            P1 * N * (2 * 4 + 6 + 4 * folds(32) + 2 * 3)),
-        "reconstruct": bound(
-            4 * P1 * N + 64 * N,
-            (2 * 2 * (ND + 2) * P + 2 * 32 * 32 + 2 * 65 * 32) * N,
-            N * (2 * 3 * P1 + 4 * ND + 3 * (ND + 1 + 32 + 66) + 16 * 3 + 64)),
-    }
 
 
 def with_edges(spec, planes: torch.Tensor) -> torch.Tensor:
@@ -905,8 +846,6 @@ def main(argv=None) -> int:
     emit({"phase": "kernels", "steps": params.steps, "precision": params.precision,
           "tolerance": "exact (torch.equal)", "results": kstats,
           "seconds": time.time() - t0})
-
-    emit({"phase": "reckoned", "kernels_not_ported": reckon_crt_bounds(spec, params.precision)})
 
     t0 = time.time()
     goldens = phase_goldens(device)

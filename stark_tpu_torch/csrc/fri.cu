@@ -31,7 +31,7 @@
 //   and adds eq_j[k]*w_j into four running sums, so only the sums, w_j and
 //   one operand are live (about 56 words); special_x is one (16, 1) column
 //   that every thread reads (the same address across a warp: one broadcast).
-// - Both kernels bound their registers for four blocks an SM (MIN_BLOCKS):
+// - Both kernels bound their registers for four blocks an SM (FRI_MIN_BLOCKS):
 //   with the addresses of 20 output rows and an inlined product's
 //   temporaries beside the values above, occupancy and not the spill decides
 //   their time.
@@ -44,14 +44,30 @@ namespace {
 using stark::Field;
 using stark::NW;
 
-constexpr int THREADS = 128;
-// Blocks an SM must be able to hold: caps a thread at 128 registers. Left to
-// itself the compiler takes 179 (pre) and 156 (post) and two or three blocks
-// fit an SM, too few warps in flight for a pass that waits on memory; at 128
-// a few words spill to local memory (24 bytes a thread in pre, 140 in post)
-// and at q = 2^18 pre takes 0.51 ms where it took 0.81 and post 0.51 where it
-// took 0.66 (chip_smoke.py on an H100 80GB HBM3 at 700 W).
-constexpr int MIN_BLOCKS = 4;
+// Threads a block, and the blocks an SM must be able to hold, which caps a
+// thread's registers (4 blocks of 128 threads: 128 registers). Left to itself
+// the compiler takes 179 (pre) and 156 (post) and two or three blocks fit an
+// SM, too few warps in flight for a pass that waits on memory; at 128 a few
+// words spill to local memory (24 bytes a thread in pre, 140 in post) and at
+// q = 2^18 pre takes 0.51 ms where it took 0.81 and post 0.51 where it took
+// 0.66 (chip_smoke.py on an H100 80GB HBM3 at 700 W). Both can be set from
+// the compiler's command line, FRI_MIN_BLOCKS=0 for no bound at all:
+// scripts/fri_fold_variants_cuda.py builds and times the alternatives. On
+// that card 64- and 256-thread blocks at the same 128 registers read the
+// same within 3%; at 64 registers (8 blocks) pre is 13% faster and post,
+// with 2.5 KB spilled, 29% slower, so one bound serves both.
+#ifndef FRI_THREADS
+#define FRI_THREADS 128
+#endif
+#ifndef FRI_MIN_BLOCKS
+#define FRI_MIN_BLOCKS 4
+#endif
+constexpr int THREADS = FRI_THREADS;
+#if FRI_MIN_BLOCKS > 0
+#define FRI_BOUNDS __launch_bounds__(FRI_THREADS, FRI_MIN_BLOCKS)
+#else
+#define FRI_BOUNDS
+#endif
 
 // 0 - a mod p: p - a, and 0 for a = 0.
 __device__ __forceinline__ void mod_neg(const Field& f, const uint32_t a[NW],
@@ -101,7 +117,7 @@ __device__ __forceinline__ void cubic_and_denominator(
   stark::store_elem(row_out(dens, j, q), 4 * q, i, t);
 }
 
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+__global__ void FRI_BOUNDS
 fri_fold_pre_kernel(const int32_t* __restrict__ xs4, int32_t* __restrict__ eqs,
                     int32_t* __restrict__ dens, int64_t q, Field f) {
   int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -124,7 +140,7 @@ fri_fold_pre_kernel(const int32_t* __restrict__ xs4, int32_t* __restrict__ eqs,
   cubic_and_denominator(f, 3, x3, x0, x1, x2, x01, x02, x12, eqs, dens, q, i);
 }
 
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+__global__ void FRI_BOUNDS
 fri_fold_post_kernel(const int32_t* __restrict__ sx,
                      const int32_t* __restrict__ eqs,
                      const int32_t* __restrict__ ys4,

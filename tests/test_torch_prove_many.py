@@ -2,14 +2,19 @@
 gives the proofs that single proves give, in order, at pipeline depths
 below, at and above the number of proofs, on both fold routes; the shared
 arithmetization's witness slot is left empty; and what it refuses (a depth
-of 0, `mesh=`, a witness whose first wire is not 1). The circuit is
-`squaring_chain(5)` (steps 16, the `compute` scale) with three start values.
-Tolerance: exact (byte-identical JSON).
+of 0, `mesh=`, a witness whose first wire is not 1). The same three
+witnesses go through the JAX package's `runner.prove_many`, built by its own
+`squaring_chain`, and its proofs must be the port's byte for byte. The
+circuit is `squaring_chain(5)` (steps 16, the `compute` scale) with three
+start values. Tolerance: exact (byte-identical JSON).
 """
 
 import pytest
 import torch
 
+from stark_tpu.protocol import proof as jproof
+from stark_tpu.protocol import runner as jrunner
+from stark_tpu.r1cs.synth import squaring_chain as jsquaring_chain
 from stark_tpu_torch.protocol import proof as proof_mod
 from stark_tpu_torch.protocol import runner
 from stark_tpu_torch.r1cs.synth import squaring_chain
@@ -36,6 +41,18 @@ def test_prove_many_matches_single(chain, pipeline, fri_fold):
     assert [proof_mod.to_json(p) for p in many] == singles
     assert runner.verify_with_witness(r1cs, witnesses[1][:2], many[1], device="cpu")
     assert runner._static_arith(runner._spec_for(r1cs), r1cs).witness_le is None
+
+
+def test_prove_many_matches_the_jax_package(chain):
+    """`stark_tpu`'s `prove_many` on its own build of the same circuit and
+    witnesses gives the proofs that the port's single proves give (to which
+    the test above holds the port's `prove_many` on both fold routes)."""
+    r1cs, witnesses, singles = chain
+    jr1cs, _ = jsquaring_chain(5)
+    jwitnesses = [jsquaring_chain(5, x0=x0)[1] for x0 in (3, 5, 7)]
+    assert jwitnesses == witnesses
+    jmany = jrunner.prove_many(jr1cs, jwitnesses, pipeline=2)
+    assert [jproof.to_json(p) for p in jmany] == singles
 
 
 def test_prove_many_edges(chain):
