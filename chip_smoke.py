@@ -9,15 +9,18 @@ non-zero and no phase's error is swallowed:
 1. device: a CUDA card must be present (its name and power limit are
    printed as `nvidia-smi --query-gpu=name,power.limit` gives them);
 2. build: the kernel library is built with nvcc from stark_tpu_torch/csrc;
-3. kernels: each of the 19 CUDA kernels against its plain PyTorch version
+3. kernels: each of the 22 CUDA kernels against its plain PyTorch version
    on the card, at the prover's shapes for 43,690 constraints (steps 2^17,
    precision 2^20), inputs from a numpy seed; tolerance: exact equality
    (integer field arithmetic with canonical outputs), with the median time
-   of both per case and the least time the card could take (`bound_ms`);
+   of both per case and the least time the card could take (`bound_ms`).
+   The three kernels of the CRT LDE engine run on that engine's own tables
+   for this size (their host build, or their load from the disk cache, is
+   timed), at the four products of one LDE and at small ragged shapes;
 4. goldens: the `compute` and `poseidon3_test` proofs, on both of FRI's fold
-   routes, must be byte-identical to the committed goldens and the
-   `ragged_mix(120)` proof must match its committed sha256; the port's
-   verifier must accept each;
+   routes and on the CRT LDE engine (verified on that engine too), must be
+   byte-identical to the committed goldens and the `ragged_mix(120)` proof
+   must match its committed sha256; the port's verifier must accept each;
 5. real size: `squaring_chain(43690)` proved twice (cold and warm) on the
    default route (the radix-4 inverse-DFT fold) and verified; the launch
    counter of every kernel of that route must be > 0 for the cold proving
@@ -33,15 +36,26 @@ non-zero and no phase's error is swallowed:
    `runner.prove_many` pipelines four witnesses of the circuit (depth 2) on
    the same route: each proof must equal a single prove's, and the seconds
    and proofs per second of both ways are recorded with the peak memory;
-7. only with `--profile`: for each fold route, `torch.profiler` over one
-   more warm prove (device busy share, launches, copies, device time by
-   kernel) and the wall of each stage with a device synchronise after it.
+7. crt: the same circuit proved cold and warm with `lde_engine="crt"`, all
+   9 LDEs on the CRT matrix-product engine: the proof must equal phase 5's
+   byte for byte and pass the verifier on that engine; `residues_in`,
+   `matmul_fold` and `reconstruct` must each launch in the cold run, and the
+   warm run's counts are recorded. A worker started on that engine
+   (`serve.serve(..., lde_engine="crt")`) answers a warmup and one prove
+   with the same bytes. Then the 9-column `lde_many` stage of both engines
+   on the same random traces, in turns: equal outputs, synced wall and
+   device time of each;
+8. only with `--profile`: for each fold route and for the CRT engine,
+   `torch.profiler` over one more warm prove (device busy share, launches,
+   copies, device time by kernel) and the wall of each stage with a device
+   synchronise after it.
 
-The line before the card's lists the kernels of the two paths as JSON
+The line before the card's lists the kernels of the three paths as JSON
 (`kernels`; each with the numbers of its first case, the largest shape the
 proving run gives it, named under `case`; `path` names the phase whose run
-counted its `launches`: `real_size`, or `serve` for the two fold kernels,
-which the default route does not run) and, under `off_path`, the one
+counted its `launches`: `real_size`, `serve` for the two fold kernels,
+which the default route does not run, or `crt` for the three kernels of
+the CRT engine) and, under `off_path`, the one
 ported kernel no path runs: `linear_combination` on the (16, n)
 x^steps table, whose place the stages' Shoup pattern pair takes. The last
 line is {"ok": true, "device": {...}}. `--out DIR` also writes every phase
@@ -55,6 +69,12 @@ Montgomery product counts 136 multiply-adds (two 8x8-word products and 8
 for the reduction factors), as does a Shoup product (one 8x8-word product
 and two low halves of 36), a Blake2s compression 960 (10 rounds of 8 G of
 12). `bound_by` is "bytes" unless the operations take strictly longer.
+`matmul_fold`'s operations are the multiply-adds of its four digit products,
+2 * 4 * K * kout * B a prime, over the 1,979e12 a second of the int8 tensor
+cores (the `mma.sync` s8 instruction it uses); `residues_in` counts 28
+integer instructions a prime and lane (16 dp4a, two Barrett steps, the
+digits), 8 more with a pre-table, `reconstruct` 16 a prime and lane plus 200
+for the reduction.
 
 `mpow_scalar` and `scan_prod` walk chains of dependent products on few
 threads, which that bound does not see. Beside it, and not as a bound, they
@@ -66,7 +86,9 @@ rounds hands its lowest word to the next after 4 dependent multiply-adds
 round drains 7 more words, and the top word and the conditional subtraction
 add 10: 48 dependent 64-bit multiply-adds, each counted as two dependent
 integer instructions of 4 cycles. No single PyTorch call computes any of
-these functions, so `library_ms` is null throughout.
+these functions, so `library_ms` is null, but for `matmul_fold`: there it is
+the time of four `torch.bmm` calls on bf16 copies of the same digit planes,
+the products only, without the recombination and the fold.
 """
 
 from __future__ import annotations
@@ -95,6 +117,7 @@ SEED = 20261016
 _PK = "stark_tpu/protocol/pallas_kernels.py"
 _PROTOCOL_CU = "stark_tpu_torch/csrc/protocol.cu"
 _FRI_CU = "stark_tpu_torch/csrc/fri.cu"
+_CRT_CU = "stark_tpu_torch/csrc/crt.cu"
 KERNELS = {
     # wrapper name -> (source in the repo, the TPU kernel it replaces)
     "mmul": ("stark_tpu_torch/csrc/mmul.cu", "stark_tpu/ops/pallas_field.py:174"),
@@ -126,10 +149,14 @@ KERNELS = {
     "from_mont_pack_words": (_PROTOCOL_CU, f"{_PK}:373"),
     "fri_fold_pre": (_FRI_CU, f"{_PK}:433"),
     "fri_fold_post": (_FRI_CU, f"{_PK}:478"),
+    "residues_in": (_CRT_CU, "stark_tpu/ops/pallas_crt.py:106"),
+    "matmul_fold": (_CRT_CU, "stark_tpu/ops/pallas_crt.py:176"),
+    "reconstruct": (_CRT_CU, "stark_tpu/ops/pallas_crt.py:254"),
 }
 
 BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12 / 4  # 64 integer lanes an SM against 128 FP32 lanes x 2 flops
+INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 on the tensor cores
 MONT_MUL_OPS = 136  # 32x32->64 multiply-adds of one 8-word CIOS product
 BLAKE2S_OPS = 960  # 32-bit integer operations of one compression
 
@@ -137,6 +164,10 @@ BLAKE2S_OPS = 960  # 32-bit integer operations of one compression
 OFF_PATH = ("linear_combination",)
 # run only on FRI's Lagrange fold route: counted in the serve phase
 LAGRANGE_ONLY = ("fri_fold_pre", "fri_fold_post")
+# run only on the CRT LDE engine: counted in the crt phase
+CRT_ONLY = ("residues_in", "matmul_fold", "reconstruct")
+# the engine's disk cache of host-built tables, inside the (ignored) build tree
+PLAN_CACHE = os.path.join(ROOT, "stark_tpu_torch", "_build", "plans")
 PROVE_MANY_X0 = (3, 5, 7, 11)  # start values of the four pipelined witnesses
 CHAIN_STEPS = 48  # dependent 64-bit multiply-adds on one CIOS product's critical path
 CYCLES_PER_STEP = 8  # two dependent integer instructions of 4 cycles
@@ -150,7 +181,7 @@ def emit(rec: dict) -> None:
 
 
 def wrappers():
-    from stark_tpu_torch.ops import blake2s, field_cuda, ntt
+    from stark_tpu_torch.ops import blake2s, crt_cuda, field_cuda, ntt
     from stark_tpu_torch.protocol import fused_kernels as fk
 
     out = {
@@ -162,7 +193,7 @@ def wrappers():
         "scan_prod": field_cuda.scan_prod,
     }
     for name in list(KERNELS)[len(out):]:
-        out[name] = getattr(fk, name)
+        out[name] = getattr(crt_cuda if name in CRT_ONLY else fk, name)
     return out
 
 
@@ -203,13 +234,17 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((g - w).abs().max().item())
 
 
-def compare(name: str, kernel_fn, plain_fn, cases: dict, reps=(10, 2)) -> dict:
+def compare(name: str, kernel_fn, plain_fn, cases: dict, reps=(10, 2),
+            ops_per_s: float = INT_OPS_PER_S, library_prep=None) -> dict:
     """Run kernel and plain version on each case: exact equality required.
-    A case is (args, bytes moved, integer operations[, dependent
-    products]); `add_bounds` turns these into `bound_ms` and `chain_ms`.
-    The first case is the one the `kernels` line reports. With reps[1] == 0
-    the plain version's time is that of its one comparison call (for plain
-    versions that take seconds)."""
+    A case is (args, bytes moved, operations[, dependent products]), the
+    operations of the kind the card does `ops_per_s` of; `add_bounds` turns
+    these into `bound_ms` and `chain_ms`. The first case is the one the
+    `kernels` line reports. With reps[1] == 0 the plain version's time is
+    that of its one comparison call (for plain versions that take seconds).
+    `library_prep(*args)`, where given, returns a function of no arguments
+    that does the same work through library calls: it is timed beside the
+    kernel and used nowhere else."""
     per_case, err = {}, 0
     for label, (args, nbytes, ops, *chain) in cases.items():
         got = kernel_fn(*args)
@@ -227,7 +262,9 @@ def compare(name: str, kernel_fn, plain_fn, cases: dict, reps=(10, 2)) -> dict:
         per_case[label] = {"ms": median_ms(lambda: kernel_fn(*args), reps[0]),
                            "plain_ms": (median_ms(lambda: plain_fn(*args), reps[1])
                                         if reps[1] else once_ms),
-                           "bytes": nbytes, "ops": ops,
+                           "bytes": nbytes, "ops": ops, "ops_per_s": ops_per_s,
+                           "library_ms": (median_ms(library_prep(*args), reps[0])
+                                          if library_prep else None),
                            "chain": chain[0] if chain else 0}
     return {"max_abs_err": err, "cases": per_case}
 
@@ -237,7 +274,7 @@ def add_bounds(result: dict, sm_hz: float) -> None:
     products, `chain_ms` (see the module docstring)."""
     for c in result["cases"].values():
         by_bytes = c["bytes"] / BYTES_PER_S * 1e3
-        by_ops = c["ops"] / INT_OPS_PER_S * 1e3
+        by_ops = c["ops"] / c.pop("ops_per_s") * 1e3
         c["bound_ms"] = max(by_bytes, by_ops)
         c["bound_by"] = "operations" if by_ops > by_bytes else "bytes"
         chain = c.pop("chain")
@@ -462,6 +499,88 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
     return out
 
 
+def phase_crt_kernels(spec, device, steps: int, precision: int) -> dict:
+    """The three kernels of the CRT LDE engine against their plain versions,
+    on the engine's tables for (steps, precision): `residues_in` and
+    `matmul_fold` at the four products of one LDE (the big transform's step
+    B first: the largest), `reconstruct` at both widths, and each at small
+    ragged shapes that cross every tile edge. The digits and residues are
+    those the engine makes from random field elements with 0 and p - 1 mixed
+    in; `reconstruct` also gets columns of all-0 and all-(q - 1) residues."""
+    from stark_tpu_torch.ops import crt, crt_cuda, mxu_ntt
+
+    rng = np.random.default_rng(SEED + 1)
+    g2 = spec.root_of_unity(precision)
+    g1 = pow(g2, precision // steps, spec.p)
+    t0 = time.time()
+    inv, big = mxu_ntt.make_lde_plans(spec, g1, g2, steps, precision, device)
+    torch.cuda.synchronize()
+    tables_s = time.time() - t0
+    # (name, basis, plan, pre-table, B): x is (16, plan.k, B)
+    steps_of_lde = [
+        ("big B", big.basis_b, big.plan_b, big.twiddle, big.n1),
+        ("big A", big.basis_a, big.plan_a, None, big.n2),
+        ("inverse B", inv.basis_b, inv.plan_b, inv.twiddle, inv.n1),
+        ("inverse A", inv.basis_a, inv.plan_a, None, inv.n2),
+    ]
+    small_basis = crt.CrtBasis(spec, 770)
+    for kout, K, B in ((8, 8, 8), (5, 6, 5), (70, 100, 70), (130, 64, 36)):
+        w = [[int.from_bytes(rng.bytes(32), "little") % spec.p for _ in range(K)]
+             for _ in range(kout)]
+        qs = np.asarray(small_basis.qs_host)[:, None, None]
+        pre = rng.integers(0, qs, size=(len(small_basis.qs_host), K, B)).astype(np.int16)
+        pre[:, 0, 0] = (qs - 1).astype(np.int16)[:, 0, 0]
+        steps_of_lde.append((f"ragged kout={kout}", small_basis,
+                             crt.CrtMatmulPlan(small_basis, w, device),
+                             torch.from_numpy(pre).to(device), B))
+
+    rin_cases, mm_cases, rec_cases = {}, {}, {}
+    for name, basis, plan, pre, B in steps_of_lde:
+        p1, K, kout = len(basis.qs_host), plan.k, plan.kout
+        x = with_edges(spec, random_planes(rng, spec, K * B, device)).reshape(16, K, B)
+        digit_bytes = 2 * 4 * p1 * -(-K // 4) * B
+        tables = [] if pre is None else [(f"{name} (16,{K},{B}) pre, {p1} primes", pre)]
+        if name != "inverse B":
+            tables.append((f"{name} (16,{K},{B}), {p1} primes", None))
+        for label, table in tables:
+            rin_cases[label] = (
+                (basis, x, table),
+                64 * K * B + (2 * p1 * K * B if table is not None else 0) + digit_bytes,
+                p1 * K * B * (28 + (8 if table is not None else 0)),
+            )
+        x0, x1 = crt_cuda.residues_in(basis, x, pre)
+        mm_cases[f"{name} {kout}x{K}x{B}, {p1} primes"] = (
+            (basis, plan, x0, x1),
+            2 * p1 * kout * K + digit_bytes + 4 * p1 * kout * B,
+            8 * p1 * kout * K * B,
+        )
+        s = crt_cuda.matmul_fold(basis, plan, x0, x1).reshape(p1, kout * B).clone()
+        qcol = torch.from_numpy(np.asarray(basis.qs_host, np.int32)).to(device)
+        s[:, 0] = 0
+        s[:, 1] = qcol - 1
+        rec_cases[f"{name} ({p1},{kout * B})"] = (
+            (basis, s), (4 * p1 + 64) * kout * B, (16 * p1 + 200) * kout * B,
+        )
+
+    def bmm_bf16(basis, plan, x0, x1):
+        """The four digit products as library calls on bf16 copies of the
+        digit planes (made here, outside the timed call)."""
+        w = [t.to(torch.bfloat16) for t in (plan.W0, plan.W1)]
+        x = [crt.unpack_k4(t, plan.k).to(torch.bfloat16) for t in (x0, x1)]
+        return lambda: [torch.bmm(a, b) for a in w for b in x]
+
+    out = {
+        "residues_in": compare("residues_in", crt_cuda.residues_in,
+                               crt_cuda.residues_in_plain, rin_cases, reps=(10, 1)),
+        "matmul_fold": compare("matmul_fold", crt_cuda.matmul_fold,
+                               crt_cuda.matmul_fold_plain, mm_cases, reps=(10, 1),
+                               ops_per_s=INT8_TENSOR_OPS_PER_S, library_prep=bmm_bf16),
+        "reconstruct": compare("reconstruct", crt_cuda.reconstruct,
+                               crt_cuda.reconstruct_plain, rec_cases, reps=(10, 1)),
+    }
+    return out, tables_s
+
+
 def _fixture(name: str):
     from stark_tpu_torch.r1cs.reader import read_r1cs, read_witness
 
@@ -473,13 +592,13 @@ def _fixture(name: str):
 
 
 def prove_and_check(name, r1cs, witness, device, golden_text=None, golden_sha=None,
-                    fri_fold="dft"):
+                    fri_fold="dft", lde_engine="butterfly"):
     from stark_tpu_torch.protocol import proof as proof_mod
     from stark_tpu_torch.protocol import runner
 
     t0 = time.time()
-    text = proof_mod.to_json(runner.prove_with_witness(r1cs, witness, device=device,
-                                                       fri_fold=fri_fold))
+    text = proof_mod.to_json(runner.prove_with_witness(
+        r1cs, witness, device=device, fri_fold=fri_fold, lde_engine=lde_engine))
     prove_s = time.time() - t0
     if golden_text is not None and text != golden_text:
         raise AssertionError(f"{name}: proof JSON differs from the golden")
@@ -489,9 +608,10 @@ def prove_and_check(name, r1cs, witness, device, golden_text=None, golden_sha=No
     n_pub = 1 + r1cs.header.n_public_inputs + r1cs.header.n_public_outputs
     t0 = time.time()
     if not runner.verify_with_witness(r1cs, witness[:n_pub], proof_mod.from_json(text),
-                                      device=device):
+                                      device=device, lde_engine=lde_engine):
         raise AssertionError(f"{name}: the verifier rejected the proof")
-    return {"circuit": name, "fri_fold": fri_fold, "prove_s": prove_s,
+    return {"circuit": name, "fri_fold": fri_fold, "lde_engine": lde_engine,
+            "prove_s": prove_s,
             "verify_s": time.time() - t0, "proof_bytes": len(text), "sha256": sha}
 
 
@@ -504,22 +624,26 @@ def phase_goldens(device) -> list[dict]:
         with open(os.path.join(FIXTURES, golden)) as f:
             want = f.read()
         circuit = _fixture(name)
-        for fri_fold in ("dft", "lagrange"):
+        for fri_fold, lde_engine in (("dft", "butterfly"), ("lagrange", "butterfly"),
+                                     ("dft", "crt")):
             out.append(prove_and_check(name, *circuit, device, golden_text=want,
-                                       fri_fold=fri_fold))
+                                       fri_fold=fri_fold, lde_engine=lde_engine))
     with open(os.path.join(FIXTURES, "ragged120_proof_sha256.txt")) as f:
         sha = f.read().strip()
     out.append(prove_and_check("ragged_mix(120)", *ragged_mix(120), device, golden_sha=sha))
     return out
 
 
-def phase_real(device, r1cs, witness, profile: bool):
+def phase_real(device, r1cs, witness, profile: bool, lde_engine: str = "butterfly",
+               want_proof=None):
     """Cold and warm prove plus verify at full size on the default fold
-    route, with every kernel's launch count in each proving run. Returns the
-    record and the proof."""
+    route and the named LDE engine, with every kernel's launch count in each
+    proving run; the proof must equal `want_proof` where one is given.
+    Returns the record and the proof."""
     from stark_tpu_torch.protocol import runner
 
     wrap = wrappers()
+    crt = lde_engine == "crt"
 
     def timed_prove():
         for fn in wrap.values():
@@ -527,48 +651,93 @@ def phase_real(device, r1cs, witness, profile: bool):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        proof = runner.prove_with_witness(r1cs, witness, device=device)
+        proof = runner.prove_with_witness(r1cs, witness, device=device,
+                                          lde_engine=lde_engine)
         seconds = time.time() - t0
         launches = {name: fn.launches for name, fn in wrap.items()}
         return proof, seconds, launches, torch.cuda.max_memory_allocated()
 
     proof, cold_s, launches, peak_cold = timed_prove()
-    missing = [name for name, n in launches.items()
-               if n <= 0 and name not in OFF_PATH + LAGRANGE_ONLY]
+    # the butterfly engine's run must launch every kernel but the other
+    # routes'; the CRT engine's, which finds the circuit's tables made, its three
+    wanted = CRT_ONLY if crt else [name for name in wrap
+                                   if name not in OFF_PATH + LAGRANGE_ONLY + CRT_ONLY]
+    missing = [name for name in wanted if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the proving run: {missing}")
+    if want_proof is not None and proof != want_proof:
+        raise AssertionError(f"the {lde_engine} engine's proof differs from the expected one")
     proof_warm, warm_s, launches_warm, peak_warm = timed_prove()
     if proof_warm != proof:
         raise AssertionError("warm proof differs from the cold proof")
     t0 = time.time()
-    if not runner.verify_with_witness(r1cs, witness[:2], proof, device=device):
+    if not runner.verify_with_witness(r1cs, witness[:2], proof, device=device,
+                                      lde_engine=lde_engine):
         raise AssertionError("the verifier rejected the real-size proof")
     verify_s = time.time() - t0
     out = {
+        "lde_engine": lde_engine,
         "constraints": r1cs.header.n_constraints, "prove_cold_s": cold_s,
         "prove_warm_s": warm_s, "verify_s": verify_s,
         "peak_bytes_cold": peak_cold, "peak_bytes_warm": peak_warm,
         "launches": launches, "launches_warm": launches_warm,
     }
     if profile:
-        out["profile"] = {fri_fold: profile_warm_prove(r1cs, witness, device, proof, fri_fold)
-                          for fri_fold in ("dft", "lagrange")}
+        out["profile"] = {
+            "crt" if crt else fri_fold:
+                profile_warm_prove(r1cs, witness, device, proof, fri_fold, lde_engine)
+            for fri_fold in (("dft",) if crt else ("dft", "lagrange"))}
     return out, proof
 
 
-def profile_warm_prove(r1cs, witness, device, want_proof, fri_fold) -> dict:
-    """On one fold route: a warm-up prove, `torch.profiler` over one warm
-    prove, then two warm proves with a device synchronise after every stage
-    for the stages' wall times."""
+def phase_lde_engines(spec, device, params) -> dict:
+    """The 9-column `lde_many` stage of both engines on the same random
+    Montgomery traces, in turns (butterfly, crt, crt, butterfly): equal
+    outputs, and the synced wall and device time of each run."""
+    from stark_tpu_torch import device as devmod
+    from stark_tpu_torch.protocol import prove
+
+    rng = np.random.default_rng(SEED + 2)
+    traces = [random_planes(rng, spec, params.steps, device) for _ in range(9)]
+    stages = {engine: prove._stages_cached(
+        spec, params.steps, params.precision, params.original_steps, "blake2s",
+        devmod.resolve(device), engine) for engine in ("butterfly", "crt")}
+    runs, want = [], None
+    for engine in ("butterfly", "crt", "crt", "butterfly"):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        start.record()
+        outs = stages[engine]["lde_many"](traces)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        want = want or outs
+        if not all(torch.equal(a, b) for a, b in zip(outs, want)):
+            raise AssertionError(f"lde_many on the {engine} engine differs from the first run")
+        runs.append({"lde_engine": engine, "wall_s": wall,
+                     "device_ms": start.elapsed_time(end),
+                     "peak_bytes": torch.cuda.max_memory_allocated()})
+        del outs
+    return {"columns": len(traces), "runs": runs}
+
+
+def profile_warm_prove(r1cs, witness, device, want_proof, fri_fold,
+                       lde_engine="butterfly") -> dict:
+    """On one fold route and LDE engine: a warm-up prove, `torch.profiler`
+    over one warm prove, then two warm proves with a device synchronise after
+    every stage for the stages' wall times."""
     from torch.profiler import ProfilerActivity, profile
 
     from stark_tpu_torch.protocol import runner
 
-    runner.prove_with_witness(r1cs, witness, device=device, fri_fold=fri_fold)
+    route = {"device": device, "fri_fold": fri_fold, "lde_engine": lde_engine}
+    runner.prove_with_witness(r1cs, witness, **route)
     torch.cuda.synchronize()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        runner.prove_with_witness(r1cs, witness, device=device, fri_fold=fri_fold)
+        runner.prove_with_witness(r1cs, witness, **route)
         torch.cuda.synchronize()
     profiled_s = time.time() - t0
     kernels, copies, spans = {}, {"count": 0, "us": 0.0}, []
@@ -611,11 +780,13 @@ def profile_warm_prove(r1cs, witness, device, want_proof, fri_fold) -> dict:
         "top_kernels": [{"name": n[:120], **k} for n, k in top],
     }
 
-    result["stage_wall_s"] = stage_walls(r1cs, witness, device, want_proof, fri_fold)
+    result["stage_wall_s"] = stage_walls(r1cs, witness, device, want_proof, fri_fold,
+                                         lde_engine)
     return result
 
 
-def stage_walls(r1cs, witness, device, want_proof, fri_fold, runs: int = 2) -> list[dict]:
+def stage_walls(r1cs, witness, device, want_proof, fri_fold, lde_engine="butterfly",
+                runs: int = 2) -> list[dict]:
     """Wall seconds of each prover stage over `runs` warm proves, every stage
     ending in a device synchronise; "rest" is host preparation plus the
     materializing transfer and formatting."""
@@ -628,7 +799,8 @@ def stage_walls(r1cs, witness, device, want_proof, fri_fold, runs: int = 2) -> l
     arith = runner._static_arith(spec, r1cs)
     params = derive_params(spec, arith.original_steps)
     stages = prove._stages_cached(spec, params.steps, params.precision,
-                                  arith.original_steps, "blake2s", devmod.resolve(device))
+                                  arith.original_steps, "blake2s", devmod.resolve(device),
+                                  lde_engine)
     walls: dict[str, float] = {}
 
     def synced(name, fn):
@@ -654,7 +826,7 @@ def stage_walls(r1cs, witness, device, want_proof, fri_fold, runs: int = 2) -> l
             torch.cuda.synchronize()
             t0 = time.time()
             proof = runner.prove_with_witness(r1cs, witness, device=device,
-                                              fri_fold=fri_fold)
+                                              fri_fold=fri_fold, lde_engine=lde_engine)
             total = time.time() - t0
             if proof != want_proof:
                 raise AssertionError("a stage-timed proof differs from the cold proof")
@@ -764,7 +936,8 @@ def phase_serve(device, r1cs, witness, want_proof) -> dict:
         for name in LAGRANGE_ONLY:
             if per_request[key]["launches"].get(name, 0) <= 0:
                 raise AssertionError(f"{name} was not launched by request {key}")
-    missing = [name for name, n in launches.items() if n <= 0 and name not in OFF_PATH]
+    missing = [name for name, n in launches.items()
+               if n <= 0 and name not in OFF_PATH + CRT_ONLY]
     if missing:
         raise AssertionError(f"kernels not launched by the worker's run: {missing}")
 
@@ -798,6 +971,43 @@ def phase_serve(device, r1cs, witness, want_proof) -> dict:
             "prove_many": {"witnesses": len(witnesses), "pipeline": 2, "runs": runs}}
 
 
+def worker_on_crt(device, r1cs, witness, want_proof) -> dict:
+    """A second worker, started with `lde_engine="crt"`: warmup and one
+    inline prove, whose proof must equal `want_proof` and whose run must
+    launch the engine's three kernels, then shutdown."""
+    from stark_tpu_torch import serve
+    from stark_tpu_torch.protocol import proof as proof_mod
+
+    wrap = wrappers()
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {"r1cs": os.path.join(tmp, "chain.r1cs"), "wtns": os.path.join(tmp, "chain.wtns")}
+        write_circuit_files(r1cs, witness, files["r1cs"], files["wtns"])
+        requests = [
+            {"id": 1, "method": "warmup", "params": {"r1cs": files["r1cs"]}},
+            {"id": 2, "method": "prove", "params": {**files, "inline": True}},
+            {"id": 3, "method": "shutdown"},
+        ]
+        replies_io = io.StringIO()
+        for fn in wrap.values():
+            fn.launches = 0
+        t0 = time.time()
+        rc = serve.serve(io.StringIO("".join(json.dumps(r) + "\n" for r in requests)),
+                         replies_io, device=device, lde_engine="crt")
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    replies = [json.loads(ln[4:]) for ln in replies_io.getvalue().splitlines()]
+    by_id = {r["id"]: r for r in replies[1:]}
+    if rc != 0 or sorted(by_id) != [1, 2, 3] or not all(
+            by_id[i].get("result", {}).get("ok") for i in (1, 2, 3)):
+        raise AssertionError(f"the crt worker failed: {json.dumps(replies)[:500]}")
+    if by_id[2]["result"]["proof"] != proof_mod.to_json(want_proof):
+        raise AssertionError("the crt worker's proof differs from the default engine's")
+    launches = {name: wrap[name].launches for name in CRT_ONLY}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the crt worker did not launch its kernels: {launches}")
+    return {"seconds": seconds, "prove_s": by_id[2]["result"]["seconds"], "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every phase record to DIR/chip_smoke.json")
@@ -812,8 +1022,10 @@ def main(argv=None) -> int:
         return 1
     from stark_tpu_torch.fields.field import BN254_FR as spec
     from stark_tpu_torch.protocol.params import derive_params
-    from stark_tpu_torch.ops import build
+    from stark_tpu_torch.ops import build, mxu_ntt
 
+    # the CRT engine's tables are built once in this run and loaded from here after
+    mxu_ntt.DEFAULT_CACHE_DIR = PLAN_CACHE
     device = "cuda"
     kind = torch.cuda.get_device_name(0)
     def nvidia_smi(query: str) -> str:
@@ -843,9 +1055,13 @@ def main(argv=None) -> int:
     t0 = time.time()
     kstats = phase_kernels(spec, device, params.steps, params.precision,
                            params.original_steps, sm_mhz * 1e6)
+    crt_stats, crt_tables_s = phase_crt_kernels(spec, device, params.steps, params.precision)
+    for result in crt_stats.values():
+        add_bounds(result, sm_mhz * 1e6)
+    kstats.update(crt_stats)
     emit({"phase": "kernels", "steps": params.steps, "precision": params.precision,
           "tolerance": "exact (torch.equal)", "results": kstats,
-          "seconds": time.time() - t0})
+          "crt_tables_build_s": crt_tables_s, "seconds": time.time() - t0})
 
     t0 = time.time()
     goldens = phase_goldens(device)
@@ -864,16 +1080,25 @@ def main(argv=None) -> int:
     emit({"phase": "serve", "steps": params.steps, "precision": params.precision,
           **served, "seconds": time.time() - t0})
 
+    t0 = time.time()
+    crt_run, _ = phase_real(device, r1cs, witness, args.profile, lde_engine="crt",
+                            want_proof=proof)
+    crt_run["worker"] = worker_on_crt(device, r1cs, witness, proof)
+    crt_run["lde_many"] = phase_lde_engines(spec, device, params)
+    emit({"phase": "crt", "steps": params.steps, "precision": params.precision,
+          **crt_run, "seconds": time.time() - t0})
+
     def line_entry(name):
         src, rep = KERNELS[name]
         label, case = next(iter(kstats[name]["cases"].items()))
-        path, run = ("serve", served) if name in LAGRANGE_ONLY else ("real_size", real)
+        path, run = (("serve", served) if name in LAGRANGE_ONLY
+                     else ("crt", crt_run) if name in CRT_ONLY else ("real_size", real))
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "path": path, "launches": run["launches"][name],
                 "max_abs_err": kstats[name]["max_abs_err"], "case": label,
                 "ms": case["ms"], "plain_ms": case["plain_ms"],
                 "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
-                "chain_ms": case["chain_ms"], "library_ms": None}
+                "chain_ms": case["chain_ms"], "library_ms": case["library_ms"]}
 
     kernels = [line_entry(name) for name in KERNELS if name not in OFF_PATH]
     off_path = [line_entry(name) for name in OFF_PATH]

@@ -2,12 +2,15 @@
 
     python -m stark_tpu_torch.cli run c.r1cs w.wtns proof.json --device cuda
     python -m stark_tpu_torch.cli serve --device cuda --fri-fold lagrange
+    python -m stark_tpu_torch.cli prove c.r1cs w.wtns proof.json --lde-engine crt
 
 `prove`, `verify`, `run` (prove then verify) and `serve` (the long-lived
 proving worker, line-delimited JSON-RPC on stdio: `stark_tpu_torch/serve.py`)
 mirror `stark_tpu.cli`; the bare 3-argument form means `run`, like the
 reference's binary. `--fri-fold` names FRI's fold route for the proving
-commands; the proof is the same on either.
+commands; `--lde-engine` names the engine of the low-degree extensions
+(the butterfly NTT, or the CRT matrix-product engine of `ops/mxu_ntt.py`) for
+every command. The proof is the same on either of each.
 """
 
 from __future__ import annotations
@@ -37,26 +40,32 @@ def main(argv=None) -> int:
             sp.add_argument("--fri-fold", choices=("dft", "lagrange"), default="dft",
                             help="FRI's fold route: the radix-4 inverse DFT (the "
                             "default) or the Lagrange fold kernels")
+        sp.add_argument("--lde-engine", choices=("butterfly", "crt"), default="butterfly",
+                        help="the engine of the low-degree extensions: the butterfly "
+                        "NTT (the default) or the CRT matrix-product engine")
     args = parser.parse_args(argv)
 
     if args.cmd == "serve":
         from stark_tpu_torch.serve import serve
 
-        return serve(device=args.device, fri_fold=args.fri_fold)
+        return serve(device=args.device, fri_fold=args.fri_fold,
+                     lde_engine=args.lde_engine)
 
     from stark_tpu_torch.protocol import runner
 
     t0 = time.time()
     if args.cmd == "prove":
         runner.prove_with_file_path(args.r1cs, args.wtns, args.proof_json,
-                                    device=args.device, fri_fold=args.fri_fold)
+                                    device=args.device, fri_fold=args.fri_fold,
+                                    lde_engine=args.lde_engine)
     elif args.cmd == "verify":
         runner.verify_with_file_path(args.r1cs, args.wtns, args.proof_json,
-                                     device=args.device)
+                                     device=args.device, lde_engine=args.lde_engine)
         print("Done proof verification")
     else:
         runner.run_with_file_path(args.r1cs, args.wtns, args.proof_json,
-                                  device=args.device, fri_fold=args.fri_fold)
+                                  device=args.device, fri_fold=args.fri_fold,
+                                  lde_engine=args.lde_engine)
         print("Done proof verification")
     print(f"{args.cmd}: {time.time() - t0:.3f}s")
     return 0

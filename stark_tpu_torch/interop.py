@@ -6,6 +6,12 @@ holds them as uint32; the port holds the same bit patterns as int32
 (`torch.uint32` lacks add, shift and compare on the CPU). These casts are
 bit-exact both ways, so a test can feed one stage's inputs to the JAX
 function and to its port and compare the outputs.
+
+The CRT engine's tables travel the same way: `crt_basis_from_numpy`,
+`crt_plan_from_numpy` and `mxu_plan_from_numpy` turn the leaves of the JAX
+package's `CrtBasis`, `CrtMatmulPlan` and `MxuNttPlan` (numpy arrays plus the
+static fields) into the port's objects, so a test can run both packages on
+the same tables; the port also builds its own from its own host code.
 """
 
 from __future__ import annotations
@@ -56,3 +62,57 @@ def tree_to_numpy(obj):
             return planes_to_numpy(obj)
         return obj.detach().cpu().numpy()
     return obj
+
+
+# ---------------------------------------------------------------------------
+# the CRT engine's tables
+# ---------------------------------------------------------------------------
+
+_BASIS_TABLES = ("qs", "deltas", "C0", "C1", "G", "negM_dig", "NB", "PB")
+_BASIS_STATIC = ("p", "bound_bits", "P", "qr", "qs_host", "t_host", "M", "minv_qr",
+                 "delta_r", "dmax_bits", "p_limbs16")
+
+
+def crt_basis_from_numpy(spec, static: dict, tables: dict):
+    """The port's `CrtBasis` from a basis' static fields (`_BASIS_STATIC`)
+    and its tables (`_BASIS_TABLES`) as numpy arrays of any float or integer
+    dtype (every entry is a small integer)."""
+    from stark_tpu_torch.ops import crt
+
+    missing = [k for k in _BASIS_STATIC if k not in static] + [
+        k for k in _BASIS_TABLES if k not in tables
+    ]
+    if missing:
+        raise KeyError(f"basis fields missing: {missing}")
+    return crt.CrtBasis.from_tables(
+        spec, {k: static[k] for k in _BASIS_STATIC},
+        {k: np.asarray(tables[k], np.float64) for k in _BASIS_TABLES},
+    )
+
+
+def crt_plan_from_numpy(w0, w1, device):
+    """The port's `CrtMatmulPlan` from the two (P+1, Kout, K) digit planes of
+    a constant matrix, values in [-64, 63] in any dtype."""
+    from stark_tpu_torch.ops import crt
+
+    w0, w1 = (np.asarray(w, np.float64) for w in (w0, w1))
+    for w in (w0, w1):
+        if w.shape != w0.shape or w.ndim != 3 or np.abs(w).max() > 64 or (w % 1).any():
+            raise ValueError("digit planes must be two same-shape (P+1, Kout, K) integer arrays")
+    return crt.CrtMatmulPlan.from_digits(w0.astype(np.int8), w1.astype(np.int8), device)
+
+
+def mxu_plan_from_numpy(static: dict, basis_a, basis_b, plan_a, plan_b, twiddle, device):
+    """The port's `MxuNttPlan` from its static fields (n, n1, n2, nz1), two
+    bases and two matrix plans of the port, and the (P+1, n2, n1) twiddle
+    residues (any integer dtype; stored as int16)."""
+    from stark_tpu_torch.ops import mxu_ntt
+
+    plan = object.__new__(mxu_ntt.MxuNttPlan)
+    plan.n, plan.n1, plan.n2, plan.nz1 = (int(static[k]) for k in ("n", "n1", "n2", "nz1"))
+    plan.basis_a, plan.basis_b, plan.plan_a, plan.plan_b = basis_a, basis_b, plan_a, plan_b
+    tw = np.asarray(twiddle)
+    if tw.shape != (len(basis_b.qs_host), plan.n2, plan.n1) or tw.max() >= 1 << 14:
+        raise ValueError(f"twiddle residues of shape {tw.shape} do not fit the plan")
+    plan.twiddle = torch.from_numpy(np.ascontiguousarray(tw.astype(np.int16))).to(device)
+    return plan

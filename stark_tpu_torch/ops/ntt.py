@@ -11,6 +11,8 @@ argument.
 The two butterfly wrappers launch `csrc/ntt.cu` on a CUDA tensor (replacing
 `stark_tpu/ops/pallas_field.py:446 butterfly_stage` and `:518
 butterfly_fused`) and run their plain PyTorch versions on a CPU tensor.
+`make_best_lde` picks the LDE engine by name: these butterflies, or the CRT
+matrix-product engine of `ops/mxu_ntt.py`.
 """
 
 from __future__ import annotations
@@ -214,3 +216,32 @@ def lde(spec: FieldSpec, trace, plan: LdePlan):
         padded[:, :, 0] = coeffs_rev
         padded = padded.reshape(L, precision)
     return run(spec, padded, plan.big_dit)
+
+
+# ---------------------------------------------------------------------------
+# the LDE engine
+# ---------------------------------------------------------------------------
+
+LDE_ENGINES = ("butterfly", "crt")
+
+
+def check_lde_engine(name: str) -> str:
+    if name not in LDE_ENGINES:
+        raise ValueError(f"lde_engine must be one of {LDE_ENGINES}, got {name!r}")
+    return name
+
+
+def make_best_lde(spec: FieldSpec, g1: int, g2: int, steps: int, precision: int,
+                  device, lde_engine: str = "butterfly", block: int = FUSED_BLOCK):
+    """lde_fn(trace (L, steps)) -> (L, precision) on the named engine
+    (`stark_tpu/ops/ntt.py:504`, where the environment chooses): "butterfly"
+    is `lde` on an `LdePlan`; "crt" is the CRT matrix-product engine of
+    `ops/mxu_ntt.py` at every size it supports (the JAX package's
+    `STARK_TPU_MXU=force`). Both give the same field values."""
+    if check_lde_engine(lde_engine) == "crt":
+        from stark_tpu_torch.ops import mxu_ntt
+
+        inv_plan, big_plan = mxu_ntt.make_lde_plans(spec, g1, g2, steps, precision, device)
+        return lambda t: mxu_ntt.lde_mxu(inv_plan, big_plan, t.contiguous())
+    plan = make_lde_plan(spec, g1, g2, steps, precision, device, block)
+    return lambda t: lde(spec, t, plan)

@@ -46,8 +46,13 @@ def leaves_to_words(spec: FieldSpec, columns) -> torch.Tensor:
 
 def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
                        original_steps: int, digest: str, device,
-                       block: int = nttm.FUSED_BLOCK) -> dict:
-    """The prover's device stages, split at the Fiat-Shamir points."""
+                       block: int = nttm.FUSED_BLOCK,
+                       lde_engine: str = "butterfly") -> dict:
+    """The prover's device stages, split at the Fiat-Shamir points.
+    `lde_engine` names the engine of the 9 LDEs (the verifier's 6):
+    "butterfly" or "crt" (`ops/ntt.py make_best_lde`); the columns, and so
+    the proof, are the same on either."""
+    nttm.check_lde_engine(lde_engine)
     if digest != "blake2s":
         raise NotImplementedError(
             f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1 "
@@ -79,10 +84,13 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
     iz_pats = mm.shoup_consts(spec, inv_z_scalars, dev)
     x2_pats = mm.shoup_consts(spec, pow_scalars, dev)
     inv_zb3 = mm.multi_inv(spec, mm.msub(spec, xs_full, x_last_mont))
-    lde_plan = nttm.make_lde_plan(spec, g1, g2, steps, precision, dev, block)
+    # One column at a time on either engine (`stark_tpu/protocol/core.py:
+    # 169-190`): with no traced module to fuse the columns into, the JAX
+    # package's `_MXU_FUSE_MAX_PRECISION` switch has no counterpart here.
+    lde_one = nttm.make_best_lde(spec, g1, g2, steps, precision, dev, lde_engine, block)
 
     def lde_many(ts):
-        return [nttm.lde(spec, t, lde_plan) for t in ts]
+        return [lde_one(t) for t in ts]
 
     def flag_idx_perm(f1_u8, f2_u8, perm_lo, perm_hi):
         """Public columns: f0 (ones over the original steps), the flags
@@ -211,7 +219,7 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
 
     return {
         "xs_full": xs_full,
-        "lde_plan": lde_plan,
+        "lde_engine": lde_engine,
         "lde_many": lde_many,
         "wit_traces": wit_traces,
         "v_cols": v_cols,

@@ -23,6 +23,7 @@ from stark_tpu_torch import device as devmod
 from stark_tpu_torch.fri import fri
 from stark_tpu_torch.merkle import tree as mt
 from stark_tpu_torch.ops import modmath as mm
+from stark_tpu_torch.ops.ntt import check_lde_engine
 from stark_tpu_torch.protocol.proof import StarkProof
 
 
@@ -91,12 +92,14 @@ def lo_hi_words(perm: np.ndarray, device):
 
 
 @functools.lru_cache(maxsize=4)
-def _stages_cached(spec, steps, precision, original_steps, digest, device):
+def _stages_cached(spec, steps, precision, original_steps, digest, device, lde_engine):
     """One stage set per (spec, steps, precision, original_steps, digest,
-    device); every caller passes all six positionally, so one key."""
+    device, lde_engine); every caller passes all seven positionally, so one
+    key."""
     from stark_tpu_torch.protocol.core import build_proof_stages
 
-    return build_proof_stages(spec, steps, precision, original_steps, digest, device)
+    return build_proof_stages(spec, steps, precision, original_steps, digest, device,
+                              lde_engine=lde_engine)
 
 
 def _check_scope(mesh, digest: str):
@@ -114,27 +117,30 @@ def _check_scope(mesh, digest: str):
 
 def mk_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires, n_constraints: int,
                   n_wires: int, mesh=None, digest: str = "blake2s",
-                  device="cuda", fri_fold: str = "dft") -> StarkProof:
+                  device="cuda", fri_fold: str = "dft",
+                  lde_engine: str = "butterfly") -> StarkProof:
     return materialize_r1cs_proof(
         spec,
         enqueue_r1cs_proof(spec, arith, public_wires, n_constraints, n_wires,
                            mesh=mesh, digest=digest, device=device,
-                           fri_fold=fri_fold),
+                           fri_fold=fri_fold, lde_engine=lde_engine),
     )
 
 
 def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
                        n_constraints: int, n_wires: int, mesh=None,
                        digest: str = "blake2s", device="cuda",
-                       fri_fold: str = "dft") -> dict:
+                       fri_fold: str = "dft", lde_engine: str = "butterfly") -> dict:
     """Enqueue the proof as one chain of device work; `arith` must carry
     the device-arithmetization inputs (`witness_le`, `slot_wire_ids`).
     `witness_le` is the (n_wires, 32) uint8 rows as a numpy array, or as a
     tensor already on `device` (`runner.prove_many` uploads it ahead).
     `fri_fold` names FRI's fold route ("dft" or "lagrange"); the proof is
-    the same on either."""
+    the same on either. `lde_engine` names the engine of the 9 LDEs
+    ("butterfly" or "crt"); the proof is the same on either, too."""
     _check_scope(mesh, digest)
     fri.check_fold_route(fri_fold)
+    check_lde_engine(lde_engine)
     dev = devmod.resolve(device)
     p = spec.p
     original_steps = arith.original_steps
@@ -147,7 +153,8 @@ def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
         )
     params = derive_params(spec, original_steps)
     steps, precision, skips = params.steps, params.precision, params.skips
-    stages = _stages_cached(spec, steps, precision, original_steps, digest, dev)
+    stages = _stages_cached(spec, steps, precision, original_steps, digest, dev,
+                            lde_engine)
     xs_full = stages["xs_full"]
 
     # --- traces: only K, the witness and the circuit-static vectors move ---

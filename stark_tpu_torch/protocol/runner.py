@@ -4,7 +4,10 @@ Counterpart of `stark_tpu/protocol/runner.py:43, 88, 233, 298-323`. Every
 entry point takes `device=` ("cuda" by default; "cpu" runs the plain PyTorch
 versions of the kernels), and the proving ones `fri_fold=` ("dft" by
 default, or "lagrange": FRI's fold route, the JAX package's
-`STARK_TPU_FRI_LAGRANGE`; the proof is the same on either). The prover
+`STARK_TPU_FRI_LAGRANGE`; the proof is the same on either) and
+`lde_engine=` ("butterfly" by default, or "crt": the engine of the LDEs, the
+JAX package's `STARK_TPU_MXU`; the proof is the same on either, and the
+verifying entry points take it too). The prover
 always derives S and P on the device from the witness; the circuit-static
 arithmetization comes from the C++ host library when it builds, from the
 pure-Python arithmetizer otherwise.
@@ -88,7 +91,8 @@ def _witness_rows(r1cs: R1csContents, witness_bytes) -> np.ndarray:
 
 
 def prove_with_witness(r1cs: R1csContents, witness_bytes: list[bytes], mesh=None,
-                       digest: str = "blake2s", device="cuda", fri_fold: str = "dft"):
+                       digest: str = "blake2s", device="cuda", fri_fold: str = "dft",
+                       lde_engine: str = "butterfly"):
     """run.rs:310-452 -> a StarkProof."""
     spec = _spec_for(r1cs)
     h = r1cs.header
@@ -96,11 +100,13 @@ def prove_with_witness(r1cs: R1csContents, witness_bytes: list[bytes], mesh=None
     arith = _static_arith(spec, r1cs)
     arith.witness_le = _witness_rows(r1cs, witness_bytes)
     return mk_r1cs_proof(spec, arith, public_wires, h.n_constraints, h.n_wires,
-                         mesh=mesh, digest=digest, device=device, fri_fold=fri_fold)
+                         mesh=mesh, digest=digest, device=device, fri_fold=fri_fold,
+                         lde_engine=lde_engine)
 
 
 def prove_many(r1cs: R1csContents, witness_bytes_list, pipeline: int = 2, mesh=None,
-               device="cuda", fri_fold: str = "dft") -> list:
+               device="cuda", fri_fold: str = "dft",
+               lde_engine: str = "butterfly") -> list:
     """Prove many witnesses of ONE circuit, for a proving service.
 
     The circuit is arithmetized once. Each proof is enqueued as one chain of
@@ -152,7 +158,7 @@ def prove_many(r1cs: R1csContents, witness_bytes_list, pipeline: int = 2, mesh=N
         arith.witness_le = on_dev
         in_flight.append(enqueue_r1cs_proof(
             spec, arith, public_wires, h.n_constraints, h.n_wires, mesh=mesh,
-            device=dev, fri_fold=fri_fold))
+            device=dev, fri_fold=fri_fold, lde_engine=lde_engine))
         arith.witness_le = None
         del on_dev
         if i + 1 < len(witness_bytes_list):
@@ -165,7 +171,8 @@ def prove_many(r1cs: R1csContents, witness_bytes_list, pipeline: int = 2, mesh=N
 
 
 def verify_with_witness(r1cs: R1csContents, public_wires_bytes: list[bytes], proof,
-                        digest: str = "blake2s", device="cuda") -> bool:
+                        digest: str = "blake2s", device="cuda",
+                        lde_engine: str = "butterfly") -> bool:
     spec = _spec_for(r1cs)
     h = r1cs.header
     public_wires = [spec.from_bytes_le(w) for w in public_wires_bytes]
@@ -176,6 +183,7 @@ def verify_with_witness(r1cs: R1csContents, public_wires_bytes: list[bytes], pro
         spec, proof, public_wires, arith.public_first_indices,
         arith.permuted_indices, arith.coefficients, arith.flag0, arith.flag1,
         arith.flag2, h.n_constraints, h.n_wires, digest=digest, device=device,
+        lde_engine=lde_engine,
     )
 
 
@@ -186,29 +194,32 @@ def _read(path: str) -> bytes:
 
 def prove_with_file_path(r1cs_path, witness_path, proof_json_path,
                          digest: str = "blake2s", device="cuda",
-                         fri_fold: str = "dft") -> None:
+                         fri_fold: str = "dft", lde_engine: str = "butterfly") -> None:
     r1cs = read_r1cs(_read(r1cs_path))
     proof = prove_with_witness(r1cs, read_witness(_read(witness_path)),
-                               digest=digest, device=device, fri_fold=fri_fold)
+                               digest=digest, device=device, fri_fold=fri_fold,
+                               lde_engine=lde_engine)
     with open(proof_json_path, "w") as f:
         f.write(proof_mod.to_json(proof))
 
 
 def verify_with_file_path(r1cs_path, witness_path, proof_json_path,
-                          digest: str = "blake2s", device="cuda") -> None:
+                          digest: str = "blake2s", device="cuda",
+                          lde_engine: str = "butterfly") -> None:
     r1cs = read_r1cs(_read(r1cs_path))
     witness = read_witness(_read(witness_path))
     with open(proof_json_path) as f:
         proof = proof_mod.from_json(f.read())
     if not verify_with_witness(r1cs, witness[: _n_pub(r1cs)], proof,
-                               digest=digest, device=device):
+                               digest=digest, device=device, lde_engine=lde_engine):
         raise ValueError("proof rejected")
 
 
 def run_with_file_path(r1cs_path, witness_path, proof_json_path,
                        digest: str = "blake2s", device="cuda",
-                       fri_fold: str = "dft") -> None:
+                       fri_fold: str = "dft", lde_engine: str = "butterfly") -> None:
     """Prove, write the JSON, verify (run.rs:590-625)."""
     prove_with_file_path(r1cs_path, witness_path, proof_json_path, digest, device,
-                         fri_fold)
-    verify_with_file_path(r1cs_path, witness_path, proof_json_path, digest, device)
+                         fri_fold, lde_engine)
+    verify_with_file_path(r1cs_path, witness_path, proof_json_path, digest, device,
+                          lde_engine)

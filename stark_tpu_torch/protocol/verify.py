@@ -21,6 +21,7 @@ from stark_tpu_torch import device as devmod
 from stark_tpu_torch.fri import fri
 from stark_tpu_torch.merkle import tree as mt
 from stark_tpu_torch.ops import modmath as mm
+from stark_tpu_torch.ops.ntt import check_lde_engine
 from stark_tpu_torch.protocol.proof import StarkProof
 from stark_tpu_torch.protocol.prove import (
     _col_bytes_np,
@@ -89,8 +90,11 @@ def _validate_proof_shape(proof: StarkProof, precision: int) -> None:
 def verify_r1cs_proof(spec: FieldSpec, proof: StarkProof, public_wires,
                       public_first_indices, permuted_indices, coefficients,
                       flag0, flag1, flag2, n_constraints: int, n_wires: int,
-                      digest: str = "blake2s", device="cuda") -> bool:
-    """Raises (ValueError / AssertionError) on a bad proof; True otherwise."""
+                      digest: str = "blake2s", device="cuda",
+                      lde_engine: str = "butterfly") -> bool:
+    """Raises (ValueError / AssertionError) on a bad proof; True otherwise.
+    `lde_engine` names the engine of the 6 public columns' LDEs."""
+    check_lde_engine(lde_engine)
     if digest != "blake2s":
         raise NotImplementedError(
             f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1 "
@@ -119,7 +123,8 @@ def verify_r1cs_proof(spec: FieldSpec, proof: StarkProof, public_wires,
     l_leaves = mt.verify_multi_branch(proof.l_root, positions, proof.linear_comb_branches)
 
     # device LDEs of the public columns, gathered at the spot checks
-    stages = _stages_cached(spec, steps, precision, original_steps, digest, dev)
+    stages = _stages_cached(spec, steps, precision, original_steps, digest, dev,
+                            lde_engine)
     plo, phi = lo_hi_words(permuted_column(permuted_indices, original_steps, steps), dev)
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     smalls = stages["v_cols"](

@@ -27,10 +27,12 @@ request.
 there; this one has none to compile. It builds and loads the CUDA kernel
 library (on a card), parses and arithmetizes the circuit, and builds the
 stage set for its size (power tables, NTT plans, pattern pairs on the
-device), and answers {"ok", "warmed", "steps"} with `warmed` the number of
-stages made ready. The device and FRI's fold route are the worker's, fixed
-when it starts: `python -m stark_tpu_torch.cli serve --device cuda
---fri-fold dft`.
+device; on the "crt" LDE engine also that engine's residue tables, from its
+disk cache where they have been built before), and answers {"ok", "warmed",
+"steps"} with `warmed` the number of stages made ready. The device, FRI's
+fold route and the LDE engine are the worker's, fixed when it starts:
+`python -m stark_tpu_torch.cli serve --device cuda --fri-fold dft
+--lde-engine butterfly`.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import time
 from stark_tpu_torch import device as devmod
 from stark_tpu_torch.fri.fri import check_fold_route
 from stark_tpu_torch.ops import build
+from stark_tpu_torch.ops.ntt import check_lde_engine
 from stark_tpu_torch.protocol import proof as proof_mod
 from stark_tpu_torch.protocol import prove, runner
 from stark_tpu_torch.protocol.params import derive_params
@@ -77,24 +80,26 @@ def _read_witness(path: str):
         return read_witness(f.read())
 
 
-def _warmup(r1cs, dev) -> dict:
+def _warmup(r1cs, dev, lde_engine: str) -> dict:
     if dev.type == "cuda":
         build.load()
     spec = runner._spec_for(r1cs)
     arith = runner._static_arith(spec, r1cs)
     params = derive_params(spec, arith.original_steps)
     stages = prove._stages_cached(spec, params.steps, params.precision,
-                                  arith.original_steps, "blake2s", dev)
+                                  arith.original_steps, "blake2s", dev, lde_engine)
     warmed = sum(callable(stage) for stage in stages.values())
     return {"ok": True, "warmed": warmed, "steps": params.steps}
 
 
-def serve(stdin=None, stdout=None, device="cuda", fri_fold: str = "dft") -> int:
+def serve(stdin=None, stdout=None, device="cuda", fri_fold: str = "dft",
+          lde_engine: str = "butterfly") -> int:
     """Blocking request loop; returns on EOF or the shutdown method. Raises
-    before the ready event if `device` cannot be had or `fri_fold` names no
-    route."""
+    before the ready event if `device` cannot be had, `fri_fold` names no
+    route or `lde_engine` no engine."""
     dev = devmod.resolve(device)
     check_fold_route(fri_fold)
+    check_lde_engine(lde_engine)
     stdin = stdin if stdin is not None else sys.stdin
     stdout = stdout if stdout is not None else sys.stdout
     circuits = _CircuitCache()
@@ -125,7 +130,7 @@ def serve(stdin=None, stdout=None, device="cuda", fri_fold: str = "dft") -> int:
                 return 0
 
             elif method == "warmup":
-                result = _warmup(circuits.get(prm["r1cs"]), dev)
+                result = _warmup(circuits.get(prm["r1cs"]), dev, lde_engine)
 
             elif method in ("prove", "verify", "run"):
                 digest = prm.get("digest", "blake2s")
@@ -134,7 +139,8 @@ def serve(stdin=None, stdout=None, device="cuda", fri_fold: str = "dft") -> int:
                 result = {"ok": True}
                 if method in ("prove", "run"):
                     proof = runner.prove_with_witness(
-                        r1cs, witness, digest=digest, device=dev, fri_fold=fri_fold
+                        r1cs, witness, digest=digest, device=dev, fri_fold=fri_fold,
+                        lde_engine=lde_engine,
                     )
                     pj = proof_mod.to_json(proof)
                     result["proof_bytes"] = len(pj)
@@ -149,7 +155,7 @@ def serve(stdin=None, stdout=None, device="cuda", fri_fold: str = "dft") -> int:
                             proof = proof_mod.from_json(f.read())
                     ok = runner.verify_with_witness(
                         r1cs, witness[: runner._n_pub(r1cs)], proof, digest=digest,
-                        device=dev,
+                        device=dev, lde_engine=lde_engine,
                     )
                     result["verified"] = bool(ok)
 

@@ -71,7 +71,8 @@ def test_port_imports_nothing_of_the_jax_package():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k == 'stark_tpu'\n"
         "             or k.startswith('stark_tpu.'))\n"
         "assert not bad, bad\n"
-        "for name in ('serve', 'cli', 'ops.quartic', 'fri.fri', 'protocol.runner'):\n"
+        "for name in ('serve', 'cli', 'ops.quartic', 'fri.fri', 'protocol.runner',\n"
+        "             'ops.crt', 'ops.crt_cuda', 'ops.mxu_ntt'):\n"
         "    assert 'stark_tpu_torch.' + name in sys.modules, name\n"
         "print('ok', sum(k.startswith('stark_tpu_torch.') for k in sys.modules))\n"
     )
@@ -79,7 +80,7 @@ def test_port_imports_nothing_of_the_jax_package():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     word, count = out.stdout.split()
-    assert word == "ok" and int(count) >= 27  # every module of the port was loaded
+    assert word == "ok" and int(count) >= 30  # every module of the port was loaded
 
 
 def test_port_sources_name_no_import_of_the_jax_package():
@@ -234,3 +235,51 @@ def test_poly_host_equal(n):
     at = int.from_bytes(rng.bytes(32), "little") % JSPEC.p
     assert jph.eval_poly_at(JSPEC, jc, at) == tph.eval_poly_at(TSPEC, tc, at)
     assert [tph.eval_poly_at(TSPEC, tc, x) for x in xs] == ys
+
+
+# --- ops/crt.py and ops/mxu_ntt.py: the host functions of the CRT engine -------------
+
+
+def test_crt_host_functions_equal():
+    """The port's own copies of the CRT engine's host code give what the JAX
+    package's give: primes, digits, fold counts, residues and byte rows of
+    python ints, power matrices and twiddle residues."""
+    from stark_tpu.ops import crt as jcrt
+    from stark_tpu.ops import mxu_ntt as jmxu
+    from stark_tpu_torch.ops import crt as tcrt
+    from stark_tpu_torch.ops import mxu_ntt as tmxu
+
+    for name in ("QBITS", "QBASE", "CHUNK", "R256", "ND"):
+        assert getattr(jcrt, name) == getattr(tcrt, name), name
+    for bits in (100, 520, 774):
+        assert jcrt.select_primes(bits) == tcrt.select_primes(bits)
+    for v, base, n in ((0, 256, 4), (JSPEC.p - 1, 256, 35), (12345, 128, 3)):
+        assert jcrt._balanced_digits(v, base, n) == tcrt._balanced_digits(v, base, n)
+    for bound in (16, 27, 30, 32):
+        assert jcrt._fold_count(bound, 10) == tcrt._fold_count(bound, 10)
+    with pytest.raises(ValueError):
+        tcrt._fold_count(32, 14)
+    rng = np.random.default_rng(21)
+    vals = [0, 1, JSPEC.p - 1] + [int.from_bytes(rng.bytes(32), "little") % JSPEC.p
+                                  for _ in range(5)]
+    jby, tby = jcrt.ints_to_bytes_np(vals), tcrt.ints_to_bytes_np(vals)
+    assert np.array_equal(jby, tby)
+    qs = tcrt.select_primes(100)
+    assert np.array_equal(jcrt.residues_of_ints_np(jby, qs), tcrt.residues_of_ints_np(tby, qs))
+    p, w = JSPEC.p, JSPEC.root_of_unity(64)
+    assert jmxu._pow_matrix(w, 4, 5, p, scale=7) == tmxu._pow_matrix(w, 4, 5, p, scale=7)
+    assert np.array_equal(jmxu._twiddle_residues(w, 8, 4, p, qs).astype(np.int64),
+                          tmxu._twiddle_residues(w, 8, 4, p, qs).astype(np.int64))
+    assert np.array_equal(jmxu._twiddle_mid_residues(w, 4, 16, 4, p, qs).astype(np.int64),
+                          tmxu._twiddle_mid_residues(w, 4, 16, p, qs).astype(np.int64))
+
+
+def test_port_reads_no_environment_variable_to_choose_a_route():
+    """No module of the port reads the environment: the LDE engine, the fold
+    route, the device and the plan cache's directory are arguments."""
+    files = glob.glob(os.path.join(ROOT, "stark_tpu_torch", "**", "*.py"), recursive=True)
+    assert len(files) > 28
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        assert "os.environ" not in text and "getenv" not in text, path
