@@ -23,10 +23,10 @@
 // pre-table residue (< 2^28) and a second step. The four lanes' digits leave
 // as one word per plane, (P+1, K/4, B) int32: a warp writes 128 contiguous
 // bytes, and matmul_fold reads four contraction steps per register with no
-// transpose. Bytes bound it by the roofline's count (64 in, 2 per prime of
-// pre-table, 2 per prime out, a lane); the 16 dp4a and ~12 more integer
-// instructions a prime and lane come to about the same time, which is why
-// the table sits in shared memory and is read as 16-byte vectors.
+// transpose. Its integer instructions bound it (16 dp4a and ~12 more a prime
+// and lane, 8 more with a pre-table), a little above its bytes (64 in, 2 per
+// prime of pre-table, 2 per prime out, a lane), which is why the table sits
+// in shared memory and is read as 16-byte vectors.
 //
 // matmul_fold. All digits fit int8 (W in [-64, 63], x in [0, 127]), so the
 // products run on the tensor cores' integer path, mma.sync m16n8k32
@@ -48,7 +48,8 @@
 // Y = sum_i gp_i*s_i + k*(-M mod p), gp_i = (M/q_i) mod p, and the wrap
 // count k = ((sum_i grr_i*s_i - s_r) * M^-1) mod q_r from the redundant
 // prime. A thread owns one lane: it accumulates Y in 9 words (s_i < 2^14,
-// P <= 63 and k < 2^14 give Y < 2^275) from the (P+1, 8)-word table in
+// k < 2^14 and the at most 57 primes of a basis give Y < 2^275; the 9 words
+// hold any basis below 2^19 primes) from the (P+1, 8)-word table in
 // shared memory, runs the word-wise Montgomery reduction of field.cuh's
 // style (8 rounds), and subtracts p once: u = (Y + m*p)/R < Y/R + p
 // < 2^19 + p < 2p, so one conditional subtraction is canonical. Bytes bound

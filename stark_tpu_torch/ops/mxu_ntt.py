@@ -210,7 +210,8 @@ def make_ntt_plan_cached(spec: FieldSpec, root: int, n: int, device, n1=None, n2
     n1, n2 = _split(n, n1, n2)
     path = _plan_cache_path(cache_dir, spec, root, n, n1, n2, scale, nz1, stepa_pre)
     try:
-        data = np.load(path)
+        with np.load(path) as npz:
+            data = {name: npz[name] for name in npz.files}
     except (OSError, ValueError):
         data = None
     if data is not None:
