@@ -71,10 +71,18 @@ and two low halves of 36), a Blake2s compression 960 (10 rounds of 8 G of
 12). `bound_by` is "bytes" unless the operations take strictly longer.
 `matmul_fold`'s operations are the multiply-adds of its four digit products,
 2 * 4 * K * kout * B a prime, over the 1,979e12 a second of the int8 tensor
-cores (the `mma.sync` s8 instruction it uses); `residues_in` counts 28
-integer instructions a prime and lane (16 dp4a, two Barrett steps, the
-digits), 8 more with a pre-table, `reconstruct` 16 a prime and lane plus 200
-for the reduction.
+cores (the `mma.sync` s8 instruction it uses). `residues_in` is counted by
+what the function needs, not by the instructions its kernel spends: the
+(P+1, 32) table times the 32 bytes of a lane is an int8 matrix product, 2 * 32
+multiply-adds a prime and lane at that same tensor-core rate (the kernel
+forms it with dp4a on the CUDA cores, which the bound does not excuse), and
+beside it 7 integer operations a prime and lane (one Barrett step of 5: high
+product, product, subtraction, comparison, conditional subtraction; two for
+the digits), 6 more with a pre-table (the product and a second step). Where
+a function has operations of two kinds, each kind is taken over its own
+rate and the larger time counts: the two units run side by side.
+`reconstruct` counts 16 integer operations a prime and lane plus 200 for
+the reduction.
 
 `mpow_scalar` and `scan_prod` walk chains of dependent products on few
 threads, which that bound does not see. Beside it, and not as a bound, they
@@ -238,8 +246,9 @@ def compare(name: str, kernel_fn, plain_fn, cases: dict, reps=(10, 2),
             ops_per_s: float = INT_OPS_PER_S, library_prep=None) -> dict:
     """Run kernel and plain version on each case: exact equality required.
     A case is (args, bytes moved, operations[, dependent products]), the
-    operations of the kind the card does `ops_per_s` of; `add_bounds` turns
-    these into `bound_ms` and `chain_ms`. The first case is the one the
+    operations a count of the kind the card does `ops_per_s` of, or a list
+    of (count, rate) pairs, one a kind; `add_bounds` turns these into
+    `bound_ms` and `chain_ms`. The first case is the one the
     `kernels` line reports. With reps[1] == 0 the plain version's time is
     that of its one comparison call (for plain versions that take seconds).
     `library_prep(*args)`, where given, returns a function of no arguments
@@ -274,7 +283,9 @@ def add_bounds(result: dict, sm_hz: float) -> None:
     products, `chain_ms` (see the module docstring)."""
     for c in result["cases"].values():
         by_bytes = c["bytes"] / BYTES_PER_S * 1e3
-        by_ops = c["ops"] / c.pop("ops_per_s") * 1e3
+        per_s = c.pop("ops_per_s")
+        kinds = c["ops"] if isinstance(c["ops"], list) else [(c["ops"], per_s)]
+        by_ops = max(count / rate for count, rate in kinds) * 1e3
         c["bound_ms"] = max(by_bytes, by_ops)
         c["bound_by"] = "operations" if by_ops > by_bytes else "bytes"
         chain = c.pop("chain")
@@ -546,7 +557,8 @@ def phase_crt_kernels(spec, device, steps: int, precision: int) -> dict:
             rin_cases[label] = (
                 (basis, x, table),
                 64 * K * B + (2 * p1 * K * B if table is not None else 0) + digit_bytes,
-                p1 * K * B * (28 + (8 if table is not None else 0)),
+                [(2 * 32 * p1 * K * B, INT8_TENSOR_OPS_PER_S),
+                 (p1 * K * B * (7 + (6 if table is not None else 0)), INT_OPS_PER_S)],
             )
         x0, x1 = crt_cuda.residues_in(basis, x, pre)
         mm_cases[f"{name} {kout}x{K}x{B}, {p1} primes"] = (
@@ -1025,7 +1037,7 @@ def main(argv=None) -> int:
     from stark_tpu_torch.ops import build, mxu_ntt
 
     # the CRT engine's tables are built once in this run and loaded from here after
-    mxu_ntt.DEFAULT_CACHE_DIR = PLAN_CACHE
+    mxu_ntt.CACHE_DIR = PLAN_CACHE
     device = "cuda"
     kind = torch.cuda.get_device_name(0)
     def nvidia_smi(query: str) -> str:

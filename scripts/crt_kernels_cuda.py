@@ -80,7 +80,7 @@ def main(argv=None) -> int:
     from stark_tpu_torch.fields.field import BN254_FR as spec
     from stark_tpu_torch.ops import build, mxu_ntt
 
-    mxu_ntt.DEFAULT_CACHE_DIR = chip_smoke.PLAN_CACHE
+    mxu_ntt.CACHE_DIR = chip_smoke.PLAN_CACHE
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

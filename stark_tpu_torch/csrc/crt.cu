@@ -23,10 +23,13 @@
 // pre-table residue (< 2^28) and a second step. The four lanes' digits leave
 // as one word per plane, (P+1, K/4, B) int32: a warp writes 128 contiguous
 // bytes, and matmul_fold reads four contraction steps per register with no
-// transpose. Its integer instructions bound it (16 dp4a and ~12 more a prime
-// and lane, 8 more with a pre-table), a little above its bytes (64 in, 2 per
-// prime of pre-table, 2 per prime out, a lane), which is why the table sits
-// in shared memory and is read as 16-byte vectors.
+// transpose. Bytes bound the function (64 in, 2 per prime of pre-table, 2 per
+// prime out, a lane): the table-by-bytes product is a (P+1, 32) x (32, N) int8
+// matrix product, small at the tensor cores' rate, and the reductions and
+// digits are ~7 integer operations a prime and lane, ~13 with a pre-table.
+// This version forms the product on the CUDA cores instead, and those 16
+// dp4a a prime and lane are what hold it above that bound; the table sits
+// in shared memory and is read as 16-byte vectors to keep them fed.
 //
 // matmul_fold. All digits fit int8 (W in [-64, 63], x in [0, 127]), so the
 // products run on the tensor cores' integer path, mma.sync m16n8k32

@@ -41,7 +41,7 @@ QBASE = 1 << QBITS
 CHUNK = 7  # residue chunk bits for the main products
 R256 = 1 << 256
 ND = 35  # base-256 digits in the reconstruction sum (bound < 2^(8*35))
-TEMP_BYTES = 2 << 30  # default budget of `crt_matmul` for the four product buffers
+TEMP_BYTES = 2 << 30  # default budget of the plain product for its four float32 buffers
 # words of one prime's row in `CrtBasis.kernel_table`: 8 + 8 packed digit words
 # of 256^l mod q, then q, floor(2^32 / q), 128 * sum_l Cb[l] and delta = 2^14 - q
 TABLE_ROW = 20
@@ -479,40 +479,21 @@ def _bdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.to(torch.float32), b.to(torch.float32))
 
 
-def crt_matmul(basis: CrtBasis, plan: CrtMatmulPlan, x_limbs: torch.Tensor, pre=None,
-               temp_bytes: int = TEMP_BYTES) -> torch.Tensor:
+def crt_matmul(basis: CrtBasis, plan: CrtMatmulPlan, x_limbs: torch.Tensor,
+               pre=None) -> torch.Tensor:
     """(W @ x) mod p. x_limbs: (16, K, B) int32 canonical 16-bit limb planes;
     pre: optional (P+1, K, B) int16 residue table multiplied in pointwise
     before the product (implied integer < p). Returns (16, Kout, B) int32.
 
-    The batch axis is independent per lane (only K is contracted), so when
-    the four float32 product buffers of the plain version would exceed
-    `temp_bytes` the call runs over contiguous B-chunks."""
-    L, K, B = x_limbs.shape
-    if K != plan.k:
-        raise ValueError(f"x has {K} rows, the plan contracts {plan.k}")
-    est = 4 * len(basis.qs_host) * plan.kout * B * 4
-    nc = 1
-    while est // nc > temp_bytes and nc * 2 <= B and B % (nc * 2) == 0:
-        nc *= 2
-    if nc == 1:
-        return _crt_matmul_body(basis, plan, x_limbs, pre)
-    Bc = B // nc
-    return torch.cat([
-        _crt_matmul_body(
-            basis, plan, x_limbs[:, :, c * Bc : (c + 1) * Bc].contiguous(),
-            None if pre is None else pre[:, :, c * Bc : (c + 1) * Bc].contiguous(),
-        )
-        for c in range(nc)
-    ], dim=2)
-
-
-def _crt_matmul_body(basis: CrtBasis, plan: CrtMatmulPlan, x_limbs, pre=None):
-    """residues_in -> matmul_fold -> reconstruct: three kernel launches on a
-    CUDA tensor, their plain versions on a CPU tensor, at every size."""
+    residues_in -> matmul_fold -> reconstruct: three kernel launches on a
+    CUDA tensor, their plain versions on a CPU tensor, at every size. The
+    kernels hold no product buffers, so only the plain product splits a wide
+    batch (`crt_cuda.matmul_fold_plain`)."""
     from stark_tpu_torch.ops import crt_cuda
 
     L, K, B = x_limbs.shape
+    if K != plan.k:
+        raise ValueError(f"x has {K} rows, the plan contracts {plan.k}")
     x0, x1 = crt_cuda.residues_in(basis, x_limbs, pre)
     s = crt_cuda.matmul_fold(basis, plan, x0, x1)
     out = crt_cuda.reconstruct(basis, s.reshape(s.shape[0], plan.kout * B))

@@ -110,7 +110,25 @@ residues_in.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def matmul_fold_plain(basis: crt.CrtBasis, plan: crt.CrtMatmulPlan, x0, x1):
+def matmul_fold_plain(basis: crt.CrtBasis, plan: crt.CrtMatmulPlan, x0, x1,
+                      temp_bytes: int = crt.TEMP_BYTES):
+    """The batch axis is independent per lane (only K is contracted), so when
+    the four float32 product buffers would exceed `temp_bytes` the products
+    run over contiguous B-chunks."""
+    B = x0.shape[2]
+    est = 4 * _p1(basis) * plan.kout * B * 4
+    nc = 1
+    while est // nc > temp_bytes and nc * 2 <= B and B % (nc * 2) == 0:
+        nc *= 2
+    if nc > 1:
+        return torch.cat([
+            _matmul_fold_plain(basis, plan, a.contiguous(), b.contiguous())
+            for a, b in zip(x0.chunk(nc, dim=2), x1.chunk(nc, dim=2))
+        ], dim=2)
+    return _matmul_fold_plain(basis, plan, x0, x1)
+
+
+def _matmul_fold_plain(basis: crt.CrtBasis, plan: crt.CrtMatmulPlan, x0, x1):
     d = basis.on(x0.device)["deltas"].to(torch.int64)[:, :, None]
     x0, x1 = (crt.unpack_k4(x, plan.k) for x in (x0, x1))
     S00 = crt._bdot(plan.W0, x0).to(torch.int64)

@@ -21,8 +21,9 @@ rows.
 Plans hold their tables as tensors on one device: the constant matrices'
 digit planes as int8, the twiddle pre-tables as int16 (every prime is below
 2^14; at n = 2^20 the table is 57 x 2^20 values). The host build of a plan
-is cached on disk as an `.npz` under `DEFAULT_CACHE_DIR`, or the directory a
-caller names; the port never reads a file the JAX package wrote.
+is cached on disk as an `.npz` under `CACHE_DIR`, a module attribute that a
+deployment sets before its first plan; the port never reads a file the JAX
+package wrote.
 `lde_mxu_sharded` waits for the multi-GPU slice.
 """
 
@@ -31,6 +32,7 @@ from __future__ import annotations
 import hashlib
 import os
 import warnings
+import zipfile
 
 import numpy as np
 import torch
@@ -38,7 +40,9 @@ import torch
 from stark_tpu_torch.fields.field import FieldSpec
 from stark_tpu_torch.ops import crt
 
-DEFAULT_CACHE_DIR = "~/.cache/stark_tpu_torch_plans"
+# where the plans' host-built tables are cached; the one setting of the cache
+CACHE_DIR = "~/.cache/stark_tpu_torch_plans"
+_PLAN_KEYS = ("bits_a", "bits_b", "aw0", "aw1", "bw0", "bw1", "tw")
 
 
 def _pow_matrix(base: int, rows: int, cols: int, p: int, scale: int = 1):
@@ -134,8 +138,7 @@ class MxuNttPlan3:
     inner transform is a batched two-level `MxuNttPlan` applied across the
     n1 rows."""
 
-    def __init__(self, spec: FieldSpec, root: int, n: int, device, scale: int = 1,
-                 n1=None, cache_dir=None):
+    def __init__(self, spec: FieldSpec, root: int, n: int, device, scale: int = 1, n1=None):
         p = spec.p
         logn = n.bit_length() - 1
         if n1 is None:
@@ -153,8 +156,7 @@ class MxuNttPlan3:
         # plan's step-A basis (applied as its pre-table); the inner plan's
         # own twiddle then applies inside as usual.
         self.inner = make_ntt_plan_cached(
-            spec, pow(root, n1, p), m, device, scale=scale, stepa_pre=True,
-            cache_dir=cache_dir,
+            spec, pow(root, n1, p), m, device, scale=scale, stepa_pre=True
         )
         qa = self.inner.basis_a.qs_host
         self.mid = torch.from_numpy(_twiddle_mid_residues(root, n1, m, p, qa)).to(device)
@@ -194,25 +196,26 @@ def ntt_mxu3(plan: MxuNttPlan3, x: torch.Tensor) -> torch.Tensor:
     return ov.reshape(L, plan.n)
 
 
-def _plan_cache_path(cache_dir, spec, root, n, n1, n2, scale, nz1, stepa_pre) -> str:
+def _plan_cache_path(spec, root, n, n1, n2, scale, nz1, stepa_pre) -> str:
     key = f"v1:{spec.p}:{root}:{n}:{n1}:{n2}:{scale}:{nz1}:{stepa_pre}:int8:int16"
     h = hashlib.sha256(key.encode()).hexdigest()[:24]
-    d = os.path.expanduser(cache_dir if cache_dir is not None else DEFAULT_CACHE_DIR)
+    d = os.path.expanduser(CACHE_DIR)
     os.makedirs(d, exist_ok=True)
     return os.path.join(d, f"ntt_{h}.npz")
 
 
 def make_ntt_plan_cached(spec: FieldSpec, root: int, n: int, device, n1=None, n2=None,
-                         scale: int = 1, nz1=None, stepa_pre: bool = False,
-                         cache_dir=None) -> MxuNttPlan:
+                         scale: int = 1, nz1=None, stepa_pre: bool = False) -> MxuNttPlan:
     """`MxuNttPlan` with an on-disk cache of its host-built tables, in
-    `cache_dir` (default `DEFAULT_CACHE_DIR`)."""
+    `CACHE_DIR`. A file that is missing, truncated, not an `.npz` or short
+    of a table counts as a miss: the tables are built and the file written
+    anew."""
     n1, n2 = _split(n, n1, n2)
-    path = _plan_cache_path(cache_dir, spec, root, n, n1, n2, scale, nz1, stepa_pre)
+    path = _plan_cache_path(spec, root, n, n1, n2, scale, nz1, stepa_pre)
     try:
         with np.load(path) as npz:
-            data = {name: npz[name] for name in npz.files}
-    except (OSError, ValueError):
+            data = {name: npz[name] for name in _PLAN_KEYS}
+    except (OSError, ValueError, KeyError, zipfile.BadZipFile):
         data = None
     if data is not None:
         plan = object.__new__(MxuNttPlan)
@@ -246,8 +249,7 @@ def make_ntt_plan_cached(spec: FieldSpec, root: int, n: int, device, n1=None, n2
     return plan
 
 
-def make_lde_plans(spec: FieldSpec, g1: int, g2: int, steps: int, precision: int,
-                   device, cache_dir=None):
+def make_lde_plans(spec: FieldSpec, g1: int, g2: int, steps: int, precision: int, device):
     """(iNTT plan at g1^-1 with n^-1 scale, big NTT plan at g2 with
     zero-structure), the pair of transforms of one LDE.
 
@@ -256,12 +258,10 @@ def make_lde_plans(spec: FieldSpec, g1: int, g2: int, steps: int, precision: int
     n1 = precision/2^20 rides the batch axis; inner contractions stay
     1024)."""
     inv_plan = make_ntt_plan_cached(
-        spec, spec.inv(g1) % spec.p, steps, device, scale=spec.inv(steps),
-        cache_dir=cache_dir,
+        spec, spec.inv(g1) % spec.p, steps, device, scale=spec.inv(steps)
     )
     if precision > 1 << 20:
-        big_plan = MxuNttPlan3(spec, g2, precision, device, n1=precision >> 20,
-                               cache_dir=cache_dir)
+        big_plan = MxuNttPlan3(spec, g2, precision, device, n1=precision >> 20)
         return inv_plan, big_plan
     n1, n2 = _split(precision, None, None)
     if steps % n2:
@@ -270,7 +270,7 @@ def make_lde_plans(spec: FieldSpec, g1: int, g2: int, steps: int, precision: int
             f"{precision}, got {steps}"
         )
     big_plan = make_ntt_plan_cached(
-        spec, g2, precision, device, n1=n1, n2=n2, nz1=steps // n2, cache_dir=cache_dir
+        spec, g2, precision, device, n1=n1, n2=n2, nz1=steps // n2
     )
     return inv_plan, big_plan
 

@@ -38,7 +38,7 @@ P = spec.p
 def caches(tmp_path, monkeypatch):
     """Both packages' plan caches in this test's own directories."""
     monkeypatch.setenv("STARK_TPU_PLANS_CACHE", str(tmp_path / "jax_plans"))
-    monkeypatch.setattr(mxu_ntt, "DEFAULT_CACHE_DIR", str(tmp_path / "plans"))
+    monkeypatch.setattr(mxu_ntt, "CACHE_DIR", str(tmp_path / "plans"))
     return tmp_path / "plans"
 
 
@@ -173,15 +173,16 @@ def test_lde_through_the_three_level_plan():
     assert torch.equal(got, ref)
 
 
-def test_plan_cache_lives_where_it_is_told(tmp_path, caches):
+def test_plan_cache_lives_where_it_is_told(tmp_path, caches, monkeypatch):
     n = 256
     root = spec.root_of_unity(n)
     mine = tmp_path / "named"
-    first = mxu_ntt.make_ntt_plan_cached(tspec, root, n, "cpu", cache_dir=str(mine))
+    monkeypatch.setattr(mxu_ntt, "CACHE_DIR", str(mine))
+    first = mxu_ntt.make_ntt_plan_cached(tspec, root, n, "cpu")
     files = os.listdir(mine)
     assert len(files) == 1 and files[0].endswith(".npz")
-    assert not os.path.exists(caches)  # the default directory was not touched
-    again = mxu_ntt.make_ntt_plan_cached(tspec, root, n, "cpu", cache_dir=str(mine))
+    assert not os.path.exists(caches)  # the directory set before was not touched
+    again = mxu_ntt.make_ntt_plan_cached(tspec, root, n, "cpu")
     assert os.listdir(mine) == files
     for a, b in ((first.plan_a, again.plan_a), (first.plan_b, again.plan_b)):
         assert torch.equal(a.W0, b.W0) and torch.equal(a.W1, b.W1)
@@ -189,9 +190,36 @@ def test_plan_cache_lives_where_it_is_told(tmp_path, caches):
     assert first.basis_b.qs_host == again.basis_b.qs_host
     x = t(rand_mont(7, n))
     assert torch.equal(mxu_ntt.ntt_mxu(first, x), mxu_ntt.ntt_mxu(again, x))
-    other = mxu_ntt.make_ntt_plan_cached(tspec, root, n, "cpu", scale=3, cache_dir=str(mine))
+    other = mxu_ntt.make_ntt_plan_cached(tspec, root, n, "cpu", scale=3)
     assert len(os.listdir(mine)) == 2  # another key, another file
     assert not torch.equal(other.plan_b.W0, first.plan_b.W0)
+
+
+@pytest.mark.parametrize("damage", ["truncated", "not_a_zip", "missing_table"])
+def test_damaged_plan_cache_file_is_a_miss(caches, damage):
+    """A cache file damaged from outside is rebuilt, not raised on."""
+    n = 64
+    root = spec.root_of_unity(n)
+    first = mxu_ntt.make_ntt_plan_cached(tspec, root, n, "cpu")
+    (name,) = os.listdir(caches)
+    path = os.path.join(caches, name)
+    if damage == "truncated":
+        with open(path, "rb") as f:
+            blob = f.read()
+        with open(path, "wb") as f:
+            f.write(blob[: len(blob) // 2])
+    elif damage == "not_a_zip":
+        with open(path, "wb") as f:
+            f.write(b"PK\x03\x04 these are not tables")
+    else:
+        with np.load(path) as npz:
+            kept = {k: npz[k] for k in npz.files if k != "tw"}
+        np.savez(path, **kept)
+    again = mxu_ntt.make_ntt_plan_cached(tspec, root, n, "cpu")
+    assert torch.equal(first.twiddle, again.twiddle)
+    assert torch.equal(first.plan_b.W1, again.plan_b.W1)
+    with np.load(path) as npz:  # and the file is whole again
+        assert set(npz.files) == set(mxu_ntt._PLAN_KEYS)
 
 
 def test_engine_refuses_what_it_cannot_split():

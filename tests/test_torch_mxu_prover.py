@@ -42,7 +42,7 @@ def caches(tmp_path_factory, monkeypatch):
     """Both packages' plan caches in directories of this test run."""
     base = tmp_path_factory.getbasetemp()
     monkeypatch.setenv("STARK_TPU_PLANS_CACHE", str(base / "jax_plans"))
-    monkeypatch.setattr(mxu_ntt, "DEFAULT_CACHE_DIR", str(base / "plans"))
+    monkeypatch.setattr(mxu_ntt, "CACHE_DIR", str(base / "plans"))
 
 
 @pytest.fixture(scope="module")
