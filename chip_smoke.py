@@ -9,11 +9,21 @@ non-zero and no phase's error is swallowed:
 1. device: a CUDA card must be present (its name and power limit are
    printed as `nvidia-smi --query-gpu=name,power.limit` gives them);
 2. build: the kernel library is built with nvcc from stark_tpu_torch/csrc;
+   the record's `ptxas` list holds what `ptxas -v` said of every kernel
+   (registers, spills), the two redesigned for Hopper, `matmul_fold` and
+   `butterfly_fused`, among them;
 3. kernels: each of the 22 CUDA kernels against its plain PyTorch version
    on the card, at the prover's shapes for 43,690 constraints (steps 2^17,
    precision 2^20), inputs from a numpy seed; tolerance: exact equality
-   (integer field arithmetic with canonical outputs), with the median time
-   of both per case and the least time the card could take (`bound_ms`).
+   (integer field arithmetic with canonical outputs), with the median
+   device time of both per case (a sleep kernel ahead of each timed call
+   keeps the host's launch work out of it) and the least time the card
+   could take (`bound_ms`), its share of the kernel's time (`bound_share`) and, where the operations
+   are of one kind, the rate achieved (`achieved_ops_per_s`: int8 operations
+   a second for `matmul_fold`). `butterfly_fused` runs dit and dif at 2^20
+   and dif at 2^17, the three shapes the LDE gives it; beside its bound,
+   which counts a product a butterfly, `bound_needed_ms` leaves out the
+   products by a twiddle equal to Montgomery one, which the kernel skips.
    The three kernels of the CRT LDE engine run on that engine's own tables
    for this size (their host build, or their load from the disk cache, is
    timed), at the four products of one LDE and at small ragged shapes;
@@ -71,7 +81,7 @@ and two low halves of 36), a Blake2s compression 960 (10 rounds of 8 G of
 12). `bound_by` is "bytes" unless the operations take strictly longer.
 `matmul_fold`'s operations are the multiply-adds of its four digit products,
 2 * 4 * K * kout * B a prime, over the 1,979e12 a second of the int8 tensor
-cores (the `mma.sync` s8 instruction it uses). `residues_in` is counted by
+cores (the `wgmma` s8 instruction it uses). `residues_in` is counted by
 what the function needs, not by the instructions its kernel spends: the
 (P+1, 32) table times the 32 bytes of a lane is an int8 matrix product, 2 * 32
 multiply-adds a prime and lane at that same tensor-core rate (the kernel
@@ -167,6 +177,7 @@ INT_OPS_PER_S = 67e12 / 4  # 64 integer lanes an SM against 128 FP32 lanes x 2 f
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 on the tensor cores
 MONT_MUL_OPS = 136  # 32x32->64 multiply-adds of one 8-word CIOS product
 BLAKE2S_OPS = 960  # 32-bit integer operations of one compression
+SLEEP_CYCLES = 1_000_000  # about 0.5 ms of SM clock: the wait `median_ms` puts first
 
 # ported, but not run by the prover's stages (see the module docstring)
 OFF_PATH = ("linear_combination",)
@@ -220,13 +231,18 @@ def random_words(rng, rows: int, n: int, device) -> torch.Tensor:
 
 
 def median_ms(fn, reps: int) -> float:
-    """Median device time of fn() over reps runs, after one warm run."""
+    """Median device time of fn() over reps runs, after one warm run. A
+    sleep kernel holds the device before each start event, so that the
+    host's work of issuing fn's launches (checks, allocation, the ctypes
+    call) ends before the timed span begins; a plain version that issues
+    for longer than the sleep is still timed partly on the host's clock."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -288,6 +304,9 @@ def add_bounds(result: dict, sm_hz: float) -> None:
         by_ops = max(count / rate for count, rate in kinds) * 1e3
         c["bound_ms"] = max(by_bytes, by_ops)
         c["bound_by"] = "operations" if by_ops > by_bytes else "bytes"
+        c["bound_share"] = c["bound_ms"] / c["ms"]
+        if len(kinds) == 1:
+            c["achieved_ops_per_s"] = kinds[0][0] / (c["ms"] * 1e-3)
         chain = c.pop("chain")
         c["chain_ms"] = (chain * CHAIN_STEPS * CYCLES_PER_STEP / sm_hz * 1e3
                          if chain else None)
@@ -347,15 +366,7 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
         lambda x, tw, m, l, kind: ntt.butterfly_stage_plain(spec, x, tw, m, l, kind),
         stage_cases,
     )
-    fused_work = (2 * plane + 4 * big.fused_tw.numel(),
-                  (big.block.bit_length() - 1) * N // 2 * MM)
-    out["butterfly_fused"] = compare(
-        "butterfly_fused",
-        lambda x, tw, kind: ntt.butterfly_fused(spec, x, tw, big.block, kind),
-        lambda x, tw, kind: ntt.butterfly_fused_plain(spec, x, tw, big.block, kind),
-        {f"dit n={N} block={big.block}": ((x_big, big.fused_tw, "dit"), *fused_work),
-         f"dif n={N} block={big.block}": ((x_big, big.fused_tw, "dif"), *fused_work)},
-    )
+    out["butterfly_fused"] = compare_fused(spec, big, small, x_big, x_small)
     out["blake2s_words"] = compare(
         "blake2s_words",
         b2.blake2s_words,
@@ -508,6 +519,41 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
         out["mpow_scalar"]["cases"][one_lane]["ms"] / chain
     )
     return out
+
+
+def compare_fused(spec, big, small, x_big, x_small) -> dict:
+    """`butterfly_fused` against its plain version at the prover's three
+    shapes: dit and dif at the big transform's size on its tables, and dif
+    at the small transform's (the inverse LDE's) on its own."""
+    from stark_tpu_torch.ops import modmath as mm, ntt
+
+    def work(plan, n):
+        return (2 * 64 * n + 4 * plan.fused_tw.numel(),
+                (plan.block.bit_length() - 1) * n // 2 * MONT_MUL_OPS)
+
+    def needed_ms(plan, n, nbytes):
+        """The bound without the products by a twiddle equal to Montgomery
+        one (the product by R mod p is its operand): those of k = 0."""
+        one = (plan.fused_tw == mm.mont_one(spec, plan.fused_tw.device)).all(dim=0)
+        products = sum((l - int(one[l - 1 : 2 * l - 1].sum())) * n // (2 * l)
+                       for l in ntt.fused_ls(plan.block, "dit"))
+        return max(nbytes / BYTES_PER_S, products * MONT_MUL_OPS / INT_OPS_PER_S) * 1e3
+
+    N, steps = x_big.shape[1], x_small.shape[1]
+    shapes = {f"dit n={N} block={big.block}": (x_big, big, "dit"),
+              f"dif n={N} block={big.block}": (x_big, big, "dif"),
+              f"dif n={steps} block={small.block}": (x_small, small, "dif")}
+    result = compare(
+        "butterfly_fused",
+        lambda x, tw, block, kind: ntt.butterfly_fused(spec, x, tw, block, kind),
+        lambda x, tw, block, kind: ntt.butterfly_fused_plain(spec, x, tw, block, kind),
+        {label: ((x, plan.fused_tw, plan.block, kind), *work(plan, x.shape[1]))
+         for label, (x, plan, kind) in shapes.items()},
+    )
+    for label, (x, plan, _) in shapes.items():
+        case = result["cases"][label]
+        case["bound_needed_ms"] = needed_ms(plan, x.shape[1], case["bytes"])
+    return result
 
 
 def phase_crt_kernels(spec, device, steps: int, precision: int) -> dict:

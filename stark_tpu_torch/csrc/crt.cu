@@ -22,30 +22,61 @@
 // value up to one conditional subtraction, then the product with the
 // pre-table residue (< 2^28) and a second step. The four lanes' digits leave
 // as one word per plane, (P+1, K/4, B) int32: a warp writes 128 contiguous
-// bytes, and matmul_fold reads four contraction steps per register with no
-// transpose. Bytes bound the function (64 in, 2 per prime of pre-table, 2 per
-// prime out, a lane): the table-by-bytes product is a (P+1, 32) x (32, N) int8
-// matrix product, small at the tensor cores' rate, and the reductions and
-// digits are ~7 integer operations a prime and lane, ~13 with a pre-table.
+// bytes, and matmul_fold's producer moves each word, four contraction steps,
+// into its K-major tile with one 4-byte copy. Bytes bound the function (64
+// in, 2 per prime of pre-table, 2 per prime out, a lane): the table-by-bytes
+// product is a (P+1, 32) x (32, N) int8 matrix product, small at the tensor
+// cores' rate, and the reductions and digits are ~7 integer operations a
+// prime and lane, ~13 with a pre-table.
 // This version forms the product on the CUDA cores instead, and those 16
 // dp4a a prime and lane are what hold it above that bound; the table sits
 // in shared memory and is read as 16-byte vectors to keep them fed.
 //
-// matmul_fold. All digits fit int8 (W in [-64, 63], x in [0, 127]), so the
-// products run on the tensor cores' integer path, mma.sync m16n8k32
-// s8 x s8 -> s32: sums are exact in int32 at any contraction length the
-// wrapper admits, and the planes take half the bytes of bf16. A block of
-// four warps owns a 64 x 64 tile of one prime's output and walks K in steps
-// of 64 through shared memory (W rows with their K bytes contiguous, the
-// stride 80 bytes; x as words of four k, the stride 72 words: both make the
-// fragment loads conflict-free); a warp holds a 32 x 32 sub-tile as three
-// accumulator sets, s00, s01 + s10 and s11, four mma a step each pair of
-// fragments. The epilogue is the TPU kernel's: s00 + 128*fold(s01+s10) +
-// delta*fold(s11) with fold(s) = (s >> 14)*delta + (s & 16383), |.| < 2^30 for
-// K <= 1024, then Barrett to the canonical residue. Edges are zero-filled on
-// load and masked on store, so any (kout, K, B) runs: no size gate. It is
-// bound by operations (8*K*kout*B per prime against the int8 tensor-core
-// rate); this first version neither overlaps loads with mma nor uses wgmma.
+// matmul_fold (replaces stark_tpu/ops/pallas_crt.py:176 matmul_fold). All
+// digits fit int8 (W in [-64, 63], x in [0, 127]), so the four digit
+// products run on the tensor cores' integer path, s8 x s8 -> s32, exact at
+// any contraction length the wrapper admits (K <= 1024). What bounds it on
+// this card: operations, 8*K*kout*B a prime against the int8 tensor-core
+// rate, which only wgmma reaches. The design:
+// - Persistent and warp-specialised: one CTA an SM walks 128 x 128 output
+//   tiles prime-major (the CTAs in flight read one or two primes' W rows,
+//   so the 119 MB of W planes at 57 x 1024^2 are read from L2, not DRAM),
+//   with three shared-memory stages of 128 contraction bytes (64 KB each:
+//   W0, W1, x0, x1) behind full/empty mbarriers.
+// - Consumers: warpgroups 0 and 1, 64 W rows each, run wgmma.mma_async
+//   m64n128k32 .s32.s8.s8 with both operands in shared memory, 16 a stage
+//   (4 k-steps x the products W0x0, W0x1, W1x0, W1x1), into three s32
+//   accumulator sets (s00, s01 + s10, s11: 192 registers; setmaxnreg gives
+//   the consumers 232 and the producer 40). One wgmma group stays in flight
+//   while the next stage is waited for; a stage is handed back when the
+//   group that read it has completed.
+// - Producer: warpgroup 2. W arrives by TMA (one 4-D tensor map over the
+//   (2, P+1, kout, kp) planes, 128B swizzle). The plan pads each W row with
+//   zeros to kp, a multiple of 16 bytes, because TMA needs 16-byte row
+//   strides (K = 100 or 6 do not give them); zeros change no sum, and TMA's
+//   out-of-bounds fill covers the rest of the last tile.
+// - B's layout: wgmma takes 8-bit operands K-major only, and x arrives as
+//   (P+1, K/4, B) words, four k of one column a word (crt.pack_k4), the
+//   layout residues_in writes. The producer transposes
+//   on the way in: a 4-byte cp.async for each word, from global (k4, b) to
+//   the word's place in row b of the 128B-swizzled K-major tile. A warp
+//   covers 4 words x 8 rows, so its global reads are 32-byte sectors and its
+//   shared writes hit 32 distinct banks; a word past ceil(K/4) or B is
+//   zero-filled by the copy itself (source size 0), so any (K, B) runs
+//   without a size gate. Each producer thread's arrival on the stage's
+//   full barrier is tied to the completion of its copies
+//   (cp.async.mbarrier.arrive.noinc), so the producer never waits on its
+//   own loads; the copies are generic-proxy writes, so a consumer fences
+//   (fence.proxy.async) after the barrier and before its wgmma read them.
+//   (TMA cannot do this transpose, and x's row stride 4*B bytes is not a
+//   multiple of 16 at B = 5 or 70.)
+// - Epilogue, the TPU kernel's: s00 + 128*fold(s01+s10) + delta*fold(s11)
+//   with fold(s) = (s >> 14)*delta + (s & 16383), |.| < 2^30 for K <= 1024,
+//   then Barrett to the canonical residue; rows past kout and columns past
+//   B are not stored.
+// Four products, not Karatsuba's three: the bound counts four, and a third
+// W plane and an s8 x u8 product are left for when the tensor cores, and not
+// the loads, are shown to bind.
 //
 // reconstruct. With s_i the t-scaled residues, the value is REDC(Y),
 // Y = sum_i gp_i*s_i + k*(-M mod p), gp_i = (M/q_i) mod p, and the wrap
@@ -57,6 +88,8 @@
 // style (8 rounds), and subtracts p once: u = (Y + m*p)/R < Y/R + p
 // < 2^19 + p < 2p, so one conditional subtraction is canonical. Bytes bound
 // it (4 per prime in, 64 out, a lane).
+#include <cuda.h>
+
 #include "field.cuh"
 
 namespace {
@@ -151,147 +184,257 @@ residues_in_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ ta
 // matmul_fold
 // ---------------------------------------------------------------------------
 
-constexpr int MM_TM = 64;       // output rows of a block
-constexpr int MM_TN = 64;       // output columns of a block
-constexpr int MM_TK = 64;       // contraction rows of one shared-memory step
-constexpr int MM_THREADS = 128;  // four warps, 2 x 2, 32 x 32 each
-constexpr int MM_AS = MM_TK + 16;  // bytes of one W row in shared memory
-constexpr int MM_BS = MM_TN + 8;   // words of one x row (four k) in shared memory
+constexpr int MM_BM = 128;      // output rows (W rows) of a tile: two consumer warpgroups
+constexpr int MM_BN = 128;      // output columns (batch lanes) of a tile
+constexpr int MM_BK = 128;      // contraction bytes of one stage: one 128-byte swizzle row
+constexpr int MM_STAGES = 3;
+constexpr int MM_PLANE = MM_BM * MM_BK;  // bytes of one operand plane of a stage (16 KB)
+constexpr int MM_STAGE = 4 * MM_PLANE;   // W0, W1, x0, x1
+constexpr int MM_THREADS = 384;          // consumers: warpgroups 0, 1; producer: 2
+constexpr int MM_SMEM = MM_STAGES * MM_STAGE + 1024;  // + slack to align to 1024
 
-// D += A (16 x 32, row) * B (32 x 8, col), s8 x s8 -> s32. Lane (g = lane/4,
-// t = lane%4) holds: a0 row g, k 4t..4t+3; a1 row g+8; a2, a3 the same rows
-// at k+16; b0 column g, k 4t..4t+3; b1 at k+16; c0, c1 row g, columns 2t,
-// 2t+1; c2, c3 row g+8.
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(MM_THREADS)
-matmul_fold_kernel(const int8_t* __restrict__ w0, const int8_t* __restrict__ w1,
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// One box of the (2, P+1, kout, Kp) digit planes into shared memory, 128B-swizzled.
+__device__ __forceinline__ void tma_load_w(const CUtensorMap* map, uint32_t dst,
+                                           uint32_t bar, int k, int row, int prime,
+                                           int plane) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(row), "r"(prime),
+      "r"(plane)
+      : "memory");
+}
+
+// 4 bytes from global to shared, zeros where `ok` is false.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const int32_t* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major operand in 128B-swizzled rows
+// of 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+#define D8(i)                                                              \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// D (64 x 128 s32, this warpgroup's fragment) += A (64 x 32 s8) * B^T
+// (128 x 32 s8), both K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__global__ void __launch_bounds__(MM_THREADS, 1)
+matmul_fold_kernel(const __grid_constant__ CUtensorMap wmap,
                    const int32_t* __restrict__ x0, const int32_t* __restrict__ x1,
                    const int32_t* __restrict__ table, int32_t* __restrict__ out,
-                   int kout, int K, int K4, int B) {
-  __shared__ __align__(16) int8_t As[2][MM_TM * MM_AS];
-  __shared__ __align__(16) int32_t Bs[2][(MM_TK / 4) * MM_BS];
-  const int prime = blockIdx.z;
-  const int m0 = blockIdx.y * MM_TM, n0 = blockIdx.x * MM_TN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int8_t* W[2] = {w0 + static_cast<int64_t>(prime) * kout * K,
-                        w1 + static_cast<int64_t>(prime) * kout * K};
-  const int32_t* X[2] = {x0 + static_cast<int64_t>(prime) * K4 * B,
-                         x1 + static_cast<int64_t>(prime) * K4 * B};
-  // 16-byte loads where every row starts on a 16-byte boundary
-  const bool a_vec = K % 16 == 0, b_vec = B % 4 == 0;
-
-  int acc00[2][4][4], accm[2][4][4], acc11[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc00[mi][ni][e] = accm[mi][ni][e] = acc11[mi][ni][e] = 0;
-
-  for (int k0 = 0; k0 < 4 * K4; k0 += MM_TK) {
-    // W tiles: 64 rows of four 16-byte chunks
-    for (int c = tid; c < MM_TM * (MM_TK / 16); c += MM_THREADS) {
-      const int row = c / (MM_TK / 16), kc = (c % (MM_TK / 16)) * 16;
-      const int gm = m0 + row, gk = k0 + kc;
-#pragma unroll
-      for (int mat = 0; mat < 2; ++mat) {
-        int4 v = make_int4(0, 0, 0, 0);
-        if (gm < kout && gk < K) {
-          const int8_t* src = W[mat] + static_cast<int64_t>(gm) * K + gk;
-          if (a_vec) {
-            v = *reinterpret_cast<const int4*>(src);
-          } else {
-            int8_t* dst = reinterpret_cast<int8_t*>(&v);
-            for (int e = 0; e < 16 && gk + e < K; ++e) dst[e] = src[e];
-          }
-        }
-        *reinterpret_cast<int4*>(&As[mat][row * MM_AS + kc]) = v;
-      }
+                   int p1, int kout, int K4, int B) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[MM_STAGES], empty[MM_STAGES];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const int tid = threadIdx.x;
+  const int tiles_m = (kout + MM_BM - 1) / MM_BM, tiles_n = (B + MM_BN - 1) / MM_BN;
+  const int per_prime = tiles_m * tiles_n, tiles = p1 * per_prime;
+  const int nk = (4 * K4 + MM_BK - 1) / MM_BK;
+  if (tid == 0) {
+    for (int s = 0; s < MM_STAGES; ++s) {
+      mbar_init(smem_addr(&full[s]), 128 + 1);  // producer threads + the TMA issue
+      mbar_init(smem_addr(&empty[s]), 8);       // the consumer warps
     }
-    // x tiles: 16 rows (of four k each) of sixteen 4-word chunks
-    for (int c = tid; c < (MM_TK / 4) * (MM_TN / 4); c += MM_THREADS) {
-      const int row = c / (MM_TN / 4), nc = (c % (MM_TN / 4)) * 4;
-      const int gk4 = k0 / 4 + row, gn = n0 + nc;
-#pragma unroll
-      for (int mat = 0; mat < 2; ++mat) {
-        int4 v = make_int4(0, 0, 0, 0);
-        if (gk4 < K4 && gn < B) {
-          const int32_t* src = X[mat] + static_cast<int64_t>(gk4) * B + gn;
-          if (b_vec) {
-            v = *reinterpret_cast<const int4*>(src);
-          } else {
-            int32_t* dst = reinterpret_cast<int32_t*>(&v);
-            for (int e = 0; e < 4 && gn + e < B; ++e) dst[e] = src[e];
-          }
-        }
-        *reinterpret_cast<int4*>(&Bs[mat][row * MM_BS + nc]) = v;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < MM_TK / 32; ++ks) {
-      uint32_t a[2][2][4], bf[2][4][2];
-#pragma unroll
-      for (int mat = 0; mat < 2; ++mat) {
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int8_t* p = &As[mat][(wm + mi * 16 + g) * MM_AS + ks * 32 + t * 4];
-          a[mat][mi][0] = *reinterpret_cast<const uint32_t*>(p);
-          a[mat][mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * MM_AS);
-          a[mat][mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-          a[mat][mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * MM_AS + 16);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int32_t* p = &Bs[mat][(ks * 8 + t) * MM_BS + wn + ni * 8 + g];
-          bf[mat][ni][0] = static_cast<uint32_t>(p[0]);
-          bf[mat][ni][1] = static_cast<uint32_t>(p[4 * MM_BS]);
-        }
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          mma_s8(acc00[mi][ni], a[0][mi], bf[0][ni]);
-          mma_s8(accm[mi][ni], a[0][mi], bf[1][ni]);
-          mma_s8(accm[mi][ni], a[1][mi], bf[0][ni]);
-          mma_s8(acc11[mi][ni], a[1][mi], bf[1][ni]);
-        }
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
 
-  const int32_t* row = table + prime * TABLE_ROW;
-  const uint32_t q = row[16], m = row[17];
-  const int d = row[19];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = m0 + wm + mi * 16 + g + (e >= 2 ? 8 : 0);
-        const int c = n0 + wn + ni * 8 + 2 * t + (e & 1);
-        if (r >= kout || c >= B) continue;
-        int s11 = acc11[mi][ni][e];  // |.| <= K*64*127 < 2^23
-        s11 = (s11 >> QBITS) * d + (s11 & QMASK);
-        int sm = accm[mi][ni][e];  // |.| <= 2^24
-        sm = (sm >> QBITS) * d + (sm & QMASK);
-        int raw = acc00[mi][ni][e] + sm * 128 + d * s11;  // |.| < 2^30
-        uint32_t v = static_cast<uint32_t>(raw) + (q << (30 - QBITS + 1));
-        out[(static_cast<int64_t>(prime) * kout + r) * B + c] =
-            static_cast<int32_t>(barrett(v, q, m));
+  if (tid >= 256) {
+    // producer: W through TMA, x through 4-byte copies that transpose it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    const int ptid = tid - 256;
+    int stage = 0, phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int prime = tile / per_prime, rem = tile % per_prime;
+      const int m0 = (rem / tiles_n) * MM_BM, n0 = (rem % tiles_n) * MM_BN;
+      const int32_t* X[2] = {x0 + static_cast<int64_t>(prime) * K4 * B,
+                             x1 + static_cast<int64_t>(prime) * K4 * B};
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(smem_addr(&empty[stage]), phase ^ 1);
+        const uint32_t st = base + stage * MM_STAGE;
+        const uint32_t fb = smem_addr(&full[stage]);
+        if (ptid == 0) {
+          mbar_expect_tx(fb, 2 * MM_PLANE);
+          tma_load_w(&wmap, st, fb, kb * MM_BK, m0, prime, 0);
+          tma_load_w(&wmap, st + MM_PLANE, fb, kb * MM_BK, m0, prime, 1);
+        }
+        // element e of a plane's (32 words of k) x (128 lanes) tile: word w of
+        // 16-byte chunk c of lane row b; a warp covers 8 rows x one chunk, so
+        // its shared-memory writes hit 32 distinct banks
+#pragma unroll 2
+        for (int it = 0; it < 32; ++it) {
+          const int e = it * 128 + ptid;
+          const int w = e & 3, bl = (e >> 2) & 7, c = (e >> 5) & 7, bh = e >> 8;
+          const int b = bh * 8 + bl, k4 = kb * (MM_BK / 4) + c * 4 + w;
+          const bool ok = k4 < K4 && n0 + b < B;
+          const int64_t off = ok ? static_cast<int64_t>(k4) * B + n0 + b : 0;
+          const uint32_t dst = b * MM_BK + ((c ^ bl) << 4) + (w << 2);
+          cp_async4(st + 2 * MM_PLANE + dst, X[0] + off, ok);
+          cp_async4(st + 3 * MM_PLANE + dst, X[1] + off, ok);
+        }
+        // this thread's copies count in on the stage's barrier as they land
+        asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(fb)
+                     : "memory");
+        if (++stage == MM_STAGES) { stage = 0; phase ^= 1; }
       }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+  } else {
+    // consumers: warpgroup wg owns W rows 64*wg .. 64*wg + 63 of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    int stage = 0, phase = 0;
+    int acc00[64], accm[64], acc11[64];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int prime = tile / per_prime, rem = tile % per_prime;
+      const int m0 = (rem / tiles_n) * MM_BM, n0 = (rem % tiles_n) * MM_BN;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc00[i] = accm[i] = acc11[i] = 0;
+      int last = -1;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(smem_addr(&full[stage]), phase);
+        // the x tiles were written by the generic proxy (cp.async): order them
+        // before the tensor cores' async-proxy reads
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        const uint32_t st = base + stage * MM_STAGE;
+        const uint32_t a0 = st + wg * 64 * MM_BK, a1 = a0 + MM_PLANE;
+        const uint32_t b0 = st + 2 * MM_PLANE, b1 = b0 + MM_PLANE;
+        fence_acc(acc00);
+        fence_acc(accm);
+        fence_acc(acc11);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < MM_BK / 32; ++ks) {
+          const uint32_t o = ks * 32;
+          wgmma_s8(acc00, desc_sw128(a0 + o), desc_sw128(b0 + o));
+          wgmma_s8(accm, desc_sw128(a0 + o), desc_sw128(b1 + o));
+          wgmma_s8(accm, desc_sw128(a1 + o), desc_sw128(b0 + o));
+          wgmma_s8(acc11, desc_sw128(a1 + o), desc_sw128(b1 + o));
+        }
+        wgmma_commit();
+        fence_acc(acc00);
+        fence_acc(accm);
+        fence_acc(acc11);
+        // the stage before this one has been read: hand it back
+        wgmma_wait<1>();
+        if (last >= 0 && lane == 0) mbar_arrive(smem_addr(&empty[last]));
+        last = stage;
+        if (++stage == MM_STAGES) { stage = 0; phase ^= 1; }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc00);
+      fence_acc(accm);
+      fence_acc(acc11);
+      if (lane == 0) mbar_arrive(smem_addr(&empty[last]));
+
+      // epilogue: s00 + 128*fold(s01+s10) + delta*fold(s11), Barrett to [0, q)
+      const int32_t* row = table + prime * TABLE_ROW;
+      const uint32_t q = row[16], m = row[17];
+      const int d = row[19];
+      int32_t* o = out + static_cast<int64_t>(prime) * kout * B;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + wg * 64 + warp * 16 + g + 8 * h;
+        if (r >= kout) continue;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          int v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            int s11 = acc11[i];  // |.| <= K*64*127 < 2^23
+            s11 = (s11 >> QBITS) * d + (s11 & QMASK);
+            int sm = accm[i];  // |.| <= 2^24
+            sm = (sm >> QBITS) * d + (sm & QMASK);
+            const int raw = acc00[i] + sm * 128 + d * s11;  // |.| < 2^30
+            v[e] = static_cast<int>(
+                barrett(static_cast<uint32_t>(raw) + (q << (30 - QBITS + 1)), q, m));
+          }
+          const int c = n0 + 8 * j + 2 * t;
+          int32_t* dst = o + static_cast<int64_t>(r) * B + c;
+          if (c + 1 < B && (B & 1) == 0) {
+            *reinterpret_cast<int2*>(dst) = make_int2(v[0], v[1]);
+          } else {
+            if (c < B) dst[0] = v[0];
+            if (c + 1 < B) dst[1] = v[1];
+          }
+        }
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -399,20 +542,66 @@ extern "C" int stark_crt_residues_in(const void* x, const void* table,
   return static_cast<int>(cudaGetLastError());
 }
 
-// w0, w1 (p1, kout, K) int8; x0, x1 (p1, ceil(K/4), B) packed digit planes;
-// table (p1, 20) -> out (p1, kout, B) canonical residues.
-extern "C" int stark_crt_matmul_fold(const void* w0, const void* w1,
-                                     const void* x0, const void* x1,
-                                     const void* table, void* out, int p1,
-                                     int kout, int K, int B, void* stream) {
-  if (p1 > 0 && kout > 0 && B > 0) {
-    dim3 grid((B + MM_TN - 1) / MM_TN, (kout + MM_TM - 1) / MM_TM, p1);
-    matmul_fold_kernel<<<grid, MM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(w0), static_cast<const int8_t*>(w1),
-        static_cast<const int32_t*>(x0), static_cast<const int32_t*>(x1),
-        static_cast<const int32_t*>(table), static_cast<int32_t*>(out), kout, K,
-        (K + 3) / 4, B);
+// cuTensorMapEncodeTiled, reached through the runtime's entry-point query
+// (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+// w (2, p1, kout, kp) int8, the two digit planes with rows padded to kp
+// (a multiple of 16) bytes; x0, x1 (p1, ceil(K/4), B) packed digit planes;
+// table (p1, 20) -> out (p1, kout, B) canonical residues.
+extern "C" int stark_crt_matmul_fold(const void* w, const void* x0, const void* x1,
+                                     const void* table, void* out, int p1,
+                                     int kout, int K, int kp, int B, void* stream) {
+  if (p1 <= 0 || kout <= 0 || B <= 0) return static_cast<int>(cudaGetLastError());
+  if (kp % 16 != 0 || kp < K) return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap wmap;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kp), static_cast<cuuint64_t>(kout),
+                              static_cast<cuuint64_t>(p1), 2};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(kp),
+                                 static_cast<cuuint64_t>(kp) * kout,
+                                 static_cast<cuuint64_t>(kp) * kout * p1};
+  const cuuint32_t box[4] = {MM_BK, MM_BM, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(w), dims,
+             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      matmul_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MM_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long tiles = static_cast<long long>(p1) * ((kout + MM_BM - 1) / MM_BM) *
+                          ((B + MM_BN - 1) / MM_BN);
+  const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  matmul_fold_kernel<<<grid, MM_THREADS, MM_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      wmap, static_cast<const int32_t*>(x0), static_cast<const int32_t*>(x1),
+      static_cast<const int32_t*>(table), static_cast<int32_t*>(out), p1, kout,
+      (K + 3) / 4, B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,22 +14,65 @@
 // `butterfly_fused` (every stage with 2l <= block, run back to back in VMEM
 // with XOR-roll partner exchange and period-2l twiddle rows).
 //
-// What bounds them on an H100: device memory. A stage reads and writes the
-// whole array (2 x 64 MiB at n = 2^20) for n/2 Montgomery products.
-// What the design does about it:
-// - butterfly_stage: one thread per (group, k) pair; consecutive threads
-//   take consecutive k, so the u, v, twiddle and output rows are read and
-//   written as contiguous 128-byte warp segments.
-// - butterfly_fused: one CTA holds `block` consecutive elements in shared
-//   memory as 8 packed words each (64 KB at block = 2048, opted in as
-//   dynamic shared memory) and runs all of its small stages there, so the
-//   log2(block) stages cost one read and one write of the array. Words are
-//   stored word-major (s[w * block + i]) so a warp's accesses fall on
-//   distinct banks. Partners are addressed directly: the XOR-roll trick was
-//   the TPU's way around lane shuffles and is not needed here. Twiddles
-//   come from the per-stage tables, concatenated (stage l at columns
-//   l-1 .. 2l-2) and small enough to stay in L2.
+// butterfly_stage: what bounds it on an H100 is device memory, a stage
+// reads and writes the whole array (2 x 64 MiB at n = 2^20) for n/2
+// Montgomery products. One thread per (group, k) pair; consecutive threads
+// take consecutive k, so the u, v, twiddle and output rows are read and
+// written as contiguous 128-byte warp segments.
+//
+// butterfly_fused (replaces stark_tpu/ops/pallas_field.py:518). What bounds
+// it on an H100: the integer instruction stream. Its log2(block) stages move
+// the array once in and once out (0.04 ms at 2^20) but issue 11 x n/2
+// butterflies, most of them with a 256-bit Montgomery product of some 530
+// SASS instructions (`scripts/ntt_kernels_cuda.py` counts one butterfly's
+// SASS and prices it at the SM's issue rate). The design:
+// - A thread keeps 4 elements in registers and runs two radix-2 stages on
+//   them between exchanges (rounds of stages 2^s0, 2^(s0+1); at block 2048
+//   five pairs from l = 1 up and l = 1024 alone): the same stages in the
+//   same order on the same values, so exact for any tw_cat. Between rounds
+//   the elements pass through one of two word-major exchange buffers (one
+//   __syncthreads a round) whose XOR-swizzled columns make every access free
+//   of bank conflicts. The round of stride 1024 reads (DIF) or writes (DIT)
+//   the limb planes directly; the other side of the block goes through a
+//   coalesced copy. (Reading and writing the round of l = 1, 2 straight from
+//   and to the planes as 16-byte vectors, with the next block prefetched
+//   into L2, was slower in a trial build on the card.)
+// - A cluster of two CTAs shares each block, 256 threads each, two CTAs an
+//   SM: each holds half of the block (two 32 KB exchange buffers) and the
+//   stages below 1024 (32 KB of twiddles, staged once packed as 8-word
+//   elements, two 16-byte loads each), runs those stages on its half alone,
+//   and the stage of stride 1024 pairs the halves through distributed
+//   shared memory (DIF's first round writes into both CTAs' buffers, DIT's
+//   last reads both, behind cluster barriers; its twiddles come from L2).
+//   The clusters persist and walk the blocks. So the pass fills the card at
+//   2^17 (64 blocks on 128 SMs, not 64) and at 2^20 two CTAs an SM overlap
+//   one another's exchanges and barriers with their products, where one
+//   CTA of 512 threads a whole block left them bare (4-6% faster at 2^20
+//   than that design in a trial build on one H100 80GB HBM3 at 700 W). 4 elements a thread (~110
+//   registers) beat 2 (1024 threads held to 64 registers) and 8 (256
+//   threads, ~200 registers) in trial builds on the card. The next block
+//   is not loaded while one is computed: its limb planes take twice the
+//   room of its words (16-bit limbs in int32), more than shared memory has
+//   beside the buffers and twiddles; the other CTA's warps fill that wait.
+// - Lazy reduction (Harvey): DIT keeps values below 4p, DIF below 2p (the
+//   pass takes fields with 5p < 2^256, BN254's among them; the wrapper
+//   refuses others, BLS12-381's among them); the products skip their final
+//   subtraction and the block is reduced on its way out.
+// - Products and sums as PTX carry chains (mont_mul_lazy). ptxas turns a
+//   multiply-add with carry into an IMAD or IMAD.HI and an IADD3.X, the
+//   carry in a predicate, and the SM issues those on its two integer pipes
+//   side by side: more SASS instructions than the earlier C product with
+//   64-bit sums (IMAD.WIDE, FIOS order), yet faster in a trial build.
+// - A twiddle equal to f.one (tested by value) skips its product: the
+//   product by R mod p is the operand itself. The round of stages l = 1, 2
+//   gives every thread the same pattern (a thread's two butterflies of l = 2
+//   take k = 0 and k = 1), so all of l = 1 and half of l = 2 skip whole
+//   warps.
+#include <cooperative_groups.h>
+
 #include "field.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -74,55 +117,440 @@ __global__ void butterfly_stage_kernel(const int32_t* __restrict__ a,
   stark::store_elem(out, n, i1, y1);
 }
 
-template <bool DIT>
-__global__ void butterfly_fused_kernel(const int32_t* __restrict__ a,
-                                       const int32_t* __restrict__ tw_cat,
-                                       int32_t* __restrict__ out, int64_t n,
-                                       int block, stark::Field f) {
-  extern __shared__ uint32_t s[];  // [NW][block], word-major
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * block;
-  const int64_t ntw = block - 1;
+constexpr int FB_MAX_LOG = 11;  // blocks up to 2048 elements
+constexpr int FB_EPT = 4;       // elements a thread: two stages a round
+constexpr int FB_THREADS = (1 << FB_MAX_LOG) / FB_EPT;
 
-  for (int i = threadIdx.x; i < block; i += blockDim.x) {
-    uint32_t x[stark::NW];
-    stark::load_elem(a, n, base + i, x);
+// Column of element i of the exchange buffer: bits 5 and 6 of i XORed into
+// its bank bits, so that every round's reads and writes of a word plane, and
+// the coalesced copies, are free of bank conflicts (a warp's 32 lanes vary
+// i's bits 2-6 in the round of stride 1, bits 0-1 and 4-6 at stride 4,
+// bits 0-3 and 6 at stride 16, bits 0-4 beyond).
+__device__ __forceinline__ int fb_col(int i) {
+  return i ^ (((i >> 5) & 1) * 5) ^ (((i >> 6) & 1) * 26);
+}
+
+__device__ __forceinline__ bool is_one(const stark::Field& f, const uint32_t w[stark::NW]) {
+  bool eq = true;
 #pragma unroll
-    for (int w = 0; w < stark::NW; ++w) s[w * block + i] = x[w];
+  for (int i = 0; i < stark::NW; ++i) eq &= w[i] == f.one[i];
+  return eq;
+}
+
+// Carry chains in PTX, one asm statement a chain so that the carry flag
+// never crosses statements. ptxas lowers a multiply-add with carry to an
+// IMAD (or IMAD.HI) and an IADD3.X whose carry rides in a predicate.
+
+// d = a - b over 8 words; returns 0xffffffff if it borrowed (a < b), else 0
+__device__ __forceinline__ uint32_t sub_words(const uint32_t (&a)[stark::NW],
+                                              const uint32_t (&b)[stark::NW],
+                                              uint32_t (&d)[stark::NW]) {
+  uint32_t s[stark::NW], borrow;
+  asm("sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, 0, 0;"
+      : "=r"(s[0]), "=r"(s[1]), "=r"(s[2]), "=r"(s[3]), "=r"(s[4]), "=r"(s[5]),
+        "=r"(s[6]), "=r"(s[7]), "=r"(borrow)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]),
+        "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+        "r"(b[6]), "r"(b[7]));
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i) d[i] = s[i];
+  return borrow;
+}
+
+// r = a + b over 8 words, for sums that stay below 2^256
+__device__ __forceinline__ void add_words(const uint32_t (&a)[stark::NW],
+                                          const uint32_t (&b)[stark::NW],
+                                          uint32_t (&r)[stark::NW]) {
+  uint32_t s[stark::NW];
+  asm("add.cc.u32 %0, %8, %16;\n\t"
+      "addc.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32 %7, %15, %23;"
+      : "=r"(s[0]), "=r"(s[1]), "=r"(s[2]), "=r"(s[3]), "=r"(s[4]), "=r"(s[5]),
+        "=r"(s[6]), "=r"(s[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]),
+        "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+        "r"(b[6]), "r"(b[7]));
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i) r[i] = s[i];
+}
+
+// a - m where a >= m, else a (a < 2m, m < 2^256)
+__device__ __forceinline__ void sub_if_ge(uint32_t (&a)[stark::NW],
+                                          const uint32_t (&m)[stark::NW]) {
+  uint32_t d[stark::NW];
+  const uint32_t borrow = sub_words(a, m, d);
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i) a[i] = borrow ? a[i] : d[i];
+}
+
+// r = a + (m - b) for b <= m
+__device__ __forceinline__ void add_diff(const uint32_t (&a)[stark::NW],
+                                         const uint32_t (&m)[stark::NW],
+                                         const uint32_t (&b)[stark::NW],
+                                         uint32_t (&r)[stark::NW]) {
+  uint32_t d[stark::NW];
+  sub_words(m, b, d);
+  add_words(a, d, r);
+}
+
+// t[0..7] += lo(a[j] * b) at word j, the carry into t[8]
+__device__ __forceinline__ void mad_lo_row(uint32_t (&t)[stark::NW + 1],
+                                           const uint32_t (&a)[stark::NW], uint32_t b) {
+  asm("mad.lo.cc.u32 %0, %9, %17, %0;\n\t"
+      "madc.lo.cc.u32 %1, %10, %17, %1;\n\t"
+      "madc.lo.cc.u32 %2, %11, %17, %2;\n\t"
+      "madc.lo.cc.u32 %3, %12, %17, %3;\n\t"
+      "madc.lo.cc.u32 %4, %13, %17, %4;\n\t"
+      "madc.lo.cc.u32 %5, %14, %17, %5;\n\t"
+      "madc.lo.cc.u32 %6, %15, %17, %6;\n\t"
+      "madc.lo.cc.u32 %7, %16, %17, %7;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]),
+        "+r"(t[6]), "+r"(t[7]), "+r"(t[8])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]),
+        "r"(a[7]), "r"(b));
+}
+
+// t[1..8] += hi(a[j] * b) at word j + 1; the caller's bound keeps the sum
+// below 2^288, so no carry leaves t[8]
+__device__ __forceinline__ void mad_hi_row(uint32_t (&t)[stark::NW + 1],
+                                           const uint32_t (&a)[stark::NW], uint32_t b) {
+  asm("mad.hi.cc.u32 %0, %8, %16, %0;\n\t"
+      "madc.hi.cc.u32 %1, %9, %16, %1;\n\t"
+      "madc.hi.cc.u32 %2, %10, %16, %2;\n\t"
+      "madc.hi.cc.u32 %3, %11, %16, %3;\n\t"
+      "madc.hi.cc.u32 %4, %12, %16, %4;\n\t"
+      "madc.hi.cc.u32 %5, %13, %16, %5;\n\t"
+      "madc.hi.cc.u32 %6, %14, %16, %6;\n\t"
+      "madc.hi.u32 %7, %15, %16, %7;"
+      : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+        "+r"(t[7]), "+r"(t[8])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]),
+        "r"(a[7]), "r"(b));
+}
+
+// The Montgomery product a*b*2^-256 mod p (field.cuh's R) without its final
+// subtraction, for a < 4p, b < p and 5p < 2^256. CIOS, a row a word of b:
+// t += a*b_i, m = t_0*n', t += m*p, t >>= 32, each product as two carry
+// chains (low halves, then high halves one word up). The running t stays
+// below a + p, so a row's sums stay below (a + p)*2^32 < 2^288 (nine words),
+// and the result is below a*b/2^256 + p < 2p.
+__device__ __forceinline__ void mont_mul_lazy(const stark::Field& f,
+                                              const uint32_t (&a)[stark::NW],
+                                              const uint32_t (&b)[stark::NW],
+                                              uint32_t (&r)[stark::NW]) {
+  uint32_t t[stark::NW + 1];
+#pragma unroll
+  for (int i = 0; i <= stark::NW; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i) {
+    mad_lo_row(t, a, b[i]);
+    mad_hi_row(t, a, b[i]);
+    const uint32_t m = t[0] * f.np;
+    mad_lo_row(t, f.p, m);  // t[0] becomes 0
+    mad_hi_row(t, f.p, m);
+#pragma unroll
+    for (int j = 0; j < stark::NW; ++j) t[j] = t[j + 1];
+    t[stark::NW] = 0;
   }
-  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i) r[i] = t[i];
+}
 
-  const int half = block / 2;
-  for (int st = 0; (1 << st) < block; ++st) {
-    // DIT runs l = 1, 2, ..., block/2; DIF runs the same stages reversed
-    const int l = DIT ? (1 << st) : (half >> st);
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
-      const int k = j & (l - 1);
-      const int i0 = (j - k) * 2 + k;
-      const int i1 = i0 + l;
-      uint32_t u[stark::NW], v[stark::NW], w[stark::NW];
-      uint32_t y0[stark::NW], y1[stark::NW];
+// One butterfly of the fused pass, in place; a product by Montgomery one
+// (a twiddle equal to f.one, tested by value) is its operand itself.
+template <bool DIT>
+__device__ __forceinline__ void fused_butterfly(const stark::Field& f,
+                                                const uint32_t (&p2)[stark::NW],
+                                                uint32_t (&u)[stark::NW],
+                                                uint32_t (&v)[stark::NW],
+                                                const uint32_t (&w)[stark::NW]) {
+  // Harvey's lazy butterflies: DIT keeps values in [0, 4p), DIF in [0, 2p)
+  // (4p < 2^256); the last stage's outputs are reduced when they are stored
+  uint32_t t[stark::NW];
+  if (DIT) {
+    sub_if_ge(u, p2);  // u < 2p
+    if (is_one(f, w)) {
+      stark::set_elem(t, v);
+      sub_if_ge(t, p2);
+    } else {
+      mont_mul_lazy(f, v, w, t);  // v < 4p, w < p: t < 2p
+    }
+    add_diff(u, p2, t, v);  // u + 2p - t < 4p
+    add_words(u, t, u);     // u + t < 4p
+  } else {
+    add_diff(u, p2, v, t);  // u + 2p - v < 4p
+    add_words(u, v, u);
+    sub_if_ge(u, p2);  // u + v < 2p
+    if (is_one(f, w)) {
+      stark::set_elem(v, t);
+      sub_if_ge(v, p2);
+    } else {
+      mont_mul_lazy(f, t, w, v);  // t < 4p: < 2p
+    }
+  }
+}
+
+// The canonical value of an element the fused pass leaves (< 4p after DIT,
+// < 2p after DIF).
+template <bool DIT>
+__device__ __forceinline__ void fused_canonical(const stark::Field& f,
+                                                const uint32_t (&p2)[stark::NW],
+                                                uint32_t (&x)[stark::NW]) {
+  if (DIT) sub_if_ge(x, p2);
+  sub_if_ge(x, f.p);
+}
+
+// One round: stages s0 .. s0 + R - 1 (l = 2^s) on elements held in
+// registers. A thread owns Q = FB_EPT / 2^R sets of 2^R elements, set p at
+// i = hi * 2^(s0+R) + j * 2^s0 + lo (lo = p mod 2^s0, hi = p / 2^s0,
+// j < 2^R): every butterfly of those stages pairs two elements of one set.
+// i counts the h elements the CTA holds, which start at `lbase` in the
+// planes. The round reads its elements from the exchange buffer `src` (or,
+// when `from_global`, straight from the limb planes) and writes them to
+// `dst` (or to the limb planes: only the round of the largest stride does,
+// so a warp's accesses there are whole 128-byte rows).
+template <bool DIT, int R>
+__device__ __forceinline__ void fused_round(
+    const stark::Field& f, const uint32_t (&p2)[stark::NW], uint32_t (&x)[FB_EPT][stark::NW],
+    const uint4* __restrict__ tws,
+    const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
+    const int32_t* __restrict__ a, int32_t* __restrict__ out, int64_t n, int64_t lbase,
+    int h, int s0, bool from_global, bool to_global) {
+  constexpr int E = 1 << R, Q = FB_EPT / E;
+  const int L = 1 << s0, pairs = h >> R, nt = blockDim.x;
+  int idx[Q][E];
 #pragma unroll
-      for (int q = 0; q < stark::NW; ++q) {
-        u[q] = s[q * block + i0];
-        v[q] = s[q * block + i1];
-      }
-      stark::load_elem(tw_cat, ntw, l - 1 + k, w);
-      butterfly<DIT>(f, u, v, w, y0, y1);
+  for (int q = 0; q < Q; ++q) {
+    const int p = threadIdx.x + nt * q;
+    const int lo = p & (L - 1), hi = p >> s0;
 #pragma unroll
-      for (int q = 0; q < stark::NW; ++q) {
-        s[q * block + i0] = y0[q];
-        s[q * block + i1] = y1[q];
+    for (int j = 0; j < E; ++j) idx[q][j] = (hi << (s0 + R)) + j * L + lo;
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    if (threadIdx.x + nt * q >= pairs) continue;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      if (from_global) {
+        stark::load_elem(a, n, lbase + idx[q][j], x[q * E + j]);
+      } else {
+        const int c = fb_col(idx[q][j]);
+#pragma unroll
+        for (int w = 0; w < stark::NW; ++w) x[q * E + j][w] = src[w * h + c];
       }
     }
-    __syncthreads();
   }
-
-  for (int i = threadIdx.x; i < block; i += blockDim.x) {
-    uint32_t x[stark::NW];
 #pragma unroll
-    for (int w = 0; w < stark::NW; ++w) x[w] = s[w * block + i];
-    stark::store_elem(out, n, base + i, x);
+  for (int st = 0; st < R; ++st) {
+    const int r = DIT ? st : R - 1 - st;  // DIT: l ascending; DIF: descending
+    const int l = L << r;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int p = threadIdx.x + nt * q;
+      if (p >= pairs) continue;
+      const int lo = p & (L - 1);
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        if (j & (1 << r)) continue;
+        uint32_t(&u)[stark::NW] = x[q * E + j];
+        uint32_t(&v)[stark::NW] = x[q * E + j + (1 << r)];
+        const int k = (j & ((1 << r) - 1)) * L + lo;
+        const uint4 t0 = tws[2 * (l - 1 + k)], t1 = tws[2 * (l - 1 + k) + 1];
+        const uint32_t w[stark::NW] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+        fused_butterfly<DIT>(f, p2, u, v, w);
+      }
+    }
   }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    if (threadIdx.x + nt * q >= pairs) continue;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      if (to_global) {
+        fused_canonical<DIT>(f, p2, x[q * E + j]);
+        stark::store_elem(out, n, lbase + idx[q][j], x[q * E + j]);
+      } else {
+        const int c = fb_col(idx[q][j]);
+#pragma unroll
+        for (int w = 0; w < stark::NW; ++w) dst[w * h + c] = x[q * E + j][w];
+      }
+    }
+  }
+}
+
+// The stage of stride h when a pair of CTAs shares a block of 2h: element
+// i < h lives in rank 0's exchange buffer, i + h in rank 1's, both at
+// column fb_col(i), and CTA `rank` takes the butterflies k = rank * h/2 + p.
+// DIF runs it first, from the planes into both ranks' buffers `bufs`
+// (distributed shared memory); DIT runs it last, from `bufs` into the
+// planes. Its twiddles are read from tw_cat (in L2), not staged.
+template <bool DIT>
+__device__ __forceinline__ void cross_round(
+    const stark::Field& f, const uint32_t (&p2)[stark::NW], uint32_t (&x)[FB_EPT][stark::NW],
+    const int32_t* __restrict__ tw_cat, uint32_t* const (&bufs)[2],
+    const int32_t* __restrict__ a, int32_t* __restrict__ out, int64_t n, int64_t base, int h,
+    int rank) {
+  constexpr int Q = FB_EPT / 2;
+  const int nt = blockDim.x, pairs = h >> 1;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int p = threadIdx.x + nt * q;
+    if (p >= pairs) continue;
+    const int k = rank * pairs + p, c = fb_col(k);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (DIT) {
+#pragma unroll
+        for (int w = 0; w < stark::NW; ++w) x[2 * q + j][w] = bufs[j][w * h + c];
+      } else {
+        stark::load_elem(a, n, base + j * h + k, x[2 * q + j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int p = threadIdx.x + nt * q;
+    if (p >= pairs) continue;
+    uint32_t w[stark::NW];
+    stark::load_elem(tw_cat, 2 * h - 1, h - 1 + rank * pairs + p, w);
+    fused_butterfly<DIT>(f, p2, x[2 * q], x[2 * q + 1], w);
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int p = threadIdx.x + nt * q;
+    if (p >= pairs) continue;
+    const int k = rank * pairs + p, c = fb_col(k);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (DIT) {
+        fused_canonical<DIT>(f, p2, x[2 * q + j]);
+        stark::store_elem(out, n, base + j * h + k, x[2 * q + j]);
+      } else {
+#pragma unroll
+        for (int w = 0; w < stark::NW; ++w) bufs[j][w * h + c] = x[2 * q + j][w];
+      }
+    }
+  }
+}
+
+// A barrier of the block's CTAs: the cluster's when a pair shares a block,
+// which also orders their distributed shared memory accesses.
+__device__ __forceinline__ void block_sync(int cs) {
+  if (cs > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// Persistent: each CTA stages the twiddles of its stages once, then walks
+// blocks. A block belongs to a cluster of two CTAs (cs = 2), each holding
+// half of it, h = block / cs elements, or, for a block of 2, to one CTA
+// (cs = 1); clusters walk blocks c, c + clusters, ... Two exchange buffers,
+// so one __syncthreads a round suffices. DIT's first round pairs neighbours
+// and DIF's last writes them, so that side of the block passes through
+// shared memory in a separate coalesced copy (element i to thread i mod
+// threads). (For a block of 2 the one round is both first and last, and DIF
+// reads the planes there with stride 1: correct, merely uncoalesced.)
+template <bool DIT>
+__global__ void __launch_bounds__(FB_THREADS, 1)
+butterfly_fused_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ tw_cat,
+                       int32_t* __restrict__ out, int64_t n, int log_block, int cs,
+                       stark::Field f) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int block = 1 << log_block, h = block / cs, ntw = h - 1, nt = blockDim.x;
+  const int rank = cs > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  uint32_t p2[stark::NW];  // 2p, the lazy butterflies' bound
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i)
+    p2[i] = (f.p[i] << 1) | (i > 0 ? f.p[i - 1] >> 31 : 0u);
+  uint32_t* const xs = sm;  // two exchange buffers of [NW][h] words
+  uint4* tws = reinterpret_cast<uint4*>(sm + 2 * stark::NW * h);  // 2 x 16 bytes each
+  for (int k = threadIdx.x; k < ntw; k += nt) {  // the stages below stride h
+    uint32_t w[stark::NW];
+    stark::load_elem(tw_cat, block - 1, k, w);
+    tws[2 * k] = make_uint4(w[0], w[1], w[2], w[3]);
+    tws[2 * k + 1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+  // rounds in l-ascending order: of two stages each on the CTA's own h
+  // elements, the last a single stage when log2(h) is odd, then, for a
+  // pair, the stage of stride h (DIT runs them in this order, DIF in
+  // reverse)
+  const int log_h = log_block - (cs > 1), nl = (log_h + 1) / 2, nr = nl + (cs > 1);
+  const int64_t nblocks = n >> log_block;
+  for (int64_t blk = blockIdx.x / cs; blk < nblocks; blk += gridDim.x / cs) {
+    const int64_t base = blk << log_block, lbase = base + static_cast<int64_t>(rank) * h;
+    uint32_t x[FB_EPT][stark::NW];
+    // the twiddles are staged; the last block's buffers are free, the
+    // partner's reads and writes of them included
+    block_sync(cs);
+    int cur = 0;
+    if (DIT) {
+      for (int i = threadIdx.x; i < h; i += nt) {
+        uint32_t w[stark::NW];
+        stark::load_elem(a, n, lbase + i, w);
+        const int c = fb_col(i);
+#pragma unroll
+        for (int q = 0; q < stark::NW; ++q) xs[q * h + c] = w[q];
+      }
+      __syncthreads();
+    }
+    for (int rr = 0; rr < nr; ++rr) {
+      const int ri = DIT ? rr : nr - 1 - rr;  // index in l-ascending order
+      if (ri == nl) {  // the pair's stage of stride h
+        cg::cluster_group cluster = cg::this_cluster();
+        const int buf = DIT ? cur : cur ^ 1;
+        uint32_t* const bufs[2] = {
+            cluster.map_shared_rank(xs + buf * stark::NW * h, 0),
+            cluster.map_shared_rank(xs + buf * stark::NW * h, 1)};
+        if (DIT) block_sync(cs);  // the partner's half is in its buffer
+        cross_round<DIT>(f, p2, x, tw_cat, bufs, a, out, n, base, h, rank);
+        if (!DIT) {
+          block_sync(cs);
+          cur ^= 1;
+        }
+        continue;
+      }
+      const int R = ri == nl - 1 && (log_h & 1) ? 1 : 2, s0 = 2 * ri;
+      const bool from_global = !DIT && rr == 0, to_global = DIT && rr == nr - 1;
+      const uint32_t* src = xs + cur * stark::NW * h;
+      uint32_t* dst = xs + (cur ^ 1) * stark::NW * h;
+      if (R == 2)
+        fused_round<DIT, 2>(f, p2, x, tws, src, dst, a, out, n, lbase, h, s0, from_global,
+                            to_global);
+      else
+        fused_round<DIT, 1>(f, p2, x, tws, src, dst, a, out, n, lbase, h, s0, from_global,
+                            to_global);
+      if (!to_global) {
+        __syncthreads();
+        cur ^= 1;
+      }
+    }
+    if (!DIT) {
+      for (int i = threadIdx.x; i < h; i += nt) {
+        uint32_t w[stark::NW];
+        const int c = fb_col(i);
+#pragma unroll
+        for (int q = 0; q < stark::NW; ++q) w[q] = xs[cur * stark::NW * h + q * h + c];
+        fused_canonical<DIT>(f, p2, w);
+        stark::store_elem(out, n, lbase + i, w);
+      }
+    }
+  }
+  block_sync(cs);  // no CTA leaves while its partner may read its buffers
 }
 
 }  // namespace
@@ -152,28 +580,42 @@ extern "C" int stark_butterfly_fused(const void* a, const void* tw_cat,
                                      void* out, long long n, int block, int dit,
                                      const uint32_t* p_words, uint32_t np,
                                      void* stream) {
-  const int threads = 256;
-  const size_t smem = static_cast<size_t>(block) * stark::NW * sizeof(uint32_t);
+  int log_block = 0;
+  while ((1 << log_block) < block) ++log_block;
+  // the lazy butterflies and products need 5p < 2^256 (the wrapper says so)
+  if (block < 2 || (1 << log_block) != block || log_block > FB_MAX_LOG ||
+      p_words[stark::NW - 1] >= 0x33333333u)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = n / block;
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  // A cluster of two CTAs shares each block, each holding half of it, two
+  // CTAs an SM (one for a block of 2 elements)
+  const int cs = block >= 4 ? 2 : 1, h = block / cs;
+  const size_t smem = (2 * static_cast<size_t>(h) * stark::NW + (h - 1) * 8) * sizeof(uint32_t);
+  auto kernel = dit ? butterfly_fused_kernel<true> : butterfly_fused_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = cs;
+  cluster.val.clusterDim.y = cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3(static_cast<unsigned>(cs * blocks));
+  cfg.blockDim = dim3(FB_THREADS / cs);
+  cfg.dynamicSmemBytes = smem;
+  int clusters = 0;  // clusters the card holds at once: the persistent grid
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters > 0 && clusters < blocks) cfg.gridDim = dim3(static_cast<unsigned>(cs * clusters));
   const stark::Field f = stark::make_field(p_words, np);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* ap = static_cast<const int32_t*>(a);
   const int32_t* tp = static_cast<const int32_t*>(tw_cat);
   int32_t* op = static_cast<int32_t*>(out);
-  const unsigned blocks = static_cast<unsigned>(n / block);
-  if (blocks == 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err;
-  if (dit) {
-    err = cudaFuncSetAttribute(butterfly_fused_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    butterfly_fused_kernel<true><<<blocks, threads, smem, st>>>(ap, tp, op, n, block, f);
-  } else {
-    err = cudaFuncSetAttribute(butterfly_fused_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    butterfly_fused_kernel<false><<<blocks, threads, smem, st>>>(ap, tp, op, n, block, f);
-  }
+  err = cudaLaunchKernelEx(&cfg, kernel, ap, tp, op, static_cast<int64_t>(n), log_block, cs, f);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

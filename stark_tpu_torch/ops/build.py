@@ -77,8 +77,8 @@ _SIGNATURES = {
     ],
     "stark_crt_residues_in": [_vp, _vp, _vp, _vp, _vp, ctypes.c_int, _ll, _ll, _vp],
     "stark_crt_matmul_fold": [
-        _vp, _vp, _vp, _vp, _vp, _vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, _vp,
+        _vp, _vp, _vp, _vp, _vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _vp,
     ],
     "stark_crt_reconstruct": [
         _vp, _vp, _vp, _vp, ctypes.c_int, _ll, ctypes.c_uint32, ctypes.c_uint32,

@@ -452,25 +452,41 @@ def matrix_digits_np(basis: CrtBasis, w_ints, mont_fix: bool = True):
     return c0.astype(np.int8).reshape(sh), c1.astype(np.int8).reshape(sh)
 
 
+# The digit planes' rows are padded with zero columns to a multiple of this
+# many bytes: `matmul_fold`'s kernel loads them with TMA, which needs row
+# strides of 16 bytes. Zeros change no sum.
+K_ALIGN = 16
+
+
 class CrtMatmulPlan:
     """Digit planes of one constant matrix W (mod p) on a device. With
     mont_fix, W is pre-scaled by R so reconstruct's R^-1 cancels and the
-    call computes exactly (W @ x) mod p, Montgomery-domain preserving."""
+    call computes exactly (W @ x) mod p, Montgomery-domain preserving.
+
+    `W` holds both planes as one (2, P+1, Kout, kp) int8 tensor whose rows
+    are padded with zeros to kp = K rounded up to `K_ALIGN`; `W0` and `W1`
+    are its (P+1, Kout, K) views, the JAX package's planes."""
 
     def __init__(self, basis: CrtBasis, w_ints, device, mont_fix: bool = True):
         w0, w1 = matrix_digits_np(basis, w_ints, mont_fix)
-        self.W0 = torch.from_numpy(w0).to(device)
-        self.W1 = torch.from_numpy(w1).to(device)
-        self.kout, self.k = w0.shape[1], w0.shape[2]
+        self._set(w0, w1, device)
 
     @classmethod
     def from_digits(cls, w0: np.ndarray, w1: np.ndarray, device) -> "CrtMatmulPlan":
         """A plan from its two (P+1, Kout, K) int8 digit planes."""
         plan = object.__new__(cls)
-        plan.W0 = torch.from_numpy(np.ascontiguousarray(w0, np.int8)).to(device)
-        plan.W1 = torch.from_numpy(np.ascontiguousarray(w1, np.int8)).to(device)
-        plan.kout, plan.k = w0.shape[1], w0.shape[2]
+        plan._set(w0, w1, device)
         return plan
+
+    def _set(self, w0: np.ndarray, w1: np.ndarray, device) -> None:
+        p1, self.kout, self.k = w0.shape
+        self.kp = -(-self.k // K_ALIGN) * K_ALIGN
+        w = np.zeros((2, p1, self.kout, self.kp), np.int8)
+        w[0, ..., : self.k] = w0
+        w[1, ..., : self.k] = w1
+        self.W = torch.from_numpy(w).to(device)
+        self.W0 = self.W[0, ..., : self.k]
+        self.W1 = self.W[1, ..., : self.k]
 
 
 def _bdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

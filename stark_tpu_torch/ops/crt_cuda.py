@@ -16,8 +16,11 @@ as well as (1024, 1024).
 
 The digit planes are an interface inside the port: (P+1, ceil(K/4), B) int32
 words, the digits of contraction rows 4w .. 4w+3 in the bytes of word w
-(`crt.pack_k4`), so that `residues_in` writes whole words and `matmul_fold`
-reads its tensor-core operands without a transpose. `crt.unpack_k4` gives
+(`crt.pack_k4`), so that `residues_in` writes whole words and
+`matmul_fold`'s kernel moves four contraction steps with each 4-byte copy
+into its K-major tensor-core tiles. The plan's W planes are one (2, P+1,
+kout, kp) tensor, rows padded with zeros to 16 bytes for the kernel's TMA
+loads (`crt.K_ALIGN`). `crt.unpack_k4` gives
 the JAX package's (P+1, K, B) planes back as integers.
 """
 
@@ -157,16 +160,15 @@ def matmul_fold(basis: crt.CrtBasis, plan: crt.CrtMatmulPlan, x0: torch.Tensor,
     k4 = -(-K // 4)
     for x in (x0, x1):
         _check(x, torch.int32, (p1, k4, B), "digit planes")
-    for w in (plan.W0, plan.W1):
-        _check(w, torch.int8, (p1, kout, K), "the plan's digit planes")
+    _check(plan.W, torch.int8, (2, p1, kout, plan.kp), "the plan's digit planes")
     if x0.device.type == "cpu":
         return matmul_fold_plain(basis, plan, x0, x1)
-    _, _, stream = _stream(basis, x0, x1, plan.W0, plan.W1)
+    _, _, stream = _stream(basis, x0, x1, plan.W)
     out = torch.empty((p1, kout, B), dtype=torch.int32, device=x0.device)
     rc = build.load().stark_crt_matmul_fold(
-        plan.W0.data_ptr(), plan.W1.data_ptr(), x0.data_ptr(), x1.data_ptr(),
+        plan.W.data_ptr(), x0.data_ptr(), x1.data_ptr(),
         basis.on(x0.device)["kernel_table"].data_ptr(), out.data_ptr(),
-        p1, kout, K, B, stream,
+        p1, kout, K, plan.kp, B, stream,
     )
     build.check(rc, "matmul_fold")
     matmul_fold.launches += 1

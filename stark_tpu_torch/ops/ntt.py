@@ -24,8 +24,10 @@ from stark_tpu_torch.ops import build
 from stark_tpu_torch.ops import field_cuda as fc
 from stark_tpu_torch.ops import modmath as mm
 
-# Elements per CTA in the fused pass: 2048 x 8 words x 4 bytes = 64 KB of
-# dynamic shared memory (the TPU kernel's block is 2 * TILE = 2048 too).
+# Elements a fused pass keeps together: the TPU kernel's block, 2 * TILE =
+# 2048, is also the largest the CUDA kernel takes (a pair of CTAs shares a
+# block, each with 64 KB of exchange buffers and 32 KB of twiddles, two CTAs
+# an SM).
 FUSED_BLOCK = 2048
 
 _KINDS = ("dif", "dit")
@@ -103,7 +105,10 @@ butterfly_stage.launches = 0
 
 
 def butterfly_fused(spec: FieldSpec, a, tw_cat, block: int, kind: str):
-    """The fused run of small stages (see `butterfly_fused_plain`)."""
+    """The fused run of small stages (see `butterfly_fused_plain`). On a
+    CUDA tensor block is at most `FUSED_BLOCK` and the field must have
+    5p < 2^256 (the kernel's lazy butterflies keep values below 4p):
+    BN254's scalar field does, BLS12-381's does not and is refused."""
     _check_kind(kind)
     fc.check_planes(spec, a, tw_cat)
     n = a.shape[1]
@@ -114,6 +119,11 @@ def butterfly_fused(spec: FieldSpec, a, tw_cat, block: int, kind: str):
         )
     if a.device.type == "cpu":
         return butterfly_fused_plain(spec, a, tw_cat, block, kind)
+    if 5 * spec.p >= 1 << 256:
+        raise ValueError(
+            f"butterfly_fused runs on the card only for fields with 5p < 2^256, "
+            f"not {spec.name}"
+        )
     words, np32, stream = fc.cuda_args(spec, a)
     out = torch.empty_like(a)
     rc = build.load().stark_butterfly_fused(
