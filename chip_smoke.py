@@ -26,7 +26,13 @@ non-zero and no phase's error is swallowed:
    products by a twiddle equal to Montgomery one, which the kernel skips.
    The three kernels of the CRT LDE engine run on that engine's own tables
    for this size (their host build, or their load from the disk cache, is
-   timed), at the four products of one LDE and at small ragged shapes;
+   timed), at the four products of one LDE and at small ragged shapes.
+   `scan_prod` runs at the levels of `modmath.scan_levels` for both sizes
+   and at two fixed shapes, (16, 64, 2^11) and (16, 64, 2^14), with the
+   team (`field_cuda.scan_team`) of each case. Then, in a record of its own
+   (`prefix_prod`), `prefix_prod` forward and reversed and `multi_inv` at
+   2^17, 2^20 and at lengths 80, 96 and 160: each equal (`torch.equal`) to
+   the same function on CPU tensors, with its device time and launches;
 4. goldens: the `compute` and `poseidon3_test` proofs, on both of FRI's fold
    routes and on the CRT LDE engine (verified on that engine too), must be
    byte-identical to the committed goldens and the `ragged_mix(120)` proof
@@ -96,8 +102,9 @@ the reduction.
 
 `mpow_scalar` and `scan_prod` walk chains of dependent products on few
 threads, which that bound does not see. Beside it, and not as a bound, they
-get `chain_ms`: the chain's length times the critical path of one CIOS
-product under a stated model, over the card's highest SM clock as
+get `chain_ms`: the chain's length (for `scan_prod` one thread's, a team
+sharing each column: `modmath.scan_chain`) times the critical path of one
+CIOS product under a stated model, over the card's highest SM clock as
 `nvidia-smi --query-gpu=clocks.max.sm` gives it. The model: each of the 8
 rounds hands its lowest word to the next after 4 dependent multiply-adds
 (product word 0, the reduction factor, reduction words 0 and 1), the last
@@ -388,17 +395,23 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
          "(16,8) e=p-2": ((with_edges(spec, rand(8)),), 2 * 64 * 8, 8 * chain * MM, chain)},
         reps=(10, 0),
     )
-    # the Lagrange fold inverts all N denominators of round 0; the accumulator
-    # scans `steps`
+    # the Lagrange fold inverts all N denominators of round 0, the accumulator
+    # scans `steps`: the plan's levels of both, then two fixed shapes (the
+    # first plan's levels at these sizes) that stay comparable across plans
+    scan_shapes = {f"n={n} level (16,{B},{C})": (B, C)
+                   for n in (N, steps) for (B, C) in mm.scan_levels(n)}
+    scan_shapes.update({f"fixed (16,64,{C})": (64, C) for C in (N // 64, steps // 64)})
     out["scan_prod"] = compare(
         "scan_prod",
         lambda x: fc.scan_prod(spec, x),
         lambda x: fc.scan_prod_plain(spec, x),
-        {f"n={n} level (16,{B},{C})": ((with_edges(spec, rand(B * C).reshape(16, B, C)),),
-                                       2 * 64 * B * C, B * C * MM, B)
-         for n in (N, steps) for (B, C) in mm.scan_levels(n)},
+        {label: ((with_edges(spec, rand(B * C).reshape(16, B, C)),),
+                 2 * 64 * B * C, B * C * MM, mm.scan_chain(B, C))
+         for label, (B, C) in scan_shapes.items()},
         reps=(10, 0),
     )
+    for label, (B, C) in scan_shapes.items():
+        out["scan_prod"]["cases"][label]["team"] = fc.scan_team(B, C)
 
     r3, k11 = rand(3), rand(11)
     cols = [rand(N) for _ in range(7)] + [x_big, y_big]
@@ -518,6 +531,43 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
     out["mpow_scalar"]["dependent_product_ms"] = (
         out["mpow_scalar"]["cases"][one_lane]["ms"] / chain
     )
+    return out
+
+
+def phase_prefix(spec, device, steps: int, precision: int) -> dict:
+    """`prefix_prod` forward and reversed and `multi_inv` (with zeros) at the
+    sizes the prover gives them (the accumulator's `steps`, the Lagrange
+    fold's first `precision`) and at lengths that are no power of two: each
+    call's device time (`device_ms`, `device_busy_ms`) and its `median_ms`
+    span (`ms`, which also holds the host's work after the call's first
+    upload, a `mont_one`, waits for the card), its `scan_prod` launches,
+    and equality (`torch.equal`) with the same function on CPU tensors (the
+    plain versions). Tolerance: exact."""
+    from stark_tpu_torch.ops import field_cuda as fc
+    from stark_tpu_torch.ops import modmath as mm
+
+    rng = np.random.default_rng(SEED + 3)
+    out = {}
+    for n in (steps, precision, 80, 96, 160):
+        v = with_edges(spec, random_planes(rng, spec, n, device))
+        v[:, n // 2] = 0
+        v_cpu = v.cpu()
+        for name, fn in (("prefix_prod", lambda a: mm.prefix_prod(spec, a)),
+                         ("prefix_prod reversed",
+                          lambda a: mm.prefix_prod(spec, a, reverse=True)),
+                         ("multi_inv", lambda a: mm.multi_inv(spec, a))):
+            fc.scan_prod.launches = 0
+            got = fn(v)
+            launches = fc.scan_prod.launches
+            want = fn(v_cpu)
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"{name} at n={n}: the card's values differ "
+                                     f"from the CPU's (max abs err "
+                                     f"{max_abs_err(got.cpu(), want)})")
+            out[f"{name} n={n}"] = {"device_ms": device_busy_ms(lambda: fn(v)),
+                                    "ms": median_ms(lambda: fn(v), 10),
+                                    "scan_launches": launches,
+                                    "levels": mm.scan_levels(n)}
     return out
 
 
@@ -781,6 +831,42 @@ def phase_lde_engines(spec, device, params) -> dict:
     return {"columns": len(traces), "runs": runs}
 
 
+def union_us(spans) -> float:
+    """Length of the union of (start, end) intervals, in their unit."""
+    busy, end = 0.0, None
+    for lo, hi in sorted(spans):
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    return busy
+
+
+def device_busy_ms(fn, reps: int = 5, tries: int = 3):
+    """Device time of a call of fn: the union of the intervals of its
+    kernels and copies under torch.profiler, the card's idle gaps left out,
+    over `reps` calls in one profiled window, a call's share. A window in
+    which the profiler delivered no device event at all (it has happened
+    to a short one) is profiled again; after `tries` such windows the time
+    is None (not measured), since fn's values are checked elsewhere."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                 if str(ev.device_type).endswith("CUDA")]
+        if spans:
+            return union_us(spans) / 1e3 / reps
+    return None
+
+
 def profile_warm_prove(r1cs, witness, device, want_proof, fri_fold,
                        lde_engine="butterfly") -> dict:
     """On one fold route and LDE engine: a warm-up prove, `torch.profiler`
@@ -810,14 +896,7 @@ def profile_warm_prove(r1cs, witness, device, want_proof, fri_fold,
                 k = kernels.setdefault(ev.name, {"count": 0, "us": 0.0})
                 k["count"] += 1
                 k["us"] += us
-    busy_us, end = 0.0, None
-    for lo, hi in sorted(spans):  # union of the device intervals
-        if end is None or lo > end:
-            busy_us += hi - lo
-            end = hi
-        elif hi > end:
-            busy_us += hi - end
-            end = hi
+    busy_us = union_us(spans)
     span_us = max(hi for _, hi in spans) - min(lo for lo, _ in spans)
     top = sorted(kernels.items(), key=lambda kv: -kv[1]["us"])[:25]
     # the hand-written kernels sit in anonymous namespaces outside at::
@@ -1120,6 +1199,12 @@ def main(argv=None) -> int:
     emit({"phase": "kernels", "steps": params.steps, "precision": params.precision,
           "tolerance": "exact (torch.equal)", "results": kstats,
           "crt_tables_build_s": crt_tables_s, "seconds": time.time() - t0})
+
+    t0 = time.time()
+    prefix = phase_prefix(spec, device, params.steps, params.precision)
+    emit({"phase": "prefix_prod", "steps": params.steps, "precision": params.precision,
+          "tolerance": "exact (torch.equal with the CPU's values)", "results": prefix,
+          "seconds": time.time() - t0})
 
     t0 = time.time()
     goldens = phase_goldens(device)

@@ -46,7 +46,9 @@ _SIGNATURES = {
     "stark_mpow_scalar": [
         _vp, _vp, ctypes.c_int, _u32p, ctypes.c_int, _u32p, ctypes.c_uint32, _vp,
     ],
-    "stark_scan_prod": [_vp, _vp, _ll, _ll, _u32p, ctypes.c_uint32, _vp],
+    "stark_scan_prod": [
+        _vp, _vp, _ll, _ll, ctypes.c_int, ctypes.c_int, _u32p, ctypes.c_uint32, _vp,
+    ],
     "stark_rand_combination": [
         _vp, _vp, _vp, _vp, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp,
     ],

@@ -209,16 +209,47 @@ def scan_prod_plain(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+SCAN_BLOCK = 256  # most threads of a scan block, `csrc/fieldops.cu SCAN_BLOCK`
+SCAN_WIDE = 1 << 14  # columns from which one thread a column keeps the card busy
+SCAN_THREADS = 1 << 15  # threads a launch on fewer columns aims at
+
+
+def scan_team(B: int, C: int) -> tuple[int, int]:
+    """(T, CB) of a `scan_prod` launch on (16, B, C): T threads share each
+    column and a block holds CB columns of T segments (powers of two, at
+    most SCAN_BLOCK threads). Every product costs a warp the same time on
+    its SM's integer units whether it waits on the one before or not, so a
+    team pays for its second pass over the rows and its combining steps in
+    products. From SCAN_WIDE columns T is 1; on fewer, T grows until the
+    launch holds SCAN_THREADS threads, with segments of at least 4 rows
+    once the launch holds more than 4096 threads (where products, not the
+    chain, set its time). CB is as wide as 32 columns and the block allow,
+    and no wider than C needs."""
+    T = 1
+    if C < SCAN_WIDE:
+        while 2 * T <= min(B, SCAN_BLOCK) and T * C < SCAN_THREADS:
+            T *= 2
+        while T > 1 and T * C > 4096 and 4 * T > B:
+            T //= 2
+    CB = 1
+    while 2 * CB * T <= SCAN_BLOCK and CB < 32 and CB < C:
+        CB *= 2
+    return T, CB
+
+
 def scan_prod(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix product along axis 1 of a (16, B, C) Montgomery
-    array, independently per column c; any B, any C."""
+    array, independently per column c; any B, any C. On a card each column
+    is scanned by a team of threads (`scan_team`)."""
     _check_scan(spec, x)
     if x.device.type == "cpu":
         return scan_prod_plain(spec, x)
     words, np32, stream = cuda_args(spec, x)
     out = torch.empty_like(x)
+    B, C = x.shape[1], x.shape[2]
+    T, CB = scan_team(B, C)
     rc = build.load().stark_scan_prod(
-        x.data_ptr(), out.data_ptr(), x.shape[1], x.shape[2], words, np32, stream,
+        x.data_ptr(), out.data_ptr(), B, C, T, CB, words, np32, stream,
     )
     build.check(rc, "scan_prod")
     scan_prod.launches += 1

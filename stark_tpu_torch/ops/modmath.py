@@ -15,6 +15,8 @@ JAX package does on its accelerator (`modmath.py:287-308, 351-381`).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -202,26 +204,91 @@ def minv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 # prefix products and batched inversion (recursive scans)
 # ---------------------------------------------------------------------------
 
-# Rows of one scan: each thread of `scan_prod` walks a chain of this many
-# dependent products, so it is kept short and the columns many.
-SCAN_ROWS = 64
+# The plan's model of a level's device time on one H100, in microseconds
+# (fitted to `scripts/scan_kernels_cuda.py`'s sweep): the `scan_prod` launch
+# takes the longer of its products at the rate its threads sustain and its
+# threads' sequential products at one step each; where C > 1 the glue
+# around it (transposing copy, chunk totals, combine multiply) adds a few
+# launches and a time an element, least where B is 16: PyTorch's copies of
+# a (C, B) transposed view ran fastest with 64-byte rows (the sweep's
+# `prefix_prod` plans at 2^17 and 2^20). A product holds a warp's SM
+# partition about as long as its chain takes, so the card's rate grows with
+# the warps each of its 528 partitions holds: 1 - 0.52^w of its peak at w.
+LAUNCH_US = 3.0
+PEAK_PRODUCTS_PER_US = 19000.0  # field products a microsecond, all partitions full
+PARTITIONS = 4 * 132  # SM sub-partitions (schedulers) of an H100 SXM
+STEP_US = 1.5  # one product of one warp in a launch that fills the card
+GLUE_US = 5.0
+GLUE_US_PER_ELEM = 3.1e-4
+GLUE_US_PER_ELEM_16 = 2.6e-4  # where B is 16
+# Most rows of a level (the plain version's loop on the CPU is a vectorized
+# product a row); only a length with no divisor in [2, SCAN_MAX_ROWS] goes
+# past it, as one level of all its rows.
+SCAN_MAX_ROWS = 256
+
+
+def scan_chain(B: int, C: int) -> int:
+    """Products one thread of a (16, B, C) `scan_prod` launch issues one
+    after another: its segment's rows but the first, the team's log2 T
+    combining steps and, in a team, its rows again times the segments
+    before it (a warp issues in order, and a product holds its SM's integer
+    units about as long as its chain takes, so those independent products
+    queue like the dependent ones)."""
+    T, _ = field_cuda.scan_team(B, C)
+    S = -(-B // T)
+    return S - 1 + T.bit_length() - 1 + (S if T > 1 else 0)
+
+
+def scan_products(B: int, C: int) -> int:
+    """Field products of one (16, B, C) `scan_prod` launch: B - T a column
+    in the segments, the rows past the first segment again, and the
+    Kogge-Stone steps' T log2 T - T + 1."""
+    T, _ = field_cuda.scan_team(B, C)
+    if T == 1:
+        return C * (B - 1)
+    return C * (B - T + B - B // T + T * (T.bit_length() - 1) - T + 1)
+
+
+def _scan_us(B: int, C: int) -> float:
+    """The model's time of one (16, B, C) `scan_prod` launch."""
+    T, _ = field_cuda.scan_team(B, C)
+    rate = PEAK_PRODUCTS_PER_US * (1 - 0.52 ** (C * T / 32 / PARTITIONS))
+    return LAUNCH_US + max(scan_products(B, C) / rate, (scan_chain(B, C) + 1) * STEP_US)
+
+
+def _level_us(B: int, C: int) -> float:
+    """The model's time of one level of `prefix_prod`: its scan and, where
+    C > 1, its glue."""
+    us = _scan_us(B, C)
+    if C > 1:
+        us += GLUE_US + B * C * (GLUE_US_PER_ELEM_16 if B == 16 else GLUE_US_PER_ELEM)
+    return us
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(n: int) -> tuple[float, tuple[tuple[int, int], ...]]:
+    """The cheapest plan of a length-n scan under the model: one level of
+    (n, 1), or a first level of n // B chunks of B rows and the plan of the
+    chunk totals."""
+    best = []
+    if n <= SCAN_MAX_ROWS:
+        best.append((_level_us(n, 1), ((n, 1),)))
+    for B in range(2, min(SCAN_MAX_ROWS, n - 1) + 1):
+        if n % B == 0:
+            us, rest = _plan(n // B)
+            best.append((_level_us(B, n // B) + us, ((B, n // B),) + rest))
+    return min(best) if best else (_level_us(n, 1), ((n, 1),))
 
 
 def scan_levels(n: int) -> list[tuple[int, int]]:
     """The (B, C) shapes of the `scan_prod` launches that `prefix_prod`
-    makes for a length-n array, outermost first."""
-    levels = []
-    while True:
-        B, C = (n, 1) if n <= SCAN_ROWS else (SCAN_ROWS, n // SCAN_ROWS)
-        if B * C != n:
-            raise ValueError(
-                f"prefix_prod needs a length of at most {SCAN_ROWS} or a "
-                f"multiple of {SCAN_ROWS} at every level, got {n}"
-            )
-        levels.append((B, C))
-        if C == 1:
-            return levels
-        n = C
+    makes for a length-n array, outermost first: a pure function of n >= 1,
+    the cheapest under the model above among the plans whose levels of
+    more than one column have at most SCAN_MAX_ROWS rows. A length with no
+    divisor in [2, SCAN_MAX_ROWS] is scanned as one level of n rows."""
+    if n < 1:
+        raise ValueError(f"prefix_prod needs a length of at least 1, got {n}")
+    return list(_plan(n)[1])
 
 
 def prefix_prod(spec: FieldSpec, v: torch.Tensor, reverse: bool = False) -> torch.Tensor:
@@ -229,8 +296,10 @@ def prefix_prod(spec: FieldSpec, v: torch.Tensor, reverse: bool = False) -> torc
     (`stark_tpu/ops/modmath.py:351-381`): contiguous chunks of B elements
     ride the rows of one `scan_prod` launch with the chunks side by side on
     the columns, the chunk totals recurse, and one combine multiply stitches
-    them. Prefix products are canonical field values, so the chunking does
-    not change a bit of the result."""
+    them (`scan_levels`). Any N >= 1: the JAX package takes N only where its
+    block divides it, and asserts on others such as 100 and 1000, where the
+    port returns the products. Prefix products are canonical field values,
+    so the chunking does not change a bit of the result."""
     if reverse:
         return prefix_prod(spec, v.flip(1)).flip(1)
     L, n = v.shape

@@ -106,13 +106,17 @@ def test_stages_take_views_and_make_them_contiguous(composed):
 
 
 def test_scan_levels():
+    """The team scan's plan: one level up to SCAN_MAX_ROWS rows, beyond that
+    the cheapest chunking under `modmath`'s model of a level."""
     assert mm.scan_levels(1) == [(1, 1)]
     assert mm.scan_levels(64) == [(64, 1)]
-    assert mm.scan_levels(4096) == [(64, 64), (64, 1)]
-    assert mm.scan_levels(1 << 13) == [(64, 128), (64, 2), (2, 1)]
-    assert mm.scan_levels(1 << 20) == [(64, 1 << 14), (64, 256), (64, 4), (4, 1)]
+    assert mm.scan_levels(100) == [(100, 1)]  # refused by the first plan
+    assert mm.scan_levels(4096) == [(16, 256), (256, 1)]
+    assert mm.scan_levels(1 << 13) == [(32, 256), (256, 1)]
+    assert mm.scan_levels(1 << 17) == [(16, 1 << 13), (32, 256), (256, 1)]
+    assert mm.scan_levels(1 << 20) == [(16, 1 << 16), (256, 256), (256, 1)]
     with pytest.raises(ValueError):
-        mm.scan_levels(100)
+        mm.scan_levels(0)
 
 
 @pytest.mark.parametrize("n", [4096, 1 << 13])
