@@ -21,9 +21,13 @@ non-zero and no phase's error is swallowed:
    could take (`bound_ms`), its share of the kernel's time (`bound_share`) and, where the operations
    are of one kind, the rate achieved (`achieved_ops_per_s`: int8 operations
    a second for `matmul_fold`). `butterfly_fused` runs dit and dif at 2^20
-   and dif at 2^17, the three shapes the LDE gives it; beside its bound,
-   which counts a product a butterfly, `bound_needed_ms` leaves out the
-   products by a twiddle equal to Montgomery one, which the kernel skips.
+   and dif at 2^17, the three shapes the LDE gives it, then its canonical
+   build on BLS12-381's scalar field (dit and dif at 2^17 and at one block
+   of 2048); beside its bound, which counts a product a butterfly,
+   `bound_needed_ms` leaves out the products by a twiddle equal to
+   Montgomery one, which the kernel skips. `mpow_scalar` runs e = p - 2 at
+   (16, 1) and (16, 8) and on BLS12-381's field, e = 0, 1, 2^256 - 1 on edge
+   operands, and e = 2^255, 2^127 for the time of one dependent squaring.
    The three kernels of the CRT LDE engine run on that engine's own tables
    for this size (their host build, or their load from the disk cache, is
    timed), at the four products of one LDE and at small ragged shapes.
@@ -102,16 +106,21 @@ the reduction.
 
 `mpow_scalar` and `scan_prod` walk chains of dependent products on few
 threads, which that bound does not see. Beside it, and not as a bound, they
-get `chain_ms`: the chain's length (for `scan_prod` one thread's, a team
-sharing each column: `modmath.scan_chain`) times the critical path of one
-CIOS product under a stated model, over the card's highest SM clock as
+get `chain_ms`: the chain's length times the critical path of one CIOS
+product under a stated model, over the card's highest SM clock as
 `nvidia-smi --query-gpu=clocks.max.sm` gives it. The model: each of the 8
 rounds hands its lowest word to the next after 4 dependent multiply-adds
 (product word 0, the reduction factor, reduction words 0 and 1), the last
 round drains 7 more words, and the top word and the conditional subtraction
 add 10: 48 dependent 64-bit multiply-adds, each counted as two dependent
-integer instructions of 4 cycles. No single PyTorch call computes any of
-these functions, so `library_ms` is null, but for `matmul_fold`: there it is
+integer instructions of 4 cycles. The length is what the function needs,
+not what a kernel does: for `scan_prod` one thread's walk, a team sharing
+each column (`modmath.scan_chain`); for `mpow_scalar` e.bit_length() - 1
+dependent squarings and the one product that must follow the last (254
+for BN254's p - 2, where MSB-first square-and-multiply walks 381), since
+the multiplies by the powers a^(2^i) can run beside the squarings. No
+single PyTorch call computes any of these functions, so `library_ms` is
+null, but for `matmul_fold`: there it is
 the time of four `torch.bmm` calls on bf16 copies of the same digit planes,
 the products only, without the recombination and the fold.
 """
@@ -195,6 +204,7 @@ CRT_ONLY = ("residues_in", "matmul_fold", "reconstruct")
 # the engine's disk cache of host-built tables, inside the (ignored) build tree
 PLAN_CACHE = os.path.join(ROOT, "stark_tpu_torch", "_build", "plans")
 PROVE_MANY_X0 = (3, 5, 7, 11)  # start values of the four pipelined witnesses
+FUSED_ONE_BLOCK = 2048  # a `butterfly_fused` case of a single block
 CHAIN_STEPS = 48  # dependent 64-bit multiply-adds on one CIOS product's critical path
 CYCLES_PER_STEP = 8  # two dependent integer instructions of 4 cycles
 
@@ -384,17 +394,7 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
                                           4 * (16 + 8) * (N // 2), N // 2 * BLAKE2S_OPS)},
     )
 
-    e = spec.p - 2
-    chain = e.bit_length() + bin(e).count("1")
-    one_lane = f"(16,1) e=p-2"
-    out["mpow_scalar"] = compare(
-        "mpow_scalar",
-        lambda a: fc.mpow_scalar(spec, a, e),
-        lambda a: fc.mpow_scalar_plain(spec, a, e),
-        {one_lane: ((rand(1),), 2 * 64, chain * MM, chain),
-         "(16,8) e=p-2": ((with_edges(spec, rand(8)),), 2 * 64 * 8, 8 * chain * MM, chain)},
-        reps=(10, 0),
-    )
+    out["mpow_scalar"] = compare_mpow(spec, rand)
     # the Lagrange fold inverts all N denominators of round 0, the accumulator
     # scans `steps`: the plan's levels of both, then two fixed shapes (the
     # first plan's levels at these sizes) that stay comparable across plans
@@ -527,11 +527,50 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
     )
     for result in out.values():
         add_bounds(result, sm_hz)
-    # measured, for the record: the time of one dependent product on one lane
-    out["mpow_scalar"]["dependent_product_ms"] = (
-        out["mpow_scalar"]["cases"][one_lane]["ms"] / chain
-    )
     return out
+
+
+def compare_mpow(spec, rand) -> dict:
+    """`mpow_scalar` against its plain version: e = p - 2 at (16, 1) (the
+    prover's Fermat inversion) and (16, 8) on BN254's scalar field and at
+    (16, 1) on BLS12-381's; e = 0, 1 and 2^256 - 1 at (16, 4) on 0,
+    Montgomery one, p - 1 and a random value; e =
+    2^255 and 2^127 at (16, 1), whose difference over 128 is the time of
+    one dependent squaring (`squaring_step_ms`), beside the time of the
+    whole chain over its length (`dependent_product_ms`)."""
+    from stark_tpu_torch.fields.field import BLS12_381_FR as bls
+    from stark_tpu_torch.ops import field_cuda as fc
+
+    def products(e):
+        """The products a^e needs: bit_length - 1 squarings, popcount - 1 multiplies."""
+        return max(e.bit_length() - 1, 0) + max(bin(e).count("1") - 1, 0)
+
+    def case(field, a, e):
+        k = a.shape[1]
+        return ((field, a, e), 2 * 64 * k, k * products(e) * MONT_MUL_OPS, e.bit_length())
+
+    rng = np.random.default_rng(SEED + 7)
+    one_lane = "(16,1) e=p-2"
+    edges = rand(4)
+    edges[:, :3] = torch.tensor([[(v >> 16 * i) & 0xFFFF for v in (0, spec.r_mod_p, spec.p - 1)]
+                                 for i in range(16)], dtype=torch.int32, device=edges.device)
+    cases = {one_lane: case(spec, rand(1), spec.p - 2),
+             "(16,8) e=p-2": case(spec, with_edges(spec, rand(8)), spec.p - 2),
+             f"{bls.name} (16,1) e=p-2": case(
+                 bls, random_planes(rng, bls, 1, edges.device), bls.p - 2)}
+    cases.update({f"(16,4) edges e={label}": case(spec, edges, e)
+                  for label, e in (("0", 0), ("1", 1), ("2^256-1", (1 << 256) - 1))})
+    steps = {label: case(spec, rand(1), e) for label, e in
+             (("(16,1) e=2^255", 1 << 255), ("(16,1) e=2^127", 1 << 127))}
+    cases.update(steps)
+    result = compare("mpow_scalar",
+                     lambda field, a, e: fc.mpow_scalar(field, a, e),
+                     lambda field, a, e: fc.mpow_scalar_plain(field, a, e),
+                     cases, reps=(10, 0))
+    ms = {label: result["cases"][label]["ms"] for label in [one_lane, *steps]}
+    result["dependent_product_ms"] = ms[one_lane] / (spec.p - 2).bit_length()
+    result["squaring_step_ms"] = (ms["(16,1) e=2^255"] - ms["(16,1) e=2^127"]) / 128
+    return result
 
 
 def phase_prefix(spec, device, steps: int, precision: int) -> dict:
@@ -574,35 +613,45 @@ def phase_prefix(spec, device, steps: int, precision: int) -> dict:
 def compare_fused(spec, big, small, x_big, x_small) -> dict:
     """`butterfly_fused` against its plain version at the prover's three
     shapes: dit and dif at the big transform's size on its tables, and dif
-    at the small transform's (the inverse LDE's) on its own."""
+    at the small transform's (the inverse LDE's) on its own; then on
+    BLS12-381's scalar field, which runs the kernel's canonical build
+    (`ntt.fused_lazy`), dit and dif at the small size and at one block."""
+    from stark_tpu_torch.fields.field import BLS12_381_FR as bls
     from stark_tpu_torch.ops import modmath as mm, ntt
 
     def work(plan, n):
         return (2 * 64 * n + 4 * plan.fused_tw.numel(),
                 (plan.block.bit_length() - 1) * n // 2 * MONT_MUL_OPS)
 
-    def needed_ms(plan, n, nbytes):
+    def needed_ms(field, plan, n, nbytes):
         """The bound without the products by a twiddle equal to Montgomery
         one (the product by R mod p is its operand): those of k = 0."""
-        one = (plan.fused_tw == mm.mont_one(spec, plan.fused_tw.device)).all(dim=0)
+        one = (plan.fused_tw == mm.mont_one(field, plan.fused_tw.device)).all(dim=0)
         products = sum((l - int(one[l - 1 : 2 * l - 1].sum())) * n // (2 * l)
                        for l in ntt.fused_ls(plan.block, "dit"))
         return max(nbytes / BYTES_PER_S, products * MONT_MUL_OPS / INT_OPS_PER_S) * 1e3
 
     N, steps = x_big.shape[1], x_small.shape[1]
-    shapes = {f"dit n={N} block={big.block}": (x_big, big, "dit"),
-              f"dif n={N} block={big.block}": (x_big, big, "dif"),
-              f"dif n={steps} block={small.block}": (x_small, small, "dif")}
+    device = x_big.device
+    rng = np.random.default_rng(SEED + 6)
+    shapes = {f"dit n={N} block={big.block}": (spec, x_big, big, "dit"),
+              f"dif n={N} block={big.block}": (spec, x_big, big, "dif"),
+              f"dif n={steps} block={small.block}": (spec, x_small, small, "dif")}
+    for n in (steps, FUSED_ONE_BLOCK):
+        x = with_edges(bls, random_planes(rng, bls, n, device))
+        for kind in ("dit", "dif"):
+            plan = ntt.NttPlan(bls, bls.root_of_unity(n), n, kind, device)
+            shapes[f"{bls.name} {kind} n={n} block={plan.block}"] = (bls, x, plan, kind)
     result = compare(
         "butterfly_fused",
-        lambda x, tw, block, kind: ntt.butterfly_fused(spec, x, tw, block, kind),
-        lambda x, tw, block, kind: ntt.butterfly_fused_plain(spec, x, tw, block, kind),
-        {label: ((x, plan.fused_tw, plan.block, kind), *work(plan, x.shape[1]))
-         for label, (x, plan, kind) in shapes.items()},
+        lambda field, x, tw, block, kind: ntt.butterfly_fused(field, x, tw, block, kind),
+        lambda field, x, tw, block, kind: ntt.butterfly_fused_plain(field, x, tw, block, kind),
+        {label: ((field, x, plan.fused_tw, plan.block, kind), *work(plan, x.shape[1]))
+         for label, (field, x, plan, kind) in shapes.items()},
     )
-    for label, (x, plan, _) in shapes.items():
+    for label, (field, x, plan, _) in shapes.items():
         case = result["cases"][label]
-        case["bound_needed_ms"] = needed_ms(plan, x.shape[1], case["bytes"])
+        case["bound_needed_ms"] = needed_ms(field, plan, x.shape[1], case["bytes"])
     return result
 
 

@@ -4,17 +4,22 @@
 NVIDIA GPU, with the instruction floor of its butterflies, without the rest
 of `chip_smoke.py`.
 
-    python3 scripts/ntt_kernels_cuda.py [--out DIR]
+    python3 scripts/ntt_kernels_cuda.py [--out DIR] [--library PATH ...]
 
 Printed: the card's name, power limit and highest SM clock; what `ptxas -v`
 said of the NTT kernels; the SASS instructions of one butterfly of each
 direction, read with `cuobjdump -sass` from a probe kernel that runs one
 `fused_butterfly` on loaded operands (compiled beside the library from
 `csrc/ntt.cu`; the probe's loads, stores and control flow are not counted),
+of the canonical build's (`*_canonical`, the fields without 5p < 2^256),
 and of `butterfly_stage`'s dit butterfly (`stage`, field.cuh's product,
-which the first version of the fused pass ran too);
-then `chip_smoke.compare_fused`'s three cases (dit and dif at 2^20, dif at
-2^17, all bit-identical to the plain version) with each one's median
+which the first version of the fused pass ran too); the SASS instructions
+of every `butterfly_fused` kernel of the library, and of any other build
+named with `--library PATH` (a parent commit's, to show that a build's
+code did not change);
+then `chip_smoke.compare_fused`'s cases (dit and dif at 2^20, dif at 2^17
+on BN254's scalar field; dit and dif at 2^17 and at one block on
+BLS12-381's; all bit-identical to the plain version) with each one's median
 device time, bounds and instruction floor: instructions of one butterfly x
 the butterflies of the pass / (128 x the SMs x the highest SM clock), an SM
 issuing at most one warp instruction of 32 lanes a clock on each of its
@@ -44,20 +49,29 @@ sys.path.insert(0, ROOT)
 
 PROBE = r"""
 #include "ntt.cu"
-template <bool DIT>
+template <bool DIT, bool LAZY>
 __device__ void probe(const uint32_t* in, uint32_t* out, const stark::Field& f) {
   uint32_t u[stark::NW], v[stark::NW], w[stark::NW], p2[stark::NW];
   for (int i = 0; i < stark::NW; ++i) {
     u[i] = in[i]; v[i] = in[8 + i]; w[i] = in[16 + i]; p2[i] = in[24 + i];
   }
-  fused_butterfly<DIT>(f, p2, u, v, w);
+  fused_butterfly<DIT, LAZY>(f, p2, u, v, w);
   for (int i = 0; i < stark::NW; ++i) { out[i] = u[i]; out[8 + i] = v[i]; }
 }
 extern "C" __global__ void sass_probe_dit(const uint32_t* in, uint32_t* out, stark::Field f) {
-  probe<true>(in, out, f);
+  probe<true, true>(in, out, f);
 }
 extern "C" __global__ void sass_probe_dif(const uint32_t* in, uint32_t* out, stark::Field f) {
-  probe<false>(in, out, f);
+  probe<false, true>(in, out, f);
+}
+// the canonical build's butterflies (fields without 5p < 2^256)
+extern "C" __global__ void sass_probe_dit_canonical(const uint32_t* in, uint32_t* out,
+                                                    stark::Field f) {
+  probe<true, false>(in, out, f);
+}
+extern "C" __global__ void sass_probe_dif_canonical(const uint32_t* in, uint32_t* out,
+                                                    stark::Field f) {
+  probe<false, false>(in, out, f);
 }
 // butterfly_stage's butterfly (field.cuh's CIOS, canonical at every step),
 // which the first version of the fused pass also ran
@@ -89,7 +103,7 @@ def sass_opcodes(cubin: str, fun: str) -> collections.Counter:
                           capture_output=True, text=True, check=True).stdout
     ops = collections.Counter()
     for ln in text.splitlines():
-        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", ln)
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", ln)
         if m:
             ops[m.group(1).split(".")[0]] += 1
     return ops
@@ -106,7 +120,7 @@ def butterfly_instructions() -> dict:
             f.write(PROBE)
         subprocess.run([_tool("nvcc"), *build.ARCH_FLAGS, "-std=c++17", "-O3", "-cubin",
                         "-I", build.CSRC, "-o", cubin, src], check=True)
-        for kind in ("dit", "dif", "stage"):
+        for kind in ("dit", "dif", "dit_canonical", "dif_canonical", "stage"):
             ops = sass_opcodes(cubin, f"sass_probe_{kind}")
             counted = {k: v for k, v in ops.items() if k not in NOT_COUNTED}
             out[kind] = {"instructions": sum(counted.values()),
@@ -115,9 +129,30 @@ def butterfly_instructions() -> dict:
     return out
 
 
+def kernel_instructions(library: str, pattern: str = "butterfly_fused") -> dict:
+    """SASS instructions of each kernel of a built library whose (mangled)
+    name holds `pattern`, as `cuobjdump -sass` lists them, all opcodes
+    counted: the same count for two builds means the same code."""
+    text = subprocess.run([_tool("cuobjdump"), "-sass", library],
+                          capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name = m.group(1) if pattern in m.group(1) else None
+            if name:
+                out[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", ln):
+            out[name] += 1
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the records to DIR/ntt_kernels.json")
+    ap.add_argument("--library", action="append", default=[],
+                    help="also count the SASS of this library's butterfly_fused kernels "
+                         "(another build, such as a parent commit's); repeatable")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ntt_kernels_cuda: no CUDA device", file=sys.stderr)
@@ -143,7 +178,9 @@ def main(argv=None) -> int:
     records = [{"build_s": time.time() - t0, "ptxas": ptxas}]
     print(json.dumps(records[-1]), flush=True)
     instr = butterfly_instructions()
-    records.append({"sass_per_butterfly": instr, "sms": sms, "sm_hz": sm_hz})
+    sass = {lib: kernel_instructions(lib) for lib in [so] + args.library}
+    records.append({"sass_per_butterfly": instr, "sass_per_kernel": sass, "sms": sms,
+                    "sm_hz": sm_hz})
     print(json.dumps(records[-1]), flush=True)
 
     steps, precision = 1 << 17, 1 << 20
@@ -157,10 +194,12 @@ def main(argv=None) -> int:
     result = chip_smoke.compare_fused(spec, big, small, x_big, x_small)
     chip_smoke.add_bounds(result, sm_hz)
     for label, case in result["cases"].items():
-        kind, n = label.split()[0], int(label.split()[1][2:])
-        plan = big if n == x_big.shape[1] else small
-        butterflies = (plan.block.bit_length() - 1) * n // 2
-        case["floor_ms"] = (instr[kind]["instructions"] * butterflies
+        # "[bls12_381 ]dit n=... block=...": BLS12-381's cases run the canonical build
+        *field, kind, n, block = label.split()
+        n, block = int(n[2:]), int(block[6:])
+        build_kind = f"{kind}_canonical" if field else kind
+        butterflies = (block.bit_length() - 1) * n // 2
+        case["floor_ms"] = (instr[build_kind]["instructions"] * butterflies
                             / (ISSUE_PER_CLOCK * sms * sm_hz) * 1e3)
         records.append({"kernel": "butterfly_fused", "case": label, **case})
         print(json.dumps(records[-1]), flush=True)

@@ -123,6 +123,72 @@ __device__ __forceinline__ void mont_mul(const Field& f, const uint32_t a[NW],
   cond_sub_p(f, t[NW], r);
 }
 
+// The radix-2^29 form: 9 limbs of 29 bits (261 bits), so that a column of
+// word products and its reduction terms sum in one 64-bit accumulator
+// without carries between them (IMAD.WIDE with a 64-bit addend).
+constexpr int NL29 = 9;
+constexpr uint32_t MASK29 = (1u << 29) - 1;
+
+// 8 words -> 9 limbs of 29 bits
+__device__ __forceinline__ void to_limbs29(const uint32_t w[NW], uint32_t l[NL29]) {
+#pragma unroll
+  for (int i = 0; i < NL29; ++i) {
+    const int bit = 29 * i, word = bit / 32, sh = bit % 32;
+    uint32_t v = w[word] >> sh;
+    if (sh > 3 && word + 1 < NW) v |= w[word + 1] << (32 - sh);
+    l[i] = v & MASK29;
+  }
+}
+
+// 9 limbs of 29 bits (a value below 2^256) -> 8 words
+__device__ __forceinline__ void from_limbs29(const uint32_t l[NL29], uint32_t w[NW]) {
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const int bit = 32 * j, i = bit / 29, sh = bit % 29;
+    uint32_t v = l[i] >> sh;
+    if (i + 1 < NL29) v |= l[i + 1] << (29 - sh);
+    if (sh > 26 && i + 2 < NL29) v |= l[i + 2] << (58 - sh);
+    w[j] = v;
+  }
+}
+
+// Montgomery square in the radix-2^29 form with R' = 2^261: y*y*2^-261 mod
+// p up to one p, for y < 2p and 4p < 2^261 (every field here): the 45
+// distinct limb products (cross terms against doubled limbs) into 17 column
+// accumulators, then 9 reduction rows that each add m_i p 2^(29i) with
+// m_i = t_i n' mod 2^29 and carry t_i >> 29 into the next column. A column
+// holds at most 9 products of 58 bits and 9 of the reduction: below 2^63.
+// p29: p in 29-bit limbs; np29: -p^-1 mod 2^29.
+__device__ __forceinline__ void mont_sqr29(const uint32_t p29[NL29], uint32_t np29,
+                                           const uint32_t y[NL29], uint32_t r[NL29]) {
+  uint64_t t[2 * NL29];
+  uint32_t d[NL29];
+#pragma unroll
+  for (int i = 0; i < NL29; ++i) d[i] = y[i] << 1;
+#pragma unroll
+  for (int i = 0; i < 2 * NL29; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < NL29; ++i) {
+    t[2 * i] += static_cast<uint64_t>(y[i]) * y[i];
+#pragma unroll
+    for (int j = i + 1; j < NL29; ++j) t[i + j] += static_cast<uint64_t>(y[i]) * d[j];
+  }
+#pragma unroll
+  for (int i = 0; i < NL29; ++i) {
+    const uint32_t m = (static_cast<uint32_t>(t[i]) * np29) & MASK29;
+#pragma unroll
+    for (int j = 0; j < NL29; ++j) t[i + j] += static_cast<uint64_t>(m) * p29[j];
+    t[i + 1] += t[i] >> 29;
+  }
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < NL29; ++i) {
+    c += t[NL29 + i];
+    r[i] = static_cast<uint32_t>(c) & MASK29;
+    c >>= 29;
+  }
+}
+
 // Shoup product by a constant: w < p is a plain (non-Montgomery) value and
 // wp = floor(w * 2^256 / p) its companion. r = w*x - q*p with
 // q = floor(wp*x / 2^256) equals w*x mod p up to one subtraction of p:

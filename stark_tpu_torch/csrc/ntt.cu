@@ -54,10 +54,14 @@
 //   is not loaded while one is computed: its limb planes take twice the
 //   room of its words (16-bit limbs in int32), more than shared memory has
 //   beside the buffers and twiddles; the other CTA's warps fill that wait.
-// - Lazy reduction (Harvey): DIT keeps values below 4p, DIF below 2p (the
-//   pass takes fields with 5p < 2^256, BN254's among them; the wrapper
-//   refuses others, BLS12-381's among them); the products skip their final
-//   subtraction and the block is reduced on its way out.
+// - Lazy reduction (Harvey): DIT keeps values below 4p, DIF below 2p; the
+//   products skip their final subtraction and the block is reduced on its
+//   way out. That build needs 5p < 2^256 (BN254's scalar field). A field
+//   without that headroom (BLS12-381's, 4p > 2^256 > 2p) gets the canonical
+//   build of the same pass: canonical sums and differences, each product
+//   followed by one conditional subtraction, every value below p. The field
+//   picks the build, never the shape or a caller: `ops/ntt.py fused_lazy`,
+//   true iff 5p < 2^256, passed to the entry point as `lazy`.
 // - Products and sums as PTX carry chains (mont_mul_lazy). ptxas turns a
 //   multiply-add with carry into an IMAD or IMAD.HI and an IADD3.X, the
 //   carry in a predicate, and the SM issues those on its two integer pipes
@@ -247,7 +251,8 @@ __device__ __forceinline__ void mad_hi_row(uint32_t (&t)[stark::NW + 1],
 // t += a*b_i, m = t_0*n', t += m*p, t >>= 32, each product as two carry
 // chains (low halves, then high halves one word up). The running t stays
 // below a + p, so a row's sums stay below (a + p)*2^32 < 2^288 (nine words),
-// and the result is below a*b/2^256 + p < 2p.
+// and the result is below a*b/2^256 + p < 2p. The canonical build's operands
+// (a, b < p, 2p < 2^256) keep the same bounds.
 __device__ __forceinline__ void mont_mul_lazy(const stark::Field& f,
                                               const uint32_t (&a)[stark::NW],
                                               const uint32_t (&b)[stark::NW],
@@ -271,16 +276,46 @@ __device__ __forceinline__ void mont_mul_lazy(const stark::Field& f,
 }
 
 // One butterfly of the fused pass, in place; a product by Montgomery one
-// (a twiddle equal to f.one, tested by value) is its operand itself.
-template <bool DIT>
+// (a twiddle equal to f.one, tested by value) is its operand itself. The
+// lazy build (5p < 2^256) keeps Harvey's bounds, the canonical build every
+// value below p.
+template <bool DIT, bool LAZY>
 __device__ __forceinline__ void fused_butterfly(const stark::Field& f,
                                                 const uint32_t (&p2)[stark::NW],
                                                 uint32_t (&u)[stark::NW],
                                                 uint32_t (&v)[stark::NW],
                                                 const uint32_t (&w)[stark::NW]) {
+  uint32_t t[stark::NW];
+  if (!LAZY) {
+    // a < p, b < p: the product's running sums stay below 2p * 2^32 and it
+    // ends below 2p (2p < 2^256); sums and differences below 2p
+    if (DIT) {
+      if (is_one(f, w)) {
+        stark::set_elem(t, v);
+      } else {
+        mont_mul_lazy(f, v, w, t);
+        sub_if_ge(t, f.p);
+      }
+      add_diff(u, f.p, t, v);  // u + p - t < 2p
+      sub_if_ge(v, f.p);
+      add_words(u, t, u);
+      sub_if_ge(u, f.p);
+    } else {
+      add_diff(u, f.p, v, t);  // u + p - v < 2p
+      sub_if_ge(t, f.p);
+      add_words(u, v, u);
+      sub_if_ge(u, f.p);
+      if (is_one(f, w)) {
+        stark::set_elem(v, t);
+      } else {
+        mont_mul_lazy(f, t, w, v);
+        sub_if_ge(v, f.p);
+      }
+    }
+    return;
+  }
   // Harvey's lazy butterflies: DIT keeps values in [0, 4p), DIF in [0, 2p)
   // (4p < 2^256); the last stage's outputs are reduced when they are stored
-  uint32_t t[stark::NW];
   if (DIT) {
     sub_if_ge(u, p2);  // u < 2p
     if (is_one(f, w)) {
@@ -304,12 +339,13 @@ __device__ __forceinline__ void fused_butterfly(const stark::Field& f,
   }
 }
 
-// The canonical value of an element the fused pass leaves (< 4p after DIT,
-// < 2p after DIF).
-template <bool DIT>
+// The canonical value of an element the fused pass leaves (< 4p after a
+// lazy DIT, < 2p after a lazy DIF; already canonical in the canonical build).
+template <bool DIT, bool LAZY>
 __device__ __forceinline__ void fused_canonical(const stark::Field& f,
                                                 const uint32_t (&p2)[stark::NW],
                                                 uint32_t (&x)[stark::NW]) {
+  if (!LAZY) return;
   if (DIT) sub_if_ge(x, p2);
   sub_if_ge(x, f.p);
 }
@@ -323,7 +359,7 @@ __device__ __forceinline__ void fused_canonical(const stark::Field& f,
 // when `from_global`, straight from the limb planes) and writes them to
 // `dst` (or to the limb planes: only the round of the largest stride does,
 // so a warp's accesses there are whole 128-byte rows).
-template <bool DIT, int R>
+template <bool DIT, bool LAZY, int R>
 __device__ __forceinline__ void fused_round(
     const stark::Field& f, const uint32_t (&p2)[stark::NW], uint32_t (&x)[FB_EPT][stark::NW],
     const uint4* __restrict__ tws,
@@ -371,7 +407,7 @@ __device__ __forceinline__ void fused_round(
         const int k = (j & ((1 << r) - 1)) * L + lo;
         const uint4 t0 = tws[2 * (l - 1 + k)], t1 = tws[2 * (l - 1 + k) + 1];
         const uint32_t w[stark::NW] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
-        fused_butterfly<DIT>(f, p2, u, v, w);
+        fused_butterfly<DIT, LAZY>(f, p2, u, v, w);
       }
     }
   }
@@ -381,7 +417,7 @@ __device__ __forceinline__ void fused_round(
 #pragma unroll
     for (int j = 0; j < E; ++j) {
       if (to_global) {
-        fused_canonical<DIT>(f, p2, x[q * E + j]);
+        fused_canonical<DIT, LAZY>(f, p2, x[q * E + j]);
         stark::store_elem(out, n, lbase + idx[q][j], x[q * E + j]);
       } else {
         const int c = fb_col(idx[q][j]);
@@ -398,7 +434,7 @@ __device__ __forceinline__ void fused_round(
 // DIF runs it first, from the planes into both ranks' buffers `bufs`
 // (distributed shared memory); DIT runs it last, from `bufs` into the
 // planes. Its twiddles are read from tw_cat (in L2), not staged.
-template <bool DIT>
+template <bool DIT, bool LAZY>
 __device__ __forceinline__ void cross_round(
     const stark::Field& f, const uint32_t (&p2)[stark::NW], uint32_t (&x)[FB_EPT][stark::NW],
     const int32_t* __restrict__ tw_cat, uint32_t* const (&bufs)[2],
@@ -427,7 +463,7 @@ __device__ __forceinline__ void cross_round(
     if (p >= pairs) continue;
     uint32_t w[stark::NW];
     stark::load_elem(tw_cat, 2 * h - 1, h - 1 + rank * pairs + p, w);
-    fused_butterfly<DIT>(f, p2, x[2 * q], x[2 * q + 1], w);
+    fused_butterfly<DIT, LAZY>(f, p2, x[2 * q], x[2 * q + 1], w);
   }
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
@@ -437,7 +473,7 @@ __device__ __forceinline__ void cross_round(
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       if (DIT) {
-        fused_canonical<DIT>(f, p2, x[2 * q + j]);
+        fused_canonical<DIT, LAZY>(f, p2, x[2 * q + j]);
         stark::store_elem(out, n, base + j * h + k, x[2 * q + j]);
       } else {
 #pragma unroll
@@ -465,7 +501,7 @@ __device__ __forceinline__ void block_sync(int cs) {
 // shared memory in a separate coalesced copy (element i to thread i mod
 // threads). (For a block of 2 the one round is both first and last, and DIF
 // reads the planes there with stride 1: correct, merely uncoalesced.)
-template <bool DIT>
+template <bool DIT, bool LAZY>
 __global__ void __launch_bounds__(FB_THREADS, 1)
 butterfly_fused_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ tw_cat,
                        int32_t* __restrict__ out, int64_t n, int log_block, int cs,
@@ -517,7 +553,7 @@ butterfly_fused_kernel(const int32_t* __restrict__ a, const int32_t* __restrict_
             cluster.map_shared_rank(xs + buf * stark::NW * h, 0),
             cluster.map_shared_rank(xs + buf * stark::NW * h, 1)};
         if (DIT) block_sync(cs);  // the partner's half is in its buffer
-        cross_round<DIT>(f, p2, x, tw_cat, bufs, a, out, n, base, h, rank);
+        cross_round<DIT, LAZY>(f, p2, x, tw_cat, bufs, a, out, n, base, h, rank);
         if (!DIT) {
           block_sync(cs);
           cur ^= 1;
@@ -529,10 +565,10 @@ butterfly_fused_kernel(const int32_t* __restrict__ a, const int32_t* __restrict_
       const uint32_t* src = xs + cur * stark::NW * h;
       uint32_t* dst = xs + (cur ^ 1) * stark::NW * h;
       if (R == 2)
-        fused_round<DIT, 2>(f, p2, x, tws, src, dst, a, out, n, lbase, h, s0, from_global,
+        fused_round<DIT, LAZY, 2>(f, p2, x, tws, src, dst, a, out, n, lbase, h, s0, from_global,
                             to_global);
       else
-        fused_round<DIT, 1>(f, p2, x, tws, src, dst, a, out, n, lbase, h, s0, from_global,
+        fused_round<DIT, LAZY, 1>(f, p2, x, tws, src, dst, a, out, n, lbase, h, s0, from_global,
                             to_global);
       if (!to_global) {
         __syncthreads();
@@ -545,7 +581,7 @@ butterfly_fused_kernel(const int32_t* __restrict__ a, const int32_t* __restrict_
         const int c = fb_col(i);
 #pragma unroll
         for (int q = 0; q < stark::NW; ++q) w[q] = xs[cur * stark::NW * h + q * h + c];
-        fused_canonical<DIT>(f, p2, w);
+        fused_canonical<DIT, LAZY>(f, p2, w);
         stark::store_elem(out, n, lbase + i, w);
       }
     }
@@ -576,15 +612,18 @@ extern "C" int stark_butterfly_stage(const void* a, const void* tw, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// lazy: the build of Harvey's lazy butterflies (the wrapper's
+// `ops/ntt.py fused_lazy`: 5p < 2^256), else the canonical build (2p < 2^256,
+// which field.cuh asks of every field).
 extern "C" int stark_butterfly_fused(const void* a, const void* tw_cat,
                                      void* out, long long n, int block, int dit,
-                                     const uint32_t* p_words, uint32_t np,
+                                     int lazy, const uint32_t* p_words, uint32_t np,
                                      void* stream) {
   int log_block = 0;
   while ((1 << log_block) < block) ++log_block;
-  // the lazy butterflies and products need 5p < 2^256 (the wrapper says so)
+  const uint32_t top = p_words[stark::NW - 1];
   if (block < 2 || (1 << log_block) != block || log_block > FB_MAX_LOG ||
-      p_words[stark::NW - 1] >= 0x33333333u)
+      top >= (lazy ? 0x33333333u : 0x80000000u))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = n / block;
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
@@ -592,7 +631,8 @@ extern "C" int stark_butterfly_fused(const void* a, const void* tw_cat,
   // CTAs an SM (one for a block of 2 elements)
   const int cs = block >= 4 ? 2 : 1, h = block / cs;
   const size_t smem = (2 * static_cast<size_t>(h) * stark::NW + (h - 1) * 8) * sizeof(uint32_t);
-  auto kernel = dit ? butterfly_fused_kernel<true> : butterfly_fused_kernel<false>;
+  auto kernel = lazy ? (dit ? butterfly_fused_kernel<true, true> : butterfly_fused_kernel<false, true>)
+                     : (dit ? butterfly_fused_kernel<true, false> : butterfly_fused_kernel<false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);

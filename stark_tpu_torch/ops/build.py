@@ -39,12 +39,13 @@ _SIGNATURES = {
         _vp, _vp, _vp, _ll, _ll, ctypes.c_int, _u32p, ctypes.c_uint32, _vp,
     ],
     "stark_butterfly_fused": [
-        _vp, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int, _u32p, ctypes.c_uint32,
-        _vp,
+        _vp, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int, ctypes.c_int, _u32p,
+        ctypes.c_uint32, _vp,
     ],
     "stark_blake2s_words": [_vp, _vp, _ll, ctypes.c_int, _ll, _vp],
     "stark_mpow_scalar": [
-        _vp, _vp, ctypes.c_int, _u32p, ctypes.c_int, _u32p, ctypes.c_uint32, _vp,
+        _vp, _vp, ctypes.c_int, _u32p, ctypes.c_int, ctypes.c_int, _u32p, ctypes.c_uint32,
+        _vp,
     ],
     "stark_scan_prod": [
         _vp, _vp, _ll, _ll, ctypes.c_int, ctypes.c_int, _u32p, ctypes.c_uint32, _vp,

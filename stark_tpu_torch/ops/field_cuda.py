@@ -12,7 +12,8 @@ environment variable, no fallback on error.
 
 `mmul_plain` is the same function in plain PyTorch (16x16-bit schoolbook
 columns and REDC in int64); `mpow_scalar_plain` and `scan_prod_plain` are
-loops of it. They also hold the kernels to account on the card.
+loops of it. They also hold the kernels to account on the card. The power's
+kernel takes e recoded on the host (`mpow_streams`, `mpow_start`).
 """
 
 from __future__ import annotations
@@ -110,14 +111,17 @@ def check_planes(spec: FieldSpec, *ts: torch.Tensor) -> None:
 
 def cuda_args(spec: FieldSpec, t: torch.Tensor):
     """(field words, n', stream) for a launch on t's device; raises where
-    the kernels cannot run."""
-    if t.device.type != "cuda":
-        raise ValueError(f"no kernel for device {t.device}")
+    the kernels cannot run: the field first (16 limbs, and 2p < 2^256, which
+    `csrc/field.cuh` asks of every field), then the device."""
     if spec.num_limbs != 16:
         raise NotImplementedError(
             f"the CUDA field kernels are built for 16-limb (256-bit R) fields, "
             f"not {spec.name}"
         )
+    if 2 * spec.p >= 1 << 256:
+        raise ValueError(f"the CUDA field kernels need 2p < 2^256, not {spec.name}")
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
     _, _, words, np32 = _consts(spec)
     return words, np32, torch.cuda.current_stream(t.device).cuda_stream
 
@@ -161,12 +165,59 @@ def mpow_scalar_plain(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
     return acc
 
 
-MPOW_LANES = 32  # columns of one `mpow_scalar` launch: one warp
+MPOW_LANES = 32  # columns of one `mpow_scalar` launch: a lane of each warp
+MPOW_STREAMS = 2  # its multiply warps beside the squaring one (`csrc/fieldops.cu`)
+MPOW_WINDOW = 4  # bits of a digit, the unit of e dealt to a multiply warp
+MPOW_TAIL = 2  # digits at the top of e that stream 0 keeps
+
+
+def mpow_digits(e: int, window: int = MPOW_WINDOW) -> list[tuple[int, int]]:
+    """e in fixed windows: (position, digit) of each nonzero `window`-bit
+    digit, lowest first, so that e = sum(d << pos) with 0 < d < 2^window and
+    every position a multiple of `window`."""
+    mask = (1 << window) - 1
+    return [(pos, (e >> pos) & mask) for pos in range(0, e.bit_length(), window)
+            if (e >> pos) & mask]
+
+
+def mpow_streams(e: int, streams: int = MPOW_STREAMS, window: int = MPOW_WINDOW,
+                 tail: int = MPOW_TAIL) -> list[int]:
+    """e recoded for the kernel: one exponent for each of its `streams`
+    multiply warps, disjoint and summing to e. The digits (`mpow_digits`)
+    are dealt round robin, lowest first, but the top `tail` go to stream 0,
+    whose warp folds the others' products in before its first digit above
+    theirs: after the last squaring one product is left."""
+    digits = mpow_digits(e, window)
+    out = [0] * streams
+    for j, (pos, d) in enumerate(digits):
+        out[0 if j >= len(digits) - tail else j % streams] |= d << pos
+    return out
+
+
+MPOW_R_BITS = 261  # R' of the kernel's squarings: 9 limbs of 29 bits
+
+
+def mpow_start(spec: FieldSpec, e: int) -> int:
+    """Stream 0's starting value: the kernel squares with R' = 2^261,
+    so the value it hands over for bit i is x_i 2^(-5 (2^i - 1)) (x_i the
+    power a^(2^i) in Montgomery form); over the bits of e the factors come
+    to 2^(-5 (e - popcount e)), which a start of R 2^(5 (e - popcount e))
+    mod p cancels (R = 2^256 makes it Montgomery one for e = 0)."""
+    shift = MPOW_R_BITS - spec.r_bits
+    return spec.r_mod_p * pow(2, shift * (e - bin(e).count("1")), spec.p) % spec.p
+
+
+def mpow_words(spec: FieldSpec, e: int, parts: list[int]):
+    """The kernel's exponent argument: each stream's 8 words, then the 8
+    words of `mpow_start`."""
+    words = [w for x in parts + [mpow_start(spec, e)] for w in _words8(x)]
+    return (ctypes.c_uint32 * len(words))(*words)
 
 
 def mpow_scalar(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
     """a^e elementwise for a small (16, k <= MPOW_LANES) Montgomery plane and an
-    exponent 0 <= e < 2^256, the whole chain in one launch."""
+    exponent 0 <= e < 2^256, the whole chain in one launch: a warp squares,
+    `MPOW_STREAMS` warps multiply in the powers `mpow_streams` gives them."""
     check_planes(spec, a)
     if not 0 <= e < 1 << 256:
         raise ValueError("the exponent must lie in [0, 2^256)")
@@ -178,9 +229,10 @@ def mpow_scalar(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
         return mpow_scalar_plain(spec, a, e)
     words, np32, stream = cuda_args(spec, a)
     out = torch.empty_like(a)
+    parts = mpow_streams(e)
     rc = build.load().stark_mpow_scalar(
-        a.data_ptr(), out.data_ptr(), a.shape[1], (ctypes.c_uint32 * 8)(*_words8(e)),
-        max(e.bit_length(), 1), words, np32, stream,
+        a.data_ptr(), out.data_ptr(), a.shape[1], mpow_words(spec, e, parts),
+        len(parts), max(e.bit_length(), 1), words, np32, stream,
     )
     build.check(rc, "mpow_scalar")
     mpow_scalar.launches += 1

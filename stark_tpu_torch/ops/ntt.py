@@ -104,11 +104,19 @@ def butterfly_stage(spec: FieldSpec, a, tw, m: int, l: int, kind: str):
 butterfly_stage.launches = 0
 
 
+def fused_lazy(spec: FieldSpec) -> bool:
+    """Which build of `csrc/ntt.cu`'s fused pass serves the field: the lazy
+    one (Harvey's butterflies, values below 4p) iff 5p < 2^256, as for
+    BN254's scalar field; else the canonical one (every value below p), as
+    for BLS12-381's."""
+    return 5 * spec.p < 1 << 256
+
+
 def butterfly_fused(spec: FieldSpec, a, tw_cat, block: int, kind: str):
     """The fused run of small stages (see `butterfly_fused_plain`). On a
-    CUDA tensor block is at most `FUSED_BLOCK` and the field must have
-    5p < 2^256 (the kernel's lazy butterflies keep values below 4p):
-    BN254's scalar field does, BLS12-381's does not and is refused."""
+    CUDA tensor block is at most `FUSED_BLOCK` and the field picks the
+    kernel's build (`fused_lazy`); every field of `field_cuda.cuda_args`
+    (16 limbs, 2p < 2^256) has one."""
     _check_kind(kind)
     fc.check_planes(spec, a, tw_cat)
     n = a.shape[1]
@@ -119,16 +127,11 @@ def butterfly_fused(spec: FieldSpec, a, tw_cat, block: int, kind: str):
         )
     if a.device.type == "cpu":
         return butterfly_fused_plain(spec, a, tw_cat, block, kind)
-    if 5 * spec.p >= 1 << 256:
-        raise ValueError(
-            f"butterfly_fused runs on the card only for fields with 5p < 2^256, "
-            f"not {spec.name}"
-        )
     words, np32, stream = fc.cuda_args(spec, a)
     out = torch.empty_like(a)
     rc = build.load().stark_butterfly_fused(
         a.data_ptr(), tw_cat.data_ptr(), out.data_ptr(), n, block,
-        int(kind == "dit"), words, np32, stream,
+        int(kind == "dit"), int(fused_lazy(spec)), words, np32, stream,
     )
     build.check(rc, "butterfly_fused")
     butterfly_fused.launches += 1
