@@ -33,14 +33,20 @@ non-zero and no phase's error is swallowed:
    timed), at the four products of one LDE and at small ragged shapes.
    `scan_prod` runs at the levels of `modmath.scan_levels` for both sizes
    and at two fixed shapes, (16, 64, 2^11) and (16, 64, 2^14), with the
-   team (`field_cuda.scan_team`) of each case. Then, in a record of its own
-   (`prefix_prod`), `prefix_prod` forward and reversed and `multi_inv` at
-   2^17, 2^20 and at lengths 80, 96 and 160: each equal (`torch.equal`) to
-   the same function on CPU tensors, with its device time and launches;
+   team (`field_cuda.scan_team`) of each case. The fold pair runs at every
+   round's quarter q (2^18 down to 2^6), at q = 192 and on BLS12-381's
+   field at 2^16, each case with 0, 1 and p - 1 among the x and y, a row
+   with two equal x and sx equal to one of a row's x (`fold_inputs`).
+   Then, in a record of its own (`prefix_prod`), `prefix_prod` forward and
+   reversed and `multi_inv` at 2^17, 2^20 and at lengths 80, 96 and 160:
+   each equal (`torch.equal`) to the same function on CPU tensors, with its
+   device time and launches;
 4. goldens: the `compute` and `poseidon3_test` proofs, on both of FRI's fold
-   routes and on the CRT LDE engine (verified on that engine too), must be
-   byte-identical to the committed goldens and the `ragged_mix(120)` proof
-   must match its committed sha256; the port's verifier must accept each;
+   routes and on the CRT LDE engine (verified on that engine too), and the
+   `bits` and `pedersen_test` proofs on both fold routes (`GOLDENS`), must
+   be byte-identical to the committed goldens and the `ragged_mix(120)`
+   proof must match its committed sha256; the port's verifier must accept
+   each;
 5. real size: `squaring_chain(43690)` proved twice (cold and warm) on the
    default route (the radix-4 inverse-DFT fold) and verified; the launch
    counter of every kernel of that route must be > 0 for the cold proving
@@ -204,6 +210,14 @@ CRT_ONLY = ("residues_in", "matmul_fold", "reconstruct")
 # the engine's disk cache of host-built tables, inside the (ignored) build tree
 PLAN_CACHE = os.path.join(ROOT, "stark_tpu_torch", "_build", "plans")
 PROVE_MANY_X0 = (3, 5, 7, 11)  # start values of the four pipelined witnesses
+# (fixture circuit, its committed golden proof, the (fri_fold, lde_engine)
+# routes it is proved on): the two larger circuits skip the crt engine, for time
+BUTTERFLY_ROUTES = (("dft", "butterfly"), ("lagrange", "butterfly"))
+GOLDENS = (("compute", "compute_proof_golden.json", BUTTERFLY_ROUTES + (("dft", "crt"),)),
+           ("poseidon3_test", "poseidon3_proof_golden.json",
+            BUTTERFLY_ROUTES + (("dft", "crt"),)),
+           ("bits", "bits_proof_golden.json", BUTTERFLY_ROUTES),
+           ("pedersen_test", "pedersen_proof_golden.json", BUTTERFLY_ROUTES))
 FUSED_ONE_BLOCK = 2048  # a `butterfly_fused` case of a single block
 CHAIN_STEPS = 48  # dependent 64-bit multiply-adds on one CIOS product's critical path
 CYCLES_PER_STEP = 8  # two dependent integer instructions of 4 cycles
@@ -340,6 +354,21 @@ def with_edges(spec, planes: torch.Tensor) -> torch.Tensor:
     flat[:, :2] = top[:, None]
     flat[:, -1] = 0
     return out
+
+
+def fold_inputs(spec, rng, q: int, device):
+    """sx (16, 1), xs4 and ys4 (16, 4, q) of a fold round (q >= 8): random x
+    and y with 0, 1 and p - 1 among them, each in a row of its own; row 3
+    with two equal x (its denominators 0); sx equal to member 2 of row 5
+    (that row's fold is its y_2)."""
+    from stark_tpu_torch.ops import modmath as mm
+
+    xs4, ys4 = (with_edges(spec, random_planes(rng, spec, 4 * q, device)).reshape(16, 4, q)
+                for _ in range(2))
+    xs4[:, 1, 2:3] = mm.mont_one(spec, device)
+    ys4[:, 2, 3:4] = mm.mont_one(spec, device)
+    xs4[:, 3, 3] = xs4[:, 0, 3]
+    return xs4[:, 2, 5:6].clone(), xs4, ys4
 
 
 def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
@@ -497,34 +526,24 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
         {f"n={N}": ((a_edge,), plane + plane // 2, N * MM)},
     )
 
-    def fold_inputs(q):
-        """x and y rows of a fold with 0, 1 and p - 1 among them (each in a
-        row of its own, so a row's x stay distinct), the cubics, and the
-        inverted denominators as the prover makes them."""
-        xs4, ys4 = (with_edges(spec, rand(4 * q)).reshape(16, 4, q) for _ in range(2))
-        xs4[:, 1, 2:3] = mm.mont_one(spec, device)
-        ys4[:, 2, 3:4] = mm.mont_one(spec, device)
-        eqs, dens = fk.fri_fold_pre(spec, xs4)
-        invs = mm.multi_inv(spec, dens.reshape(16, 4 * q)).reshape(16, 4, q)
-        return xs4, ys4, eqs, invs
+    # every round's quarter of a 2^20 domain, 2^18 down to 2^6, and one that
+    # is no multiple of a block (nor of 128); then BLS12-381's scalar field
+    from stark_tpu_torch.fields.field import BLS12_381_FR as bls
 
-    # the rounds' quarters from 2^18 down to 2^6, and one that is no multiple
-    # of a block (nor of 128)
-    folds = {q: fold_inputs(q) for q in (N // 4, 64, 192)}
-    sx = rand(1)
-    out["fri_fold_pre"] = compare(
-        "fri_fold_pre",
-        lambda x: fk.fri_fold_pre(spec, x),
-        lambda x: fk.fri_fold_pre_plain(spec, x),
-        {f"q={q}": ((xs4,), 1536 * q, 18 * q * MM) for q, (xs4, _, _, _) in folds.items()},
-    )
-    out["fri_fold_post"] = compare(
-        "fri_fold_post",
-        lambda *a: fk.fri_fold_post(spec, *a),
-        lambda *a: fk.fri_fold_post_plain(spec, *a),
-        {f"q={q}": ((sx, eqs, ys4, invs), 1600 * q + 64, 23 * q * MM)
-         for q, (_, ys4, eqs, invs) in folds.items()},
-    )
+    folds = {f"q={q}": (spec, *fold_inputs(spec, rng, q, device))
+             for q in [N >> 2 * k for k in range(1, 8)] + [192]}
+    folds[f"{bls.name} q={N // 16}"] = (bls, *fold_inputs(bls, rng, N // 16, device))
+    pre_cases, post_cases = {}, {}
+    for label, (field, sx, xs4, ys4) in folds.items():
+        q = xs4.shape[2]
+        dens = fk.fri_fold_pre_plain(field, xs4)
+        invs = mm.multi_inv(field, dens.reshape(16, 4 * q)).reshape(16, 4, q)
+        pre_cases[label] = ((field, xs4), 512 * q, 8 * q * MM)
+        post_cases[label] = ((field, sx, xs4, ys4, invs), 832 * q + 64, 14 * q * MM)
+    out["fri_fold_pre"] = compare("fri_fold_pre", fk.fri_fold_pre, fk.fri_fold_pre_plain,
+                                  pre_cases)
+    out["fri_fold_post"] = compare("fri_fold_post", fk.fri_fold_post, fk.fri_fold_post_plain,
+                                   post_cases)
     for result in out.values():
         add_bounds(result, sm_hz)
     return out
@@ -776,13 +795,11 @@ def phase_goldens(device) -> list[dict]:
     from stark_tpu_torch.r1cs.synth import ragged_mix
 
     out = []
-    for name, golden in (("compute", "compute_proof_golden.json"),
-                         ("poseidon3_test", "poseidon3_proof_golden.json")):
+    for name, golden, routes in GOLDENS:
         with open(os.path.join(FIXTURES, golden)) as f:
             want = f.read()
         circuit = _fixture(name)
-        for fri_fold, lde_engine in (("dft", "butterfly"), ("lagrange", "butterfly"),
-                                     ("dft", "crt")):
+        for fri_fold, lde_engine in routes:
             out.append(prove_and_check(name, *circuit, device, golden_text=want,
                                        fri_fold=fri_fold, lde_engine=lde_engine))
     with open(os.path.join(FIXTURES, "ragged120_proof_sha256.txt")) as f:

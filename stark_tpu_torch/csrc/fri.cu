@@ -1,42 +1,61 @@
 // The two halves of FRI's Lagrange fold, around the shared batched inversion.
 //
 // They replace the TPU kernels of stark_tpu/protocol/pallas_kernels.py:
-//   fri_fold_pre   :433 (_fri_pre_kernel :399)   the four monic cubics eq_j
-//       vanishing at a row's other three x, and e_j = eq_j(x_j)
-//   fri_fold_post  :478 (_fri_post_kernel :455)  w_j = y_j/e_j,
-//       poly_k = sum_j eq_j[k]*w_j, then Horner at special_x
-// which tile the q rows of a round over (16, 4, 1024) VMEM blocks.
+//   fri_fold_pre   :433 (_fri_pre_kernel :399)   its second output, the
+//       denominators dens_j = prod_(m != j) (x_j - x_m) = eq_j(x_j)
+//   fri_fold_post  :478 (_fri_post_kernel :455)  its output for the cubics
+//       eq_j that :433 makes from the same x: sum_j y_j inv_j eq_j(sx)
+// The TPU pair carries the four monic cubics eq_j of each row (16 words of
+// 8, one of them the constant R mod p) from pre to post across the batched
+// inversion. Here post rebuilds eq_j(sx) = prod_(m != j) (sx - x_m) from the
+// row's four x, so pre writes the denominators only and post reads the x
+// in place of the cubics: the same bits (exact arithmetic, canonical
+// outputs), in 1,344 bytes a row where the TPU's split moves 3,136.
 //
 // Layout: a round's n = 4q domain points as (16, 4, q) planes, member j of
 // row i at [limb][j][i] (a view of the flat (16, n) plane: x_j[i] =
-// xs[j*q + i]); eqs is (16, 16, q) with coefficient k of eq_j at index 4j+k.
+// xs[j*q + i]).
 //
-// What bounds them on an H100: device memory. A row of `fri_fold_pre` reads
-// 256 bytes and writes 1,280 for 18 Montgomery products; a row of
-// `fri_fold_post` reads 1,536 bytes and writes 64 for 23. By the card's
-// rates the bytes take 2.5 to 3 times as long as the products. Most of
-// those bytes are the eqs round trip between the two kernels (1,024 bytes a
-// row each way), which the interface keeps so that each half can be held
-// against its TPU counterpart.
+// What bounds them on an H100: by bytes, 512 a row for pre (x in, dens out)
+// and 832 for post (x, y, inverses in, one element out), 0.040 and 0.065 ms
+// at q = 2^18. By what the function needs, 8 Montgomery products a row in
+// pre and 14 in post. The products bind: at q = 2^18 pre takes 0.074 ms
+// and post 0.128; moving the same bytes another way (through shared memory,
+// by 16-byte loads: below) made neither faster, and post's time follows its
+// products a lane (a quad, 16 a row: 0.139).
 // What the design does about it:
-// - One thread per row i < q, every element as 8 packed words in registers,
-//   each plane row read or written once with `load_elem`/`store_elem` on a
-//   row's base pointer and the limb stride of the whole (16, R, q) array, so
-//   a warp's access to one limb of one member is one 128-byte segment and
-//   the (16, 4, q) views need no copy.
-// - `fri_fold_pre` keeps the four x and the six pair products in registers
-//   (80 words) and stores each coefficient as soon as it exists; c3 = R mod p
-//   comes from the Field argument.
-// - `fri_fold_post` streams: for each j it loads y_j and 1/e_j, forms w_j,
-//   and adds eq_j[k]*w_j into four running sums, so only the sums, w_j and
-//   one operand are live (about 56 words); special_x is one (16, 1) column
-//   that every thread reads (the same address across a warp: one broadcast).
-// - Both kernels bound their registers for four blocks an SM (FRI_MIN_BLOCKS):
-//   with the addresses of 20 output rows and an inlined product's
-//   temporaries beside the values above, occupancy and not the spill decides
-//   their time.
-// - Every intermediate is canonical (< p) and the negations are 0 - a mod p,
-//   which keeps 0 at 0, so the bits equal the composed route's.
+// - No product beyond what the function needs. dens_j is two products of
+//   the differences x_j - x_m (the TPU kernel forms six pair products and
+//   Horner-evaluates each cubic: 18 a row). Post forms d_m = sx - x_m, the
+//   pair products d_0 d_1 and d_2 d_3, each member's vanishing product from
+//   them, its weight w_j = y_j inv_j and its term: 14 a row (the TPU's 23).
+//   Every difference is a canonical mod_sub, 0 exactly for equal x, so a
+//   row with two equal x gets dens 0 for both (and, from multi_inv,
+//   inverses 0).
+// - Short chains on many lanes. Pre spreads a row over a quad of lanes, one
+//   member a lane (2 products), the x traded by __shfl_xor_sync. Post
+//   spreads it over a pair, two members a lane (7 products, the pair
+//   products traded), and the two lanes add their sums by a shuffle and
+//   store half the limbs each. 46 and 64 registers, no spill, no
+//   __launch_bounds__ cap (the TPU's split, a row a thread, took 128
+//   registers under __launch_bounds__(128, 4) and spilled 20 and 140 bytes).
+// - Each limb plane row is read with load_elem, so a warp reads 32-byte
+//   sectors of 4 members (pre) or 2 (post) of 8 or 16 neighbouring rows.
+// Tried and dropped (scripts/fri_fold_variants_cuda.py, which keeps each as
+// probe source; ms at q = 2^18 and q = 64, pre / post, one H100 80GB HBM3 at
+// 700.00 W): the TPU's split, a row a thread, 0.4447 / 0.4681 and 0.0366 /
+// 0.0414; products of differences a row a thread 0.0975 / 0.1389 and
+// 0.0119 / 0.0163; post over a quad, 4 products a lane (16 a row), 0.1387
+// at 2^18 but 0.0085 at q = 64 (the pair's 0.0105: two more dependent
+// products a lane); four warps a block trading through shared memory
+// 0.0757 / 0.1453; the block's rows staged by 16-byte loads and stores
+// 0.0937 / 0.1794; a persistent grid 0.0868 / 0.1651; radix-2^29 products
+// (field.cuh's form, R' = 2^261, and one more product by 2^281 mod p to
+// take out their factors): post 0.1439 over a quad, 0.1280 over a pair.
+// The schedule moves post by a few percent: the same arithmetic with each
+// output word's select beside its two stores (and d_a d_b shuffled into its
+// own operand's register) took 0.1333 ms at q = 2^18, this form 0.1269 to
+// 0.1281, in calls where the quad's post read 0.1374 to 0.1389 both times.
 #include "field.cuh"
 
 namespace {
@@ -44,167 +63,150 @@ namespace {
 using stark::Field;
 using stark::NW;
 
-// Threads a block, and the blocks an SM must be able to hold, which caps a
-// thread's registers (4 blocks of 128 threads: 128 registers). Left to itself
-// the compiler takes 179 (pre) and 156 (post) and two or three blocks fit an
-// SM, too few warps in flight for a pass that waits on memory; at 128 a few
-// words spill to local memory (24 bytes a thread in pre, 140 in post) and at
-// q = 2^18 pre takes 0.51 ms where it took 0.81 and post 0.51 where it took
-// 0.66 (chip_smoke.py on an H100 80GB HBM3 at 700 W). Both can be set from
-// the compiler's command line, FRI_MIN_BLOCKS=0 for no bound at all:
-// scripts/fri_fold_variants_cuda.py builds and times the alternatives. On
-// that card 64- and 256-thread blocks at the same 128 registers read the
-// same within 3%; at 64 registers (8 blocks) pre is 13% faster and post,
-// with 2.5 KB spilled, 29% slower, so one bound serves both.
-#ifndef FRI_THREADS
-#define FRI_THREADS 128
-#endif
-#ifndef FRI_MIN_BLOCKS
-#define FRI_MIN_BLOCKS 4
-#endif
-constexpr int THREADS = FRI_THREADS;
-#if FRI_MIN_BLOCKS > 0
-#define FRI_BOUNDS __launch_bounds__(FRI_THREADS, FRI_MIN_BLOCKS)
-#else
-#define FRI_BOUNDS
-#endif
+constexpr int THREADS = 128;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
-// 0 - a mod p: p - a, and 0 for a = 0.
-__device__ __forceinline__ void mod_neg(const Field& f, const uint32_t a[NW],
-                                        uint32_t r[NW]) {
-  uint32_t zero[NW];
+// r = the element that lane (this lane ^ k) of the warp holds
+__device__ __forceinline__ void shfl_elem(const uint32_t v[NW], int k, uint32_t r[NW]) {
 #pragma unroll
-  for (int w = 0; w < NW; ++w) zero[w] = 0;
-  stark::mod_sub(f, zero, a, r);
+  for (int w = 0; w < NW; ++w) r[w] = __shfl_xor_sync(FULL, v[w], k);
 }
 
-// Row r of a (16, R, q) array: base pointer for load_elem/store_elem with
-// limb stride R*q.
-__device__ __forceinline__ const int32_t* row_in(const int32_t* base,
-                                                 int r, int64_t q) {
-  return base + r * q;
+// Lane 4r + j of a warp holds member j of one row: row i = thread / 4. A
+// quad past the last row computes on row q - 1 and stores nothing, so that
+// every lane takes part in the shuffles.
+struct Quad {
+  int64_t i;  // the row
+  int64_t c;  // the row it reads: i, or q - 1 past the end
+  int j;      // the member
+  bool live;
+};
+
+__device__ __forceinline__ Quad quad_of(int64_t t, int64_t q) {
+  Quad r;
+  r.i = t >> 2;
+  r.j = static_cast<int>(t & 3);
+  r.live = r.i < q;
+  r.c = r.live ? r.i : q - 1;
+  return r;
 }
 
-__device__ __forceinline__ int32_t* row_out(int32_t* base, int r, int64_t q) {
-  return base + r * q;
-}
-
-// The cubic with roots {x_a, x_b, x_c} for member j (the other three), its
-// value at x_j, both stored; xab, xac, xbc are the pair products.
-__device__ __forceinline__ void cubic_and_denominator(
-    const Field& f, int j, const uint32_t xj[NW], const uint32_t xa[NW],
-    const uint32_t xb[NW], const uint32_t xc[NW], const uint32_t xab[NW],
-    const uint32_t xac[NW], const uint32_t xbc[NW], int32_t* __restrict__ eqs,
-    int32_t* __restrict__ dens, int64_t q, int64_t i) {
-  uint32_t c0[NW], c1[NW], c2[NW], t[NW], u[NW];
-  stark::mont_mul(f, xab, xc, t);
-  mod_neg(f, t, c0);
-  stark::mod_add(f, xab, xac, t);
-  stark::mod_add(f, t, xbc, c1);
-  stark::mod_add(f, xa, xb, t);
-  stark::mod_add(f, t, xc, u);
-  mod_neg(f, u, c2);
-  stark::store_elem(row_out(eqs, 4 * j + 0, q), 16 * q, i, c0);
-  stark::store_elem(row_out(eqs, 4 * j + 1, q), 16 * q, i, c1);
-  stark::store_elem(row_out(eqs, 4 * j + 2, q), 16 * q, i, c2);
-  stark::store_elem(row_out(eqs, 4 * j + 3, q), 16 * q, i, f.one);
-  // e_j = ((x_j + c2)*x_j + c1)*x_j + c0, the leading coefficient being 1
-  stark::mod_add(f, xj, c2, t);
-  stark::mont_mul(f, t, xj, u);
-  stark::mod_add(f, u, c1, t);
-  stark::mont_mul(f, t, xj, u);
-  stark::mod_add(f, u, c0, t);
-  stark::store_elem(row_out(dens, j, q), 4 * q, i, t);
-}
-
-__global__ void FRI_BOUNDS
-fri_fold_pre_kernel(const int32_t* __restrict__ xs4, int32_t* __restrict__ eqs,
-                    int32_t* __restrict__ dens, int64_t q, Field f) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= q) return;
-  uint32_t x0[NW], x1[NW], x2[NW], x3[NW];
-  stark::load_elem(row_in(xs4, 0, q), 4 * q, i, x0);
-  stark::load_elem(row_in(xs4, 1, q), 4 * q, i, x1);
-  stark::load_elem(row_in(xs4, 2, q), 4 * q, i, x2);
-  stark::load_elem(row_in(xs4, 3, q), 4 * q, i, x3);
-  uint32_t x01[NW], x02[NW], x03[NW], x12[NW], x13[NW], x23[NW];
-  stark::mont_mul(f, x0, x1, x01);
-  stark::mont_mul(f, x0, x2, x02);
-  stark::mont_mul(f, x0, x3, x03);
-  stark::mont_mul(f, x1, x2, x12);
-  stark::mont_mul(f, x1, x3, x13);
-  stark::mont_mul(f, x2, x3, x23);
-  cubic_and_denominator(f, 0, x0, x1, x2, x3, x12, x13, x23, eqs, dens, q, i);
-  cubic_and_denominator(f, 1, x1, x0, x2, x3, x02, x03, x23, eqs, dens, q, i);
-  cubic_and_denominator(f, 2, x2, x0, x1, x3, x01, x03, x13, eqs, dens, q, i);
-  cubic_and_denominator(f, 3, x3, x0, x1, x2, x01, x02, x12, eqs, dens, q, i);
-}
-
-__global__ void FRI_BOUNDS
-fri_fold_post_kernel(const int32_t* __restrict__ sx,
-                     const int32_t* __restrict__ eqs,
-                     const int32_t* __restrict__ ys4,
-                     const int32_t* __restrict__ invs,
-                     int32_t* __restrict__ out, int64_t q, Field f) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= q) return;
-  uint32_t poly[4][NW], w[NW], a[NW], t[NW], u[NW];
+// dens_j = (x_j - x_(j^1)) (x_j - x_(j^2)) (x_j - x_(j^3)): two products, for
+// the lane of thread index t
+__device__ __forceinline__ void fold_pre_lane(const Field& f, const int32_t* __restrict__ xs4,
+                                              int32_t* __restrict__ dens, int64_t q,
+                                              int64_t t) {
+  const Quad r = quad_of(t, q);
+  uint32_t x[NW], o[NW], d[NW], acc[NW], u[NW];
+  stark::load_elem(xs4 + r.j * q, 4 * q, r.c, x);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    stark::load_elem(row_in(ys4, j, q), 4 * q, i, a);
-    stark::load_elem(row_in(invs, j, q), 4 * q, i, t);
-    stark::mont_mul(f, a, t, w);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      stark::load_elem(row_in(eqs, 4 * j + k, q), 16 * q, i, a);
-      if (j == 0) {
-        stark::mont_mul(f, a, w, poly[k]);
-      } else {
-        stark::mont_mul(f, a, w, t);
-        stark::mod_add(f, poly[k], t, u);
-        stark::set_elem(poly[k], u);
-      }
+  for (int k = 1; k < 4; ++k) {
+    shfl_elem(x, k, o);
+    stark::mod_sub(f, x, o, d);
+    if (k == 1) {
+      stark::set_elem(acc, d);
+    } else {
+      stark::mont_mul(f, acc, d, u);
+      stark::set_elem(acc, u);
     }
   }
-  // Horner at special_x: ((poly3*sx + poly2)*sx + poly1)*sx + poly0
-  stark::load_elem(sx, 1, 0, a);
-  stark::set_elem(w, poly[3]);
-#pragma unroll
-  for (int k = 2; k >= 0; --k) {
-    stark::mont_mul(f, w, a, t);
-    stark::mod_add(f, t, poly[k], w);
-  }
-  stark::store_elem(out, q, i, w);
+  if (r.live) stark::store_elem(dens + r.j * q, 4 * q, r.i, acc);
 }
 
-inline unsigned blocks_for(long long n) {
-  return static_cast<unsigned>((n + THREADS - 1) / THREADS);
+// out = sum_j y_j inv_j prod_(m != j) (sx - x_m) for the lane of thread index
+// t: lane h of a pair holds members a = 2h and b = 2h + 1 of row i = t / 2.
+// It forms d_a d_b (d = sx - x), takes the other lane's, and from them the
+// vanishing products of its members, their weights w = y inv and terms;
+// the two lanes add their sums, and lane h stores limbs 8h .. 8h + 7. A row
+// past the end computes on row q - 1 and stores nothing.
+__device__ __forceinline__ void fold_post_lane(
+    const Field& f, const int32_t* __restrict__ sx, const int32_t* __restrict__ xs4,
+    const int32_t* __restrict__ ys4, const int32_t* __restrict__ invs,
+    int32_t* __restrict__ out, int64_t q, int64_t t) {
+  const int64_t i = t >> 1;
+  const int h = static_cast<int>(t & 1);
+  const bool live = i < q;
+  const int64_t c = live ? i : q - 1;
+  const int32_t* xa = xs4 + (2 * h) * q;
+  const int32_t* ya = ys4 + (2 * h) * q;
+  const int32_t* ia = invs + (2 * h) * q;
+  uint32_t s[NW], u[NW], da[NW], db[NW], pr[NW], po[NW], la[NW], lb[NW], w[NW], v[NW];
+  stark::load_elem(sx, 1, 0, s);
+  stark::load_elem(xa, 4 * q, c, u);
+  stark::mod_sub(f, s, u, da);
+  stark::load_elem(xa + q, 4 * q, c, u);
+  stark::mod_sub(f, s, u, db);
+  stark::mont_mul(f, da, db, pr);
+  shfl_elem(pr, 1, po);
+  stark::mont_mul(f, db, po, la);
+  stark::mont_mul(f, da, po, lb);
+  stark::load_elem(ya, 4 * q, c, s);
+  stark::load_elem(ia, 4 * q, c, u);
+  stark::mont_mul(f, s, u, w);
+  stark::mont_mul(f, w, la, v);
+  stark::load_elem(ya + q, 4 * q, c, s);
+  stark::load_elem(ia + q, 4 * q, c, u);
+  stark::mont_mul(f, s, u, w);
+  stark::mont_mul(f, w, lb, la);
+  stark::mod_add(f, v, la, u);
+  shfl_elem(u, 1, v);
+  stark::mod_add(f, u, v, s);
+  if (live) {
+    uint32_t half[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) half[k] = h ? s[4 + k] : s[k];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      out[(8 * h + 2 * k) * q + i] = static_cast<int32_t>(half[k] & 0xFFFFu);
+      out[(8 * h + 2 * k + 1) * q + i] = static_cast<int32_t>(half[k] >> 16);
+    }
+  }
+}
+
+__device__ __forceinline__ int64_t thread_index() {
+  return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+
+__global__ void __launch_bounds__(THREADS)
+fri_fold_pre_kernel(const int32_t* __restrict__ xs4, int32_t* __restrict__ dens,
+                    int64_t q, Field f) {
+  fold_pre_lane(f, xs4, dens, q, thread_index());
+}
+
+__global__ void __launch_bounds__(THREADS)
+fri_fold_post_kernel(const int32_t* __restrict__ sx, const int32_t* __restrict__ xs4,
+                     const int32_t* __restrict__ ys4, const int32_t* __restrict__ invs,
+                     int32_t* __restrict__ out, int64_t q, Field f) {
+  fold_post_lane(f, sx, xs4, ys4, invs, out, q, thread_index());
+}
+
+inline unsigned blocks_for(long long lanes) {
+  return static_cast<unsigned>((lanes + THREADS - 1) / THREADS);
 }
 
 }  // namespace
 
-// xs4: (16, 4, q) -> eqs (16, 16, q), dens (16, 4, q); nothing to do for q = 0.
-extern "C" int stark_fri_fold_pre(const void* xs4, void* eqs, void* dens,
-                                  long long q, const uint32_t* field_words,
-                                  uint32_t np, void* stream) {
+// xs4 (16, 4, q) -> dens (16, 4, q); nothing to do for q = 0.
+extern "C" int stark_fri_fold_pre(const void* xs4, void* dens, long long q,
+                                  const uint32_t* field_words, uint32_t np,
+                                  void* stream) {
   if (q > 0)
-    fri_fold_pre_kernel<<<blocks_for(q), THREADS, 0,
+    fri_fold_pre_kernel<<<blocks_for(4 * q), THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(xs4), static_cast<int32_t*>(eqs),
-        static_cast<int32_t*>(dens), q, stark::make_field(field_words, np));
+        static_cast<const int32_t*>(xs4), static_cast<int32_t*>(dens), q,
+        stark::make_field(field_words, np));
   return static_cast<int>(cudaGetLastError());
 }
 
-// sx (16, 1), eqs (16, 16, q), ys4 and invs (16, 4, q) -> out (16, q).
-extern "C" int stark_fri_fold_post(const void* sx, const void* eqs,
-                                   const void* ys4, const void* invs,
-                                   void* out, long long q,
+// sx (16, 1), xs4, ys4 and invs (16, 4, q) -> out (16, q).
+extern "C" int stark_fri_fold_post(const void* sx, const void* xs4, const void* ys4,
+                                   const void* invs, void* out, long long q,
                                    const uint32_t* field_words, uint32_t np,
                                    void* stream) {
   if (q > 0)
-    fri_fold_post_kernel<<<blocks_for(q), THREADS, 0,
+    fri_fold_post_kernel<<<blocks_for(2 * q), THREADS, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(sx), static_cast<const int32_t*>(eqs),
+        static_cast<const int32_t*>(sx), static_cast<const int32_t*>(xs4),
         static_cast<const int32_t*>(ys4), static_cast<const int32_t*>(invs),
         static_cast<int32_t*>(out), q, stark::make_field(field_words, np));
   return static_cast<int>(cudaGetLastError());

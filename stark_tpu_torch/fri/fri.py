@@ -66,14 +66,16 @@ def fold(spec: FieldSpec, values, xs, sx, route: str = "dft"):
     with x_i^-1 = xs[(n - i) mod n].
 
     "lagrange": general 4-point Lagrange interpolation, `fri_fold_pre`
-    (vanishing cubics and denominators), one `multi_inv` over all n
-    denominators, `fri_fold_post` (combine and Horner at sx)."""
+    (the denominators), one `multi_inv` over all n of them, `fri_fold_post`
+    (each row's interpolant at sx from its x, y and inverted
+    denominators)."""
     L, n = values.shape
     quarter = n // 4
     if check_fold_route(route) == "lagrange":
-        eqs, dens = fk.fri_fold_pre(spec, xs.reshape(L, 4, quarter))
+        xs4 = xs.reshape(L, 4, quarter)
+        dens = fk.fri_fold_pre(spec, xs4)
         invs = mm.multi_inv(spec, dens.reshape(L, n)).reshape(L, 4, quarter)
-        return fk.fri_fold_post(spec, sx, eqs, values.reshape(L, 4, quarter), invs)
+        return fk.fri_fold_post(spec, sx, xs4, values.reshape(L, 4, quarter), invs)
     v0, v1, v2, v3 = (values[:, j * quarter : (j + 1) * quarter] for j in range(4))
     i_root = xs[:, quarter : quarter + 1]  # I = g^(n/4)
     a = mm.madd(spec, v0, v2)

@@ -74,7 +74,7 @@ _SIGNATURES = {
         _vp, _vp, ctypes.c_int, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp,
     ],
     "stark_from_mont_pack_words": [_vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp],
-    "stark_fri_fold_pre": [_vp, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp],
+    "stark_fri_fold_pre": [_vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp],
     "stark_fri_fold_post": [
         _vp, _vp, _vp, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp,
     ],

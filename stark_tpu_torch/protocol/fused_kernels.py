@@ -6,17 +6,19 @@ Counterpart of `stark_tpu/protocol/pallas_kernels.py` for its kernels
 `vanishing_eval` (`:236`), `shoup_mul_periodic` (`:268`),
 `linear_combination_shoup` (`:319`), `sub_mul` (`:353`),
 `from_mont_pack_words` (`:373`), `fri_fold_pre` (`:433`) and `fri_fold_post`
-(`:478`), with the same signatures. The kernels are `csrc/protocol.cu` and,
-for the two halves of FRI's Lagrange fold, `csrc/fri.cu`; each header says
-what bounds its kernels on an H100 and what the design does about it.
+(`:478`), with the same signatures but for the fold pair, which passes the
+x in place of the TPU pair's (16, 16, q) cubics. The kernels are
+`csrc/protocol.cu` and, for the two halves of FRI's Lagrange fold,
+`csrc/fri.cu`; each header says what bounds its kernels on an H100 and what
+the design does about it.
 
 Every wrapper takes contiguous (16, n) int32 Montgomery planes on one device
 (`field_cuda.check_planes` refuses anything else, views included: the
 callers in `protocol/kernels.py` make their operands contiguous); the fold
-kernels take contiguous (16, 4, q) and (16, 16, q) arrays. On a CUDA
-tensor it launches its kernel or raises; on a CPU tensor it runs the
-`*_plain` function beside it. Nothing else chooses: no size gate, no
-environment variable, no fallback on error.
+kernels take contiguous (16, 4, q) arrays. On a CUDA tensor it launches its
+kernel or raises; on a CPU tensor it runs the `*_plain` function beside
+it. Nothing else chooses: no size gate, no environment variable, no
+fallback on error.
 
 The `*_plain` functions are the compositions the JAX package runs when its
 Pallas kernels are off (`stark_tpu/protocol/kernels.py`), in plain PyTorch
@@ -372,71 +374,52 @@ def _check_rows(spec: FieldSpec, like: torch.Tensor, **arrays) -> None:
 
 
 def fri_fold_pre_plain(spec, xs4):
-    L, _, q = xs4.shape
     x = [xs4[:, j] for j in range(4)]
-    zero = torch.zeros_like(x[0])
-    neg = lambda a: mm.msub(spec, zero, a)  # noqa: E731
-    pair = {(a, b): _mul(spec, x[a], x[b]) for a in range(4) for b in range(a + 1, 4)}
-    eqs = torch.empty((L, 16, q), dtype=torch.int32, device=xs4.device)
-    dens = torch.empty((L, 4, q), dtype=torch.int32, device=xs4.device)
+    dens = torch.empty_like(xs4)
     for j, (a, b, c) in enumerate(_OTHERS):
-        c0 = neg(_mul(spec, pair[(a, b)], x[c]))
-        c1 = mm.madd(spec, mm.madd(spec, pair[(a, b)], pair[(a, c)]), pair[(b, c)])
-        c2 = neg(mm.madd(spec, mm.madd(spec, x[a], x[b]), x[c]))
-        eqs[:, 4 * j + 0] = c0
-        eqs[:, 4 * j + 1] = c1
-        eqs[:, 4 * j + 2] = c2
-        eqs[:, 4 * j + 3] = mm.mont_one(spec, xs4.device)
-        acc = mm.madd(spec, x[j], c2)
-        acc = mm.madd(spec, _mul(spec, acc, x[j]), c1)
-        dens[:, j] = mm.madd(spec, _mul(spec, acc, x[j]), c0)
-    return eqs, dens
+        da, db, dc = (mm.msub(spec, x[j], x[m]) for m in (a, b, c))
+        dens[:, j] = _mul(spec, _mul(spec, da, db), dc)
+    return dens
 
 
 def fri_fold_pre(spec: FieldSpec, xs4):
-    """xs4: (16, 4, q), the four x of each row -> (eqs (16, 16, q), dens
-    (16, 4, q)): coefficient k (low to high) of the monic cubic eq_j that
-    vanishes at the row's other three x at eqs[:, 4j + k], and
-    dens[:, j] = eq_j(x_j), the Lagrange denominator."""
+    """xs4: (16, 4, q), the four x of each row -> dens (16, 4, q), the
+    Lagrange denominators dens[:, j] = prod_(m != j) (x_j - x_m)."""
     _check_rows(spec, xs4, xs4=(xs4, 4))
     if xs4.device.type == "cpu":
         return fri_fold_pre_plain(spec, xs4)
     q = xs4.shape[2]
-    eqs = torch.empty((spec.num_limbs, 16, q), dtype=torch.int32, device=xs4.device)
     dens = torch.empty_like(xs4)
     _launch(fri_fold_pre, spec, xs4, lambda lib, w, np32, st: lib.stark_fri_fold_pre(
-        xs4.data_ptr(), eqs.data_ptr(), dens.data_ptr(), q, w, np32, st))
-    return eqs, dens
+        xs4.data_ptr(), dens.data_ptr(), q, w, np32, st))
+    return dens
 
 
-def fri_fold_post_plain(spec, sx, eqs, ys4, invs):
-    poly = [None] * 4
-    for j in range(4):
+def fri_fold_post_plain(spec, sx, xs4, ys4, invs):
+    d = [mm.msub(spec, sx, xs4[:, m]) for m in range(4)]
+    out = None
+    for j, (a, b, c) in enumerate(_OTHERS):
         w = _mul(spec, ys4[:, j], invs[:, j])
-        for k in range(4):
-            term = _mul(spec, eqs[:, 4 * j + k], w)
-            poly[k] = term if poly[k] is None else mm.madd(spec, poly[k], term)
-    acc = poly[3]
-    for k in (2, 1, 0):
-        acc = mm.madd(spec, _mul(spec, acc, sx), poly[k])
-    return acc
+        term = _mul(spec, w, _mul(spec, _mul(spec, d[a], d[b]), d[c]))
+        out = term if out is None else mm.madd(spec, out, term)
+    return out
 
 
-def fri_fold_post(spec: FieldSpec, sx, eqs, ys4, invs):
-    """The folded column (16, q): with w_j = ys4[:, j] * invs[:, j], the
-    interpolant sum_j w_j * eq_j of each row evaluated at the one (16, 1)
-    point sx; eqs as `fri_fold_pre` lays them out, invs the inverted
-    denominators."""
-    _check_rows(spec, ys4, ys4=(ys4, 4), invs=(invs, 4), eqs=(eqs, 16))
+def fri_fold_post(spec: FieldSpec, sx, xs4, ys4, invs):
+    """The folded column (16, q): each row's interpolant through its four
+    points (xs4[:, j], ys4[:, j]) at the one (16, 1) point sx,
+    sum_j ys4[:, j] * invs[:, j] * prod_(m != j) (sx - xs4[:, m]), with invs
+    the inverted denominators of `fri_fold_pre`."""
+    _check_rows(spec, ys4, ys4=(ys4, 4), xs4=(xs4, 4), invs=(invs, 4))
     fc.check_planes(spec, sx)
     if sx.shape[1] != 1 or sx.device != ys4.device:
         raise ValueError(f"sx must be (16, 1) on ys4's device, got {tuple(sx.shape)}")
     if ys4.device.type == "cpu":
-        return fri_fold_post_plain(spec, sx, eqs, ys4, invs)
+        return fri_fold_post_plain(spec, sx, xs4, ys4, invs)
     q = ys4.shape[2]
     out = torch.empty((spec.num_limbs, q), dtype=torch.int32, device=ys4.device)
     _launch(fri_fold_post, spec, ys4, lambda lib, w, np32, st: lib.stark_fri_fold_post(
-        sx.data_ptr(), eqs.data_ptr(), ys4.data_ptr(), invs.data_ptr(),
+        sx.data_ptr(), xs4.data_ptr(), ys4.data_ptr(), invs.data_ptr(),
         out.data_ptr(), q, w, np32, st))
     return out
 
