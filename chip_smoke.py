@@ -37,6 +37,11 @@ non-zero and no phase's error is swallowed:
    round's quarter q (2^18 down to 2^6), at q = 192 and on BLS12-381's
    field at 2^16, each case with 0, 1 and p - 1 among the x and y, a row
    with two equal x and sx equal to one of a row's x (`fold_inputs`).
+   `q2_eval` runs the prover's shift (in `fused_kernels.q2_plan`'s grouped
+   order), shifts 0, 1 and n - 1 and the 2^17 domain's prover shape;
+   `linear_combination_shoup` a pattern of 8 and of 1,024 columns, every
+   k_j p - 1 with every plane through `with_edges`, and BLS12-381's field
+   at 2^16.
    Then, in a record of its own (`prefix_prod`), `prefix_prod` forward and
    reversed and `multi_inv` at 2^17, 2^20 and at lengths 80, 96 and 160:
    each equal (`torch.equal`) to the same function on CPU tensors, with its
@@ -94,7 +99,12 @@ clock, half of the 128 FP32 lanes behind the published 67 TFLOP/s. A
 Montgomery product counts 136 multiply-adds (two 8x8-word products and 8
 for the reduction factors), as does a Shoup product (one 8x8-word product
 and two low halves of 36), a Blake2s compression 960 (10 rounds of 8 G of
-12). `bound_by` is "bytes" unless the operations take strictly longer.
+12). The linear combination counts what the function needs: folded into
+three coefficients (k3 + k4 x^steps) and the like, its x^steps terms leave
+8 products an element, and 3 a pattern column make the coefficients of
+`linear_combination_shoup`; `linear_combination`'s x^steps differs at
+every element, so it needs 11 an element.
+`bound_by` is "bytes" unless the operations take strictly longer.
 `matmul_fold`'s operations are the multiply-adds of its four digit products,
 2 * 4 * K * kout * B a prime, over the 1,979e12 a second of the int8 tensor
 cores (the `wgmma` s8 instruction it uses). `residues_in` is counted by
@@ -458,11 +468,23 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
         lambda *a: fk.q1_eval_plain(spec, *a),
         {f"n={N} skips={skips}": ((*cols[:5], skips), 6 * plane, 3 * N * MM)},
     )
+    # the prover's shift first (grouped by `fused_kernels.q2_plan`), then the
+    # straight order's shifts and the 2^17 domain's prover shape; the q2 and
+    # linear combination cases past their first draw from a generator of
+    # their own, so that the other kernels' inputs do not depend on them
+    extra = np.random.default_rng(SEED + 8)
+    small_n, small_kshift = N // 8, N // 64 // 3 * skips
+    q2_cases = {f"n={N} kshift={k}": ((*cols[:2], k), 3 * plane, 2 * N * MM)
+                for k in (kshift, 0, 1, N - 1)}
+    q2_cases[f"n={small_n} kshift={small_kshift}"] = (
+        (with_edges(spec, random_planes(extra, spec, small_n, device)),
+         random_planes(extra, spec, small_n, device), small_kshift),
+        3 * 64 * small_n, 2 * small_n * MM)
     out["q2_eval"] = compare(
         "q2_eval",
         lambda *a: fk.q2_eval(spec, *a),
         lambda *a: fk.q2_eval_plain(spec, *a),
-        {f"n={N} kshift={kshift}": ((*cols[:2], kshift), 3 * plane, 2 * N * MM)},
+        q2_cases,
     )
     out["q3_eval"] = compare(
         "q3_eval",
@@ -474,7 +496,7 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
         "linear_combination",
         lambda *a: fk.linear_combination(spec, *a),
         lambda *a: fk.linear_combination_plain(spec, *a),
-        {f"n={N}": ((k11, *cols), 10 * plane, 14 * N * MM)},
+        {f"n={N}": ((k11, *cols), 10 * plane, 11 * N * MM)},
     )
     # a pattern of `skips` plain constants, as the stages build it: 0 (the
     # first of Z^-1), 1 and p - 1 among them
@@ -493,12 +515,32 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
         {f"n={N} t={skips}": ((*pats, a_edge), 2 * plane + pat_bytes, N * MM),
          f"n={N} t=1024": ((*wide, a_edge), 2 * plane + 2 * 64 * 1024, N * MM)},
     )
+    # 8 products an element (the x^steps terms folded into 3 coefficients a
+    # pattern column, 3 products each); the edge case: every k_j p - 1, every
+    # plane through `with_edges`; then BLS12-381's scalar field
+    from stark_tpu_torch.fields.field import BLS12_381_FR as bls
+
+    k_top = with_edges(spec, k11)
+    k_top[:] = k_top[:, :1]
+    lc_cases = {
+        f"n={N} t={skips}": ((spec, k11, *pats, *cols[1:]), 9 * plane + pat_bytes,
+                             (8 * N + 3 * skips) * MM),
+        f"n={N} t=1024": ((spec, k11, *wide, *cols[1:]), 9 * plane + 2 * 64 * 1024,
+                          (8 * N + 3 * 1024) * MM),
+        f"n={N} t={skips} edges": ((spec, k_top, *pats, *[with_edges(spec, c) for c in cols[1:]]),
+                                   9 * plane + pat_bytes, (8 * N + 3 * skips) * MM)}
+    bls_n = N // 16
+    bls_pats = mm.shoup_consts(bls, [0, 1, bls.p - 1] + [
+        int.from_bytes(extra.bytes(32), "little") % bls.p for _ in range(skips - 3)], device)
+    lc_cases[f"{bls.name} n={bls_n} t={skips}"] = (
+        (bls, with_edges(bls, random_planes(extra, bls, 11, device)), *bls_pats,
+         *[with_edges(bls, random_planes(extra, bls, bls_n, device)) for _ in range(8)]),
+        9 * 64 * bls_n + pat_bytes, (8 * bls_n + 3 * skips) * MM)
     out["linear_combination_shoup"] = compare(
         "linear_combination_shoup",
-        lambda *a: fk.linear_combination_shoup(spec, *a),
-        lambda *a: fk.linear_combination_shoup_plain(spec, *a),
-        {f"n={N} t={skips}": ((k11, *pats, *cols[1:]), 9 * plane + pat_bytes, 14 * N * MM),
-         f"n={N} t=1024": ((k11, *wide, *cols[1:]), 9 * plane + 2 * 64 * 1024, 14 * N * MM)},
+        fk.linear_combination_shoup,
+        fk.linear_combination_shoup_plain,
+        lc_cases,
     )
     out["horner_eval"] = compare(
         "horner_eval",
@@ -528,8 +570,6 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
 
     # every round's quarter of a 2^20 domain, 2^18 down to 2^6, and one that
     # is no multiple of a block (nor of 128); then BLS12-381's scalar field
-    from stark_tpu_torch.fields.field import BLS12_381_FR as bls
-
     folds = {f"q={q}": (spec, *fold_inputs(spec, rng, q, device))
              for q in [N >> 2 * k for k in range(1, 8)] + [192]}
     folds[f"{bls.name} q={N // 16}"] = (bls, *fold_inputs(bls, rng, N // 16, device))

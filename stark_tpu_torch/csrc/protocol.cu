@@ -15,45 +15,73 @@
 //   sub_mul               :353  (a - b)*c
 //   from_mont_pack_words  :373  REDC by 1, limb pairs to little-endian words
 //
-// What bounds them on an H100: device memory for all but the two with a
-// run-time loop. Per element each reads its input planes once (64 bytes a
-// plane) and writes its outputs once, against 2 to 14 Montgomery products of
-// ~130 integer multiply-adds; `horner_eval` and `vanishing_eval` move two
-// planes and do one product per coefficient or point, so a long polynomial
-// turns them to integer-multiply bound.
-// What the design does about it:
-// - One thread per domain element, the element as 8 packed words in
-//   registers, every plane read with `load_elem` (thread i reads column i of
-//   each limb row, so a warp's loads of a row are one 128-byte segment) and
-//   written once. No intermediate ever reaches device memory; every
-//   intermediate is canonical (< p), so the bits equal the composed route's.
-// - The rolled operands (P_prev, P(+k), P(+2k), A_prev) are read at the
-//   shifted index (i - skips) mod n or (i + k) mod n. The TPU wrappers had to
-//   materialise rolled copies of whole planes because a tile cannot wrap.
-// - The small operands (r, k, coefficients, points) are staged once per block
-//   in shared memory as packed words; coefficients and points in tiles of
-//   SMALL_TILE columns, so their count is a run-time bound without a limit.
-// - `vanishing_eval` starts from R mod p in the Field argument; the TPU
-//   wrapper appended it as an extra column.
-// - `sub_mul` takes b as a plane or as one (16, 1) column read by every
-//   thread, so the constant one is never expanded to a plane.
-// - `linear_combination` accumulates term by term (acc, term, k_j, and the
-//   x^steps value kept for three terms): about 40 words live at the widest.
-// - `from_mont_pack_words` stores the 8 packed words as they sit in
-//   registers: they are the little-endian words of the canonical value.
-// - The Shoup kernels multiply by constants that repeat along the domain with
-//   a short period (Z^-1 and x^steps: the extension factor, 8). On the TPU the
-//   form saves limb products (1.7 against 3). Here an exact Shoup product
-//   costs the 136 multiply-adds of a CIOS product, and what it saves is
-//   bytes: the (16, n) table is never read, so `shoup_mul_periodic` moves 2
-//   planes where `mmul` by the table moves 3, and the linear combination 9
-//   where the table form moves 10. The pattern pair (w and floor(w*2^256/p),
-//   any width t that divides n) is staged per block in shared memory as
-//   packed words, whole when t <= THREADS (with a padded stride so that the
-//   columns a warp reads fall in different banks), else each thread's own
-//   column; the products read it from there at each use, which keeps 16
-//   words out of the registers. `linear_combination_shoup` feeds the lazy [0, 2p)
-//   products straight to the k_j multiply, whose reduction takes them.
+// Common to all: one thread per domain element (or per output), the
+// element as 8 packed words in registers, every plane read with `load_elem`
+// (thread i reads column i of each limb row, so a warp's loads of a row are
+// one 128-byte segment) and written once. No intermediate reaches device
+// memory, every output is canonical (< p), so the bits equal the composed
+// route's. Small operands (r, k, coefficients, points) are staged once per
+// block in shared memory as packed words; coefficients and points in tiles of
+// SMALL_TILE columns. The TPU wrappers materialised rolled copies of whole
+// planes (a tile cannot wrap); here a rolled operand is read at its shifted
+// index. `vanishing_eval` starts from R mod p in the Field argument; `sub_mul`
+// takes b as a plane or as one (16, 1) column; `from_mont_pack_words` stores
+// the 8 packed words as they sit in registers, the little-endian words of the
+// canonical value. The Shoup kernels multiply by constants that repeat along
+// the domain with a short period t (Z^-1 and x^steps: t = the extension
+// factor, 8), given as a pattern pair (w and floor(w*2^256/p)); what the
+// form saves here is bytes, since the (16, n) table is never read.
+//
+// What bounds them on an H100: device memory, 64 bytes a plane an element,
+// for all but `horner_eval` and `vanishing_eval`, whose run-time loops of
+// products turn integer bound at long polynomials. Two were redesigned for it:
+//
+// `linear_combination_shoup` (8 planes in, 1 out: 0.180 ms at 2^20 over
+// 3.35 TB/s) issued 14 full products and 10 modular additions an element
+// (8,000 static SASS instructions with its staging), each plane loaded just
+// before its product: bound by its products and by exposed load latency, at
+// 2.5 times its bytes. Now:
+// - Three terms carry x^steps: k3*P + k4*P*x = (k3 + k4*x)*P, and so for B2
+//   and B3. x repeats with period t, so each block computes the three
+//   coefficients k3 + k4*x, k5 + k6*x, k7 + k8*x of every column of the
+//   pattern once (one Shoup product each) into shared memory; the sum is then
+//   8 products, one a plane, the function's minimum.
+// - The 8 products are summed wide and reduced once: acc = sum c_j*v_j
+//   (512-bit products, canonical c_j, v_j < p) in 17 words, PTX carry chains
+//   of 32-bit multiply-adds (`mac_row`, the carries past a row's ninth word
+//   deferred to the next row), then one Montgomery reduction (`redc_wide`)
+//   and subtractions of 4p, 2p, p. A wide product without its reduction
+//   takes ~2.8 SM clocks a thread at full occupancy, a CIOS product ~7.4.
+//   Bounds: acc < 8p^2; T = (acc + m*p)/2^256 < 8p^2/2^256 + p.
+//     BN254 (p/2^256 ~ 0.189): acc < 2^511 (16 words), T < 2.52p.
+//     BLS12-381 Fr (~0.453): acc < 2^512.71 (the 17th word), T < 4.63p.
+//     Any field the kernels take (2p < 2^256): acc < 2^513, T < 5p < 2^258,
+//     so T fits 9 words and the three subtractions (4p, 2p, p, each where T
+//     is not below it) leave T canonical.
+// - The next plane's 16 limb rows are loaded before the current product, so
+//   a warp has a plane in flight while it multiplies; the first plane's
+//   loads are issued before the block stages its coefficients. Under
+//   `__launch_bounds__(256, 3)` (80 registers) three blocks share an SM,
+//   which hides more of the loads' latency than two (123 registers).
+// `linear_combination` (the (16, n) x^steps table, off the prover's path)
+// shares the sum: each thread forms its own three coefficients from its x
+// with CIOS products.
+//
+// `q2_eval` (P, F2 in, Q2 out: 3 planes, 0.060 ms) read P three times, at
+// i, (i + k) mod n and (i + 2k) mod n with the prover's k ~ n/3. P is 64 MB
+// at 2^20 against a 50 MB L2, and the three reads of an element came about
+// 22 MB of sweep apart, so each came from device memory again. Now one
+// output a thread in the host's order (`fused_kernels.q2_plan`): where
+// 0 < k and 3k <= n, a slice of three warps takes g, g + k and g + 2k for
+// the same 32 g, reading P at g .. g + 4k, so L1 serves each line to two or
+// three warps at once; the prover's 3k = n - 8*(steps mod 3) makes g + 3k
+// and g + 4k lines the slice before has just read. Device memory sees P
+// about once, as when k = 0. The other outputs, and every output of a shift
+// with 3k > n, take one thread each in order. Its two products an output
+// (a Montgomery product costs ~7 SM clocks a thread at full occupancy)
+// take about as long as its bytes, which keeps it above its bound; three
+// outputs a thread, P read five times by one thread, was slower.
+
 #include "field.cuh"
 
 namespace {
@@ -62,6 +90,7 @@ using stark::Field;
 using stark::NW;
 
 constexpr int THREADS = 256;
+constexpr int Q2_THREADS = 192;  // q2_eval's blocks: two slices of three warps
 constexpr int SMALL_TILE = 128;  // columns of a small operand staged at once
 
 __device__ __forceinline__ int64_t global_index() {
@@ -131,24 +160,49 @@ q1_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ k,
   stark::store_elem(out, n, i, u);
 }
 
+// Q2 at element i from P at i, i + k1 and i + k2 (mod n), each canonical.
+__device__ __forceinline__ void q2_one(const Field& f, const uint32_t p0[NW],
+                                       const uint32_t p1[NW], const uint32_t p2[NW],
+                                       const int32_t* __restrict__ f2,
+                                       int32_t* __restrict__ out, int64_t n,
+                                       int64_t i) {
+  uint32_t t[NW], u[NW], w[NW];
+  stark::mont_mul(f, p0, p1, t);
+  stark::mod_sub(f, p2, t, u);
+  stark::load_elem(f2, n, i, w);
+  stark::mont_mul(f, w, u, t);
+  stark::store_elem(out, n, i, t);
+}
+
 // k1 = kshift mod n, k2 = 2*kshift mod n: P(+k)[i] = P[(i + k1) mod n].
-__global__ void __launch_bounds__(THREADS)
+// One output a thread, in the order of `fused_kernels.q2_plan`: where span
+// > 0 (span = k1, 3*k1 <= n), the first ceil(span/32)*96 threads form slices
+// of three warps, warp j of slice s taking the output g + j*k1 for its lane's
+// g = 32s + lane < span, so that the slice reads P at g .. g + 4*k1 and each
+// line of it from two or three warps at once; the rest take one output each
+// in order from 3*span (all of them when span = 0).
+__global__ void __launch_bounds__(Q2_THREADS)
 q2_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ f2,
           int32_t* __restrict__ out, int64_t n, int64_t k1, int64_t k2,
-          Field f) {
-  int64_t i = global_index();
-  if (i >= n) return;
-  int64_t i1 = i + k1 < n ? i + k1 : i + k1 - n;
-  int64_t i2 = i + k2 < n ? i + k2 : i + k2 - n;
-  uint32_t a[NW], b[NW], t[NW], u[NW];
+          int64_t span, Field f) {
+  const int64_t t = global_index();
+  const int64_t grouped = (span + 31) / 32 * 96;
+  int64_t i;
+  if (t < grouped) {
+    const int64_t g = t / 96 * 32 + t % 32;
+    if (g >= span) return;
+    i = g + (t % 96) / 32 * k1;
+  } else {
+    i = t - grouped + 3 * span;
+    if (i >= n) return;
+  }
+  const int64_t i1 = i + k1 < n ? i + k1 : i + k1 - n;
+  const int64_t i2 = i + k2 < n ? i + k2 : i + k2 - n;
+  uint32_t a[NW], b[NW], c[NW];
   stark::load_elem(p, n, i, a);
   stark::load_elem(p, n, i1, b);
-  stark::mont_mul(f, a, b, t);
-  stark::load_elem(p, n, i2, a);
-  stark::mod_sub(f, a, t, u);
-  stark::load_elem(f2, n, i, a);
-  stark::mont_mul(f, a, u, t);
-  stark::store_elem(out, n, i, t);
+  stark::load_elem(p, n, i2, c);
+  q2_one(f, a, b, c, f2, out, n, i);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -169,22 +223,154 @@ q3_kernel(const int32_t* __restrict__ a_ev, const int32_t* __restrict__ nmr,
   stark::store_elem(out, n, i, a);
 }
 
+// --- the linear combination: one lazy sum of eight products ---------------
+
+constexpr int LC_PLANES = 8;
+constexpr int WIDE = 2 * NW + 1;  // words of the lazy sum
+constexpr int XROW = 3 * NW + 3;  // words of a row of x coefficients (odd: a
+                                  // warp's rows fall in different banks)
+
+// The 8 planes in the order the C entry points pass them: p, a, s, d1, d2,
+// d3, b2, b3. Plane j takes k[lc_k(j)] or, with lc_x(j) >= 0, the x
+// coefficient k[3 + 2w] + k[4 + 2w]*x^steps of w = lc_x(j) (P, B2, B3).
 struct LincombCols {
-  const int32_t *p, *a, *s, *d1, *d2, *d3, *b2, *b3;
+  const int32_t* col[LC_PLANES];
 };
 
-// acc += k_j * term; term may be lazy (< 2p), acc stays canonical.
-__device__ __forceinline__ void lincomb_term(const Field& f,
-                                             const uint32_t kj[NW],
-                                             const uint32_t term[NW],
-                                             uint32_t acc[NW]) {
-  uint32_t t[NW], u[NW];
-  stark::mont_mul(f, kj, term, t);
-  stark::mod_add(f, acc, t, u);
-  stark::set_elem(acc, u);
+__host__ __device__ constexpr int lc_k(int j) {
+  return j == 1 ? 9 : j == 2 ? 10 : j == 3 ? 0 : j == 4 ? 1 : j == 5 ? 2 : -1;
 }
 
-// The two ways to multiply a column value by x^steps at this element.
+__host__ __device__ constexpr int lc_x(int j) {
+  return j == 0 ? 0 : j == 6 ? 1 : j == 7 ? 2 : -1;
+}
+
+struct LincombTile {
+  uint32_t ks[11][NW];
+  uint32_t cx[THREADS][XROW];  // 3 x coefficients a row, NW words each
+};
+
+// acc += c*v*2^(32B) over the 17 words, as two PTX carry chains (low halves
+// at words B..B+7, high halves at B+1..B+8). The carry out of word B + 8 is
+// deferred: `pend` (at most 2) is owed at word B + 8 on entry, where this
+// row adds it, and at word B + 9 on exit, where the next row (B + 1) adds it;
+// after row 7 it is owed at word 16. acc + pend*2^(32(B+9)) is the true sum
+// throughout.
+template <int B>
+__device__ __forceinline__ void mac_row(uint32_t (&acc)[WIDE], uint32_t& pend,
+                                        const uint32_t (&c)[NW], uint32_t v) {
+  asm("mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
+      "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
+      "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+      "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+      "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+      "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+      "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+      "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+      "addc.cc.u32 %8, %8, %9;\n\t"
+      "addc.u32 %9, 0, 0;\n\t"
+      "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
+      "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+      "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+      "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+      "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+      "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+      "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+      "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+      "addc.u32 %9, %9, 0;"
+      : "+r"(acc[B]), "+r"(acc[B + 1]), "+r"(acc[B + 2]), "+r"(acc[B + 3]),
+        "+r"(acc[B + 4]), "+r"(acc[B + 5]), "+r"(acc[B + 6]), "+r"(acc[B + 7]),
+        "+r"(acc[B + 8]), "+r"(pend)
+      : "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(c[4]), "r"(c[5]),
+        "r"(c[6]), "r"(c[7]), "r"(v));
+}
+
+// acc += c*v, the whole 512-bit product; the sum must stay below 2^544.
+__device__ __forceinline__ void mac_wide(uint32_t (&acc)[WIDE],
+                                         const uint32_t (&c)[NW],
+                                         const uint32_t (&v)[NW]) {
+  uint32_t pend = 0;
+  mac_row<0>(acc, pend, c, v[0]);
+  mac_row<1>(acc, pend, c, v[1]);
+  mac_row<2>(acc, pend, c, v[2]);
+  mac_row<3>(acc, pend, c, v[3]);
+  mac_row<4>(acc, pend, c, v[4]);
+  mac_row<5>(acc, pend, c, v[5]);
+  mac_row<6>(acc, pend, c, v[6]);
+  mac_row<7>(acc, pend, c, v[7]);
+  acc[2 * NW] += pend;
+}
+
+// Montgomery reduction of the lazy sum: acc + m*p with m < 2^256 chosen
+// word by word so that words 0..7 vanish; words 8..16 are then
+// T = acc*2^-256 mod p up to multiples of p, T < acc/2^256 + p.
+__device__ __forceinline__ void redc_wide(const Field& f, uint32_t (&acc)[WIDE]) {
+  uint32_t pend = 0;
+  mac_row<0>(acc, pend, f.p, acc[0] * f.np);
+  mac_row<1>(acc, pend, f.p, acc[1] * f.np);
+  mac_row<2>(acc, pend, f.p, acc[2] * f.np);
+  mac_row<3>(acc, pend, f.p, acc[3] * f.np);
+  mac_row<4>(acc, pend, f.p, acc[4] * f.np);
+  mac_row<5>(acc, pend, f.p, acc[5] * f.np);
+  mac_row<6>(acc, pend, f.p, acc[6] * f.np);
+  mac_row<7>(acc, pend, f.p, acc[7] * f.np);
+  acc[2 * NW] += pend;
+}
+
+// t -= m where t >= m, over 9 words
+__device__ __forceinline__ void sub_if_ge9(uint32_t (&t)[NW + 1],
+                                           const uint32_t (&m)[NW + 1]) {
+  uint32_t d[NW + 1], borrow;
+  asm("sub.cc.u32 %0, %10, %19;\n\t"
+      "subc.cc.u32 %1, %11, %20;\n\t"
+      "subc.cc.u32 %2, %12, %21;\n\t"
+      "subc.cc.u32 %3, %13, %22;\n\t"
+      "subc.cc.u32 %4, %14, %23;\n\t"
+      "subc.cc.u32 %5, %15, %24;\n\t"
+      "subc.cc.u32 %6, %16, %25;\n\t"
+      "subc.cc.u32 %7, %17, %26;\n\t"
+      "subc.cc.u32 %8, %18, %27;\n\t"
+      "subc.u32 %9, 0, 0;"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]),
+        "=r"(d[6]), "=r"(d[7]), "=r"(d[8]), "=r"(borrow)
+      : "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]), "r"(t[5]),
+        "r"(t[6]), "r"(t[7]), "r"(t[8]), "r"(m[0]), "r"(m[1]), "r"(m[2]),
+        "r"(m[3]), "r"(m[4]), "r"(m[5]), "r"(m[6]), "r"(m[7]), "r"(m[8]));
+#pragma unroll
+  for (int w = 0; w <= NW; ++w) t[w] = borrow ? t[w] : d[w];
+}
+
+// t < 8p (9 words) -> t mod p: take away 4p, 2p and p where t is not below.
+__device__ __forceinline__ void reduce_below_8p(const Field& f,
+                                                uint32_t (&t)[NW + 1]) {
+#pragma unroll
+  for (int s = 2; s >= 0; --s) {
+    uint32_t m[NW + 1];
+    m[0] = f.p[0] << s;
+#pragma unroll
+    for (int w = 1; w < NW; ++w) m[w] = s ? __funnelshift_l(f.p[w - 1], f.p[w], s) : f.p[w];
+    m[NW] = s ? f.p[NW - 1] >> (32 - s) : 0;
+    sub_if_ge9(t, m);
+  }
+}
+
+// The 16 limb rows of element i of a plane, as loaded; `pack_limbs` makes
+// them the 8 words of `load_elem`.
+__device__ __forceinline__ void load_limbs(const int32_t* __restrict__ plane,
+                                           int64_t n, int64_t i,
+                                           uint32_t (&raw)[stark::LIMBS]) {
+#pragma unroll
+  for (int l = 0; l < stark::LIMBS; ++l) raw[l] = static_cast<uint32_t>(plane[l * n + i]);
+}
+
+__device__ __forceinline__ void pack_limbs(const uint32_t (&raw)[stark::LIMBS],
+                                           uint32_t (&w)[NW]) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) w[k] = (raw[2 * k] & 0xFFFFu) | (raw[2 * k + 1] << 16);
+}
+
+// The two ways to multiply a coefficient by x^steps at an element; both
+// canonical.
 struct TimesMont {  // x^steps in Montgomery form, from the (16, n) table
   uint32_t x[NW];
   __device__ __forceinline__ void operator()(const Field& f,
@@ -194,60 +380,75 @@ struct TimesMont {  // x^steps in Montgomery form, from the (16, n) table
   }
 };
 
-struct TimesShoup {  // plain x^steps and its companion; the product is < 2p
-  const uint32_t *w, *wp;  // in shared memory, read again at each use
+struct TimesShoup {  // plain x^steps and its companion, one pattern column
+  uint32_t w[NW], wp[NW];
   __device__ __forceinline__ void operator()(const Field& f,
                                              const uint32_t v[NW],
                                              uint32_t t[NW]) const {
     stark::shoup_mul(f, w, wp, v, t);
+    stark::cond_sub_p(f, 0, t);
   }
 };
 
-// sum_j k_j * term_j at element i, term by term.
+// x coefficient `which` (0: P, 1: B2, 2: B3), k[3 + 2w] + k[4 + 2w]*x, into
+// its NW words of a tile row.
 template <class TimesX>
-__device__ __forceinline__ void lincomb_sum(const Field& f,
-                                            const uint32_t (*ks)[NW],
-                                            const LincombCols& c, int64_t n,
-                                            int64_t i, const TimesX& times_x,
-                                            int32_t* __restrict__ out) {
-  uint32_t acc[NW], v[NW], t[NW];
-  stark::load_elem(c.d1, n, i, v);
-  stark::mont_mul(f, ks[0], v, acc);
-  stark::load_elem(c.d2, n, i, v);
-  lincomb_term(f, ks[1], v, acc);
-  stark::load_elem(c.d3, n, i, v);
-  lincomb_term(f, ks[2], v, acc);
-  stark::load_elem(c.p, n, i, v);
-  lincomb_term(f, ks[3], v, acc);
-  times_x(f, v, t);
-  lincomb_term(f, ks[4], t, acc);
-  stark::load_elem(c.b2, n, i, v);
-  lincomb_term(f, ks[5], v, acc);
-  times_x(f, v, t);
-  lincomb_term(f, ks[6], t, acc);
-  stark::load_elem(c.b3, n, i, v);
-  lincomb_term(f, ks[7], v, acc);
-  times_x(f, v, t);
-  lincomb_term(f, ks[8], t, acc);
-  stark::load_elem(c.a, n, i, v);
-  lincomb_term(f, ks[9], v, acc);
-  stark::load_elem(c.s, n, i, v);
-  lincomb_term(f, ks[10], v, acc);
-  stark::store_elem(out, n, i, acc);
+__device__ __forceinline__ void x_coef(const Field& f, const uint32_t (*ks)[NW],
+                                       const TimesX& times_x, int which,
+                                       uint32_t* row) {
+  uint32_t t[NW], u[NW];
+  times_x(f, ks[4 + 2 * which], t);
+  stark::mod_add(f, ks[3 + 2 * which], t, u);
+#pragma unroll
+  for (int w = 0; w < NW; ++w) row[which * NW + w] = u[w];
 }
 
-__global__ void __launch_bounds__(THREADS)
+// L at element i: the 8 planes times their coefficients (k from the tile,
+// x coefficients from `xrow`), summed wide and reduced once. `raw` holds
+// plane 0's limbs, loaded by the caller.
+__device__ __forceinline__ void lincomb_lazy(const Field& f, const LincombTile& tile,
+                                             const uint32_t* xrow,
+                                             const LincombCols& c, int64_t n,
+                                             int64_t i, uint32_t (&raw)[stark::LIMBS],
+                                             int32_t* __restrict__ out) {
+  uint32_t acc[WIDE], v[NW], k[NW];
+#pragma unroll
+  for (int w = 0; w < WIDE; ++w) acc[w] = 0;
+#pragma unroll
+  for (int j = 0; j < LC_PLANES; ++j) {
+    pack_limbs(raw, v);
+    if (j + 1 < LC_PLANES) load_limbs(c.col[j + 1], n, i, raw);
+    const uint32_t* src = lc_x(j) >= 0 ? xrow + lc_x(j) * NW : tile.ks[lc_k(j)];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) k[w] = src[w];
+    mac_wide(acc, k, v);
+  }
+  redc_wide(f, acc);
+  uint32_t t[NW + 1];
+#pragma unroll
+  for (int w = 0; w <= NW; ++w) t[w] = acc[NW + w];
+  reduce_below_8p(f, t);
+  stark::store_elem(out, n, i, t);
+}
+
+__global__ void __launch_bounds__(THREADS, 3)
 linear_combination_kernel(const int32_t* __restrict__ k,
                           const int32_t* __restrict__ x2s, LincombCols c,
                           int32_t* __restrict__ out, int64_t n, Field f) {
-  __shared__ uint32_t ks[11][NW];
-  stage_cols(k, 11, 0, 11, ks);
+  __shared__ LincombTile tile;
+  const int64_t i = global_index();
+  uint32_t raw[stark::LIMBS];
+  if (i < n) load_limbs(c.col[0], n, i, raw);
+  stage_cols(k, 11, 0, 11, tile.ks);
   __syncthreads();
-  int64_t i = global_index();
   if (i >= n) return;
+  // this thread's own row of coefficients: no barrier between write and read
   TimesMont times_x;
   stark::load_elem(x2s, n, i, times_x.x);
-  lincomb_sum(f, ks, c, n, i, times_x, out);
+  uint32_t* row = tile.cx[threadIdx.x];
+#pragma unroll 1
+  for (int which = 0; which < 3; ++which) x_coef(f, tile.ks, times_x, which, row);
+  lincomb_lazy(f, tile, row, c, n, i, raw, out);
 }
 
 // A (16, t) Shoup pattern pair for the elements of one block, as packed words
@@ -283,21 +484,54 @@ __device__ __forceinline__ int stage_pattern(const int32_t* __restrict__ w_pat,
   return threadIdx.x;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Stage k and the x coefficients of a (16, t) Shoup pattern pair in the
+// tile; returns the row of element i's. A pattern of t <= THREADS columns:
+// 3t coefficients, one a thread, in rows 0..t-1, element i reading row
+// i mod t. A wider one: each thread forms the three of its own column
+// (i mod t) in its own row. The block must reach this together; it ends
+// with the barrier after which the rows may be read.
+__device__ __forceinline__ int stage_lincomb_shoup(const Field& f,
+                                                   const int32_t* __restrict__ k,
+                                                   const int32_t* __restrict__ xw_pat,
+                                                   const int32_t* __restrict__ xwp_pat,
+                                                   int64_t t, int64_t i,
+                                                   LincombTile& tile) {
+  stage_cols(k, 11, 0, 11, tile.ks);
+  __syncthreads();
+  int row;
+  TimesShoup times_x;
+  if (t <= THREADS) {
+    for (int j = threadIdx.x; j < 3 * t; j += blockDim.x) {
+      const int col = static_cast<int>(j % t);
+      stark::load_elem(xw_pat, t, col, times_x.w);
+      stark::load_elem(xwp_pat, t, col, times_x.wp);
+      x_coef(f, tile.ks, times_x, static_cast<int>(j / t), tile.cx[col]);
+    }
+    row = static_cast<int>(i % t);
+  } else {
+    stark::load_elem(xw_pat, t, i % t, times_x.w);
+    stark::load_elem(xwp_pat, t, i % t, times_x.wp);
+    row = threadIdx.x;
+#pragma unroll 1
+    for (int which = 0; which < 3; ++which) x_coef(f, tile.ks, times_x, which, tile.cx[row]);
+  }
+  __syncthreads();
+  return row;
+}
+
+__global__ void __launch_bounds__(THREADS, 3)
 linear_combination_shoup_kernel(const int32_t* __restrict__ k,
                                 const int32_t* __restrict__ xw_pat,
                                 const int32_t* __restrict__ xwp_pat, int64_t t,
                                 LincombCols c, int32_t* __restrict__ out,
                                 int64_t n, Field f) {
-  __shared__ uint32_t ks[11][NW];
-  __shared__ PatternTile tile;
-  int64_t i = global_index();
-  stage_cols(k, 11, 0, 11, ks);
-  int row = stage_pattern(xw_pat, xwp_pat, t, i, tile);
-  __syncthreads();
+  __shared__ LincombTile tile;
+  const int64_t i = global_index();
+  uint32_t raw[stark::LIMBS];
+  if (i < n) load_limbs(c.col[0], n, i, raw);
+  const int row = stage_lincomb_shoup(f, k, xw_pat, xwp_pat, t, i, tile);
   if (i >= n) return;
-  TimesShoup times_x{tile.w[row], tile.wp[row]};
-  lincomb_sum(f, ks, c, n, i, times_x, out);
+  lincomb_lazy(f, tile, tile.cx[row], c, n, i, raw, out);
 }
 
 // out[i] = x[i] * w[i mod t] mod p, canonical: one Shoup product and one
@@ -454,12 +688,17 @@ extern "C" int stark_q1_eval(const void* s, const void* k, const void* p,
   return static_cast<int>(cudaGetLastError());
 }
 
+// k1, k2, span: `fused_kernels.q2_plan`.
 extern "C" int stark_q2_eval(const void* p, const void* f2, void* out,
                              long long n, long long k1, long long k2,
-                             const uint32_t* field_words, uint32_t np,
-                             void* stream) {
-  STARK_LAUNCH(q2_kernel, n, stream, in(p), in(f2), outp(out), n, k1, k2,
-               stark::make_field(field_words, np));
+                             long long span, const uint32_t* field_words,
+                             uint32_t np, void* stream) {
+  const long long threads = (span + 31) / 32 * 96 + n - 3 * span;
+  if (n > 0)
+    q2_kernel<<<static_cast<unsigned>((threads + Q2_THREADS - 1) / Q2_THREADS),
+                Q2_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        in(p), in(f2), outp(out), n, k1, k2, span,
+        stark::make_field(field_words, np));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -477,8 +716,8 @@ extern "C" int stark_linear_combination(const void* k, const void* const* cols,
                                         void* out, long long n,
                                         const uint32_t* field_words,
                                         uint32_t np, void* stream) {
-  LincombCols c{in(cols[1]), in(cols[2]), in(cols[3]), in(cols[4]),
-                in(cols[5]), in(cols[6]), in(cols[7]), in(cols[8])};
+  LincombCols c;
+  for (int j = 0; j < LC_PLANES; ++j) c.col[j] = in(cols[j + 1]);
   STARK_LAUNCH(linear_combination_kernel, n, stream, in(k), in(cols[0]), c,
                outp(out), n, stark::make_field(field_words, np));
   return static_cast<int>(cudaGetLastError());
@@ -490,8 +729,8 @@ extern "C" int stark_linear_combination_shoup(
     const void* k, const void* xw_pat, const void* xwp_pat, long long t,
     const void* const* cols, void* out, long long n,
     const uint32_t* field_words, uint32_t np, void* stream) {
-  LincombCols c{in(cols[0]), in(cols[1]), in(cols[2]), in(cols[3]),
-                in(cols[4]), in(cols[5]), in(cols[6]), in(cols[7])};
+  LincombCols c;
+  for (int j = 0; j < LC_PLANES; ++j) c.col[j] = in(cols[j]);
   STARK_LAUNCH(linear_combination_shoup_kernel, n, stream, in(k), in(xw_pat),
                in(xwp_pat), t, c, outp(out), n,
                stark::make_field(field_words, np));

@@ -56,7 +56,7 @@ _SIGNATURES = {
     "stark_q1_eval": [
         _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _u32p, ctypes.c_uint32, _vp,
     ],
-    "stark_q2_eval": [_vp, _vp, _vp, _ll, _ll, _ll, _u32p, ctypes.c_uint32, _vp],
+    "stark_q2_eval": [_vp, _vp, _vp, _ll, _ll, _ll, _ll, _u32p, ctypes.c_uint32, _vp],
     "stark_q3_eval": [_vp, _vp, _vp, _vp, _ll, _ll, _u32p, ctypes.c_uint32, _vp],
     "stark_linear_combination": [
         _vp, ctypes.POINTER(_vp), _vp, _ll, _u32p, ctypes.c_uint32, _vp,

@@ -120,15 +120,31 @@ def q2_eval_plain(spec, p_ev, f2_ev, kshift: int):
     return _mul(spec, f2_ev, mm.msub(spec, p_2k, _mul(spec, p_ev, p_k)))
 
 
+def q2_plan(n: int, kshift: int) -> tuple[int, int, int]:
+    """The order in which `q2_eval`'s kernel takes the outputs, one a
+    thread: (k1, k2, span), k1 and k2 the shifts kshift and 2*kshift mod n.
+    Where 0 < k1 and 3*k1 <= n, span = k1 and the outputs [0, 3*span) go in
+    slices of three warps: warp j of slice s takes g + j*k1 for its lane's
+    g = 32*s + lane < span. The slice then reads P at g .. g + 4*k1, each
+    line from two or three of its warps at once; the prover's shift makes
+    3*k1 = n - 8*(steps mod 3), so g + 3*k1 and g + 4*k1 are g and g + k1 a
+    few elements back, read by the slice before. The other outputs (from
+    3*span on; all of them when span = 0) take one thread each in order."""
+    if n <= 0:
+        return 0, 0, 0
+    k1 = kshift % n
+    return k1, 2 * kshift % n, k1 if 0 < k1 and 3 * k1 <= n else 0
+
+
 def q2_eval(spec: FieldSpec, p_ev, f2_ev, kshift: int):
     _check(spec, (p_ev, f2_ev))
     if p_ev.device.type == "cpu":
         return q2_eval_plain(spec, p_ev, f2_ev, kshift)
     n = p_ev.shape[1]
     out = torch.empty_like(p_ev)
+    k1, k2, span = q2_plan(n, kshift)
     _launch(q2_eval, spec, p_ev, lambda lib, w, np32, st: lib.stark_q2_eval(
-        p_ev.data_ptr(), f2_ev.data_ptr(), out.data_ptr(), n,
-        kshift % max(n, 1), 2 * kshift % max(n, 1), w, np32, st))
+        p_ev.data_ptr(), f2_ev.data_ptr(), out.data_ptr(), n, k1, k2, span, w, np32, st))
     return out
 
 
