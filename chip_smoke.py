@@ -10,9 +10,9 @@ non-zero and no phase's error is swallowed:
    printed as `nvidia-smi --query-gpu=name,power.limit` gives them);
 2. build: the kernel library is built with nvcc from stark_tpu_torch/csrc;
    the record's `ptxas` list holds what `ptxas -v` said of every kernel
-   (registers, spills), the two redesigned for Hopper, `matmul_fold` and
-   `butterfly_fused`, among them;
-3. kernels: each of the 22 CUDA kernels against its plain PyTorch version
+   (registers, spills), the ones redesigned for Hopper among them;
+3. kernels: each of the 23 CUDA kernels (the 22 TPU kernels' counterparts
+   and the multi-stage pass) against its plain PyTorch version
    on the card, at the prover's shapes for 43,690 constraints (steps 2^17,
    precision 2^20), inputs from a numpy seed; tolerance: exact equality
    (integer field arithmetic with canonical outputs), with the median
@@ -20,7 +20,14 @@ non-zero and no phase's error is swallowed:
    keeps the host's launch work out of it) and the least time the card
    could take (`bound_ms`), its share of the kernel's time (`bound_share`) and, where the operations
    are of one kind, the rate achieved (`achieved_ops_per_s`: int8 operations
-   a second for `matmul_fold`). `butterfly_fused` runs dit and dif at 2^20
+   a second for `matmul_fold`). `butterfly_stage` runs the plan's single
+   stages (9 at 2^20, 6 at 2^17), which `butterfly_pass` now runs in passes
+   of three: the pass runs every pass of both plans (the 2^20 transform's
+   last, which reads the widest table, first), one of each on columns with
+   0, 1, Montgomery one and p - 1, short passes of two stages and one, and
+   BLS12-381's scalar field (the canonical build) at every pass of both
+   directions at 2^17; its bytes count the column in and out and the table
+   it reads. `butterfly_fused` runs dit and dif at 2^20
    and dif at 2^17, the three shapes the LDE gives it, then its canonical
    build on BLS12-381's scalar field (dit and dif at 2^17 and at one block
    of 2048); beside its bound, which counts a product a butterfly,
@@ -55,7 +62,8 @@ non-zero and no phase's error is swallowed:
 5. real size: `squaring_chain(43690)` proved twice (cold and warm) on the
    default route (the radix-4 inverse-DFT fold) and verified; the launch
    counter of every kernel of that route must be > 0 for the cold proving
-   run, and the warm run's counts are recorded;
+   run, and the warm run's counts are recorded, with the proof's sha256
+   (`proof_sha256`, to hold one build's proof against another's);
 6. serve: the proving worker (`stark_tpu_torch.serve.serve`, the loop behind
    `python -m stark_tpu_torch.cli serve --device cuda --fri-fold lagrange`)
    on the Lagrange fold route, fed the same circuit as files: ping, warmup,
@@ -86,9 +94,10 @@ The line before the card's lists the kernels of the three paths as JSON
 proving run gives it, named under `case`; `path` names the phase whose run
 counted its `launches`: `real_size`, `serve` for the two fold kernels,
 which the default route does not run, or `crt` for the three kernels of
-the CRT engine) and, under `off_path`, the one
-ported kernel no path runs: `linear_combination` on the (16, n)
-x^steps table, whose place the stages' Shoup pattern pair takes. The last
+the CRT engine) and, under `off_path`, the two
+ported kernels no path runs: `linear_combination` on the (16, n)
+x^steps table, whose place the stages' Shoup pattern pair takes, and
+`butterfly_stage`, whose place the multi-stage pass takes. The last
 line is {"ok": true, "device": {...}}. `--out DIR` also writes every phase
 record, with every case, to DIR/chip_smoke.json.
 
@@ -174,6 +183,9 @@ KERNELS = {
     "butterfly_stage": (
         "stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_field.py:446",
     ),
+    "butterfly_pass": (
+        "stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_field.py:446",
+    ),
     "butterfly_fused": (
         "stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_field.py:518",
     ),
@@ -212,7 +224,7 @@ BLAKE2S_OPS = 960  # 32-bit integer operations of one compression
 SLEEP_CYCLES = 1_000_000  # about 0.5 ms of SM clock: the wait `median_ms` puts first
 
 # ported, but not run by the prover's stages (see the module docstring)
-OFF_PATH = ("linear_combination",)
+OFF_PATH = ("linear_combination", "butterfly_stage")
 # run only on FRI's Lagrange fold route: counted in the serve phase
 LAGRANGE_ONLY = ("fri_fold_pre", "fri_fold_post")
 # run only on the CRT LDE engine: counted in the crt phase
@@ -247,6 +259,7 @@ def wrappers():
     out = {
         "mmul": field_cuda.mmul,
         "butterfly_stage": ntt.butterfly_stage,
+        "butterfly_pass": ntt.butterfly_pass,
         "butterfly_fused": ntt.butterfly_fused,
         "blake2s_words": blake2s.blake2s_words,
         "mpow_scalar": field_cuda.mpow_scalar,
@@ -422,6 +435,7 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
         lambda x, tw, m, l, kind: ntt.butterfly_stage_plain(spec, x, tw, m, l, kind),
         stage_cases,
     )
+    out["butterfly_pass"] = compare_pass(spec, big, small, x_big, x_small)
     out["butterfly_fused"] = compare_fused(spec, big, small, x_big, x_small)
     out["blake2s_words"] = compare(
         "blake2s_words",
@@ -669,6 +683,60 @@ def phase_prefix(spec, device, steps: int, precision: int) -> dict:
     return out
 
 
+def compare_pass(spec, big, small, x_big, x_small) -> dict:
+    """`butterfly_pass` against its plain version at every pass of the
+    prover's two plans (the big transform's last pass, the widest table,
+    first), on columns with 0, 1 (raw and Montgomery) and p - 1, at short
+    passes (2 stages, 1 stage) and on BLS12-381's scalar field, which runs
+    the kernel's canonical build, at every pass of both directions at the
+    small size. Bytes: the column in and out and the table the pass reads
+    (32 bytes an entry, packed words); operations: a product a butterfly."""
+    from stark_tpu_torch.fields.field import BLS12_381_FR as bls
+    from stark_tpu_torch.ops import modmath as mm, ntt
+
+    def edges(field, x):
+        x = with_edges(field, x)
+        x[:, 2:3] = mm.mont_one(field, x.device)
+        x[:, 3] = 0
+        x[0, 3] = 1
+        return x
+
+    N, steps = x_big.shape[1], x_small.shape[1]
+    device = x_big.device
+    shapes = {}
+    for kind, n, x, plan in (("dit", N, x_big, big), ("dif", steps, x_small, small)):
+        for l0, r, tw in plan.passes[::-1] if kind == "dit" else plan.passes:
+            shapes[f"{kind} n={n} l0={l0} r={r}"] = (spec, x, tw, l0, r, kind)
+    (l0, r, tw), (l0s, rs, tws) = big.passes[-1], small.passes[0]
+    shapes[f"edges dit n={N} l0={l0} r={r}"] = (spec, edges(spec, x_big), tw, l0, r, "dit")
+    shapes[f"edges dif n={steps} l0={l0s} r={rs}"] = (spec, edges(spec, x_small), tws, l0s,
+                                                       rs, "dif")
+    # short passes: the big transform's last two stages, its second last
+    # alone, and the small transform's last
+    (_, _, tw_top), (_, prev, tw_prev) = big.singles[-1], big.singles[-2]
+    _, last, tw_last = small.singles[-1]
+    shapes[f"short dit n={N} l0={prev} r=2"] = (spec, x_big, ntt.pack_words(tw_top), prev, 2,
+                                                "dit")
+    shapes[f"short dit n={N} l0={prev} r=1"] = (spec, x_big, ntt.pack_words(tw_prev), prev, 1,
+                                                "dit")
+    shapes[f"short dif n={steps} l0={last} r=1"] = (spec, x_small, ntt.pack_words(tw_last),
+                                                    last, 1, "dif")
+    rng = np.random.default_rng(SEED + 11)
+    x = edges(bls, random_planes(rng, bls, steps, device))
+    for kind in ("dit", "dif"):
+        plan = ntt.NttPlan(bls, bls.root_of_unity(steps), steps, kind, device)
+        for l0, r, tw in plan.passes:
+            shapes[f"{bls.name} {kind} n={steps} l0={l0} r={r}"] = (bls, x, tw, l0, r, kind)
+    return compare(
+        "butterfly_pass",
+        lambda field, x, tw, l0, r, kind: ntt.butterfly_pass(field, x, tw, l0, r, kind),
+        lambda field, x, tw, l0, r, kind: ntt.butterfly_pass_plain(field, x, tw, l0, r, kind),
+        {label: (args, 2 * 64 * args[1].shape[1] + 4 * args[2].numel(),
+                 args[4] * args[1].shape[1] // 2 * MONT_MUL_OPS)
+         for label, args in shapes.items()},
+    )
+
+
 def compare_fused(spec, big, small, x_big, x_small) -> dict:
     """`butterfly_fused` against its plain version at the prover's three
     shapes: dit and dif at the big transform's size on its tables, and dif
@@ -853,7 +921,9 @@ def phase_real(device, r1cs, witness, profile: bool, lde_engine: str = "butterfl
     """Cold and warm prove plus verify at full size on the default fold
     route and the named LDE engine, with every kernel's launch count in each
     proving run; the proof must equal `want_proof` where one is given.
-    Returns the record and the proof."""
+    Returns the record, with the proof's sha256 to compare across builds,
+    and the proof."""
+    from stark_tpu_torch.protocol import proof as proof_mod
     from stark_tpu_torch.protocol import runner
 
     wrap = wrappers()
@@ -895,6 +965,7 @@ def phase_real(device, r1cs, witness, profile: bool, lde_engine: str = "butterfl
         "prove_warm_s": warm_s, "verify_s": verify_s,
         "peak_bytes_cold": peak_cold, "peak_bytes_warm": peak_warm,
         "launches": launches, "launches_warm": launches_warm,
+        "proof_sha256": hashlib.sha256(proof_mod.to_json(proof).encode()).hexdigest(),
     }
     if profile:
         out["profile"] = {

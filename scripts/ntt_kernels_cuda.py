@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernel library and hold `butterfly_fused`
-(`stark_tpu_torch/csrc/ntt.cu`) against its plain PyTorch version on one
-NVIDIA GPU, with the instruction floor of its butterflies, without the rest
+and `butterfly_pass` (`stark_tpu_torch/csrc/ntt.cu`) against their plain
+PyTorch versions on one NVIDIA GPU, with the instruction floor of their
+butterflies and the variants of the pass that were tried, without the rest
 of `chip_smoke.py`.
 
     python3 scripts/ntt_kernels_cuda.py [--out DIR] [--library PATH ...]
@@ -14,7 +15,8 @@ direction, read with `cuobjdump -sass` from a probe kernel that runs one
 of the canonical build's (`*_canonical`, the fields without 5p < 2^256),
 and of `butterfly_stage`'s dit butterfly (`stage`, field.cuh's product,
 which the first version of the fused pass ran too); the SASS instructions
-of every `butterfly_fused` kernel of the library, and of any other build
+of every `butterfly_fused` and `butterfly_pass` kernel of the library, and
+of any other build
 named with `--library PATH` (a parent commit's, to show that a build's
 code did not change);
 then `chip_smoke.compare_fused`'s cases (dit and dif at 2^20, dif at 2^17
@@ -25,6 +27,26 @@ the butterflies of the pass / (128 x the SMs x the highest SM clock), an SM
 issuing at most one warp instruction of 32 lanes a clock on each of its
 four schedulers. Both branches of a butterfly (the product by a twiddle
 equal to Montgomery one is skipped) are in the static count.
+Then `chip_smoke.compare_pass`'s cases with the same floor, and the
+variants of the multi-stage pass, each held bit for bit against the plain
+version at the prover's passes (dit at 2^20, dif at 2^17, BN254) and timed
+in turns (`pass_variants`): the library's kernel (`tile`: a shared-memory
+tile of 2^r rows x 512 / 2^r columns that 256 threads run a stage at a
+time between `__syncthreads`, 8-byte column accesses, twiddles as packed
+words); its first build with scalar accesses and twiddles from limb planes
+(`tile_planes`); one thread a group of 2^r elements in registers, every
+twiddle from the largest stage's planes (`registers`) or each stage's
+from its own (`registers_stage_tables`); the library's tile made
+persistent, 2-4 CTAs an SM walking the tiles (or one CTA a tile, `_0`),
+the next tile's limb planes copied into shared memory with `cp.async`
+while the current one's stages run (`tile_async_<CTAs an SM>`); a
+device copy of the column (`copy`), the yardstick of its bytes; then,
+whole runs of the outer stages: in passes of three (the plan's), of at
+most two, of 5 then 4 or 4 then 5 at 2^20 and 5 then 1 or 4 then 2 at
+2^17 (the library's kernel built for 4 and 5 stages in the probe), and
+the single stages (`butterfly_stage`). The probe kernels are compiled
+into a library of their own that includes `ntt.cu`; their `ptxas -v`
+lines are printed.
 Needs `nvcc`, `cuobjdump` and a CUDA card; imports nothing of JAX.
 """
 
@@ -84,6 +106,297 @@ extern "C" __global__ void sass_probe_stage(const uint32_t* in, uint32_t* out, s
   for (int i = 0; i < stark::NW; ++i) { out[i] = y0[i]; out[8 + i] = y1[i]; }
 }
 """
+# Variants of the multi-stage pass, built into a probe library beside the
+# port's (the library's kernel, `butterfly_pass_kernel`, is the one kept).
+VARIANTS = r"""
+#include "ntt.cu"
+namespace {
+constexpr int REG_THREADS = 128;
+struct Tables {
+  const int32_t* tw[PASS_MAX_STAGES];  // each stage's (16, l) limb planes
+  int shift[PASS_MAX_STAGES];          // stage s reads entry i << shift[s]
+};
+
+// One thread a group of 2^R elements in registers (the pass's first build):
+// the 2^R elements base + j l0, consecutive threads on consecutive k; stage
+// s's twiddle t from tbl.tw[s] at (k + t l0) << tbl.shift[s], from limb planes
+template <bool DIT, bool LAZY, int R>
+__global__ void __launch_bounds__(REG_THREADS)
+pass_registers_kernel(const int32_t* __restrict__ a, Tables tbl,
+                      int32_t* __restrict__ out, int64_t n, int log_l0, stark::Field f) {
+  constexpr int E = 1 << R;
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= n >> R) return;
+  const int64_t l0 = int64_t(1) << log_l0;
+  const int64_t k = idx & (l0 - 1), base = ((idx >> log_l0) << (log_l0 + R)) + k;
+  uint32_t p2[stark::NW];
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i)
+    p2[i] = (f.p[i] << 1) | (i > 0 ? f.p[i - 1] >> 31 : 0u);
+  uint32_t x[E][stark::NW];
+#pragma unroll
+  for (int j = 0; j < E; ++j) stark::load_elem(a, n, base + j * l0, x[j]);
+#pragma unroll
+  for (int st = 0; st < R; ++st) {
+    const int s = DIT ? st : R - 1 - st;
+#pragma unroll
+    for (int t = 0; t < (1 << s); ++t) {
+      uint32_t w[stark::NW];
+      stark::load_elem(tbl.tw[s], (l0 << s) << tbl.shift[s], (k + t * l0) << tbl.shift[s], w);
+#pragma unroll
+      for (int hi = 0; hi < E >> (s + 1); ++hi) {
+        const int j = (hi << (s + 1)) | t;
+        fused_butterfly<DIT, LAZY>(f, p2, x[j], x[j + (1 << s)], w);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    fused_canonical<DIT, LAZY>(f, p2, x[j]);
+    stark::store_elem(out, n, base + j * l0, x[j]);
+  }
+}
+
+// The tile of the library's kernel with scalar loads and stores, its
+// twiddles from the largest stage's limb planes (the tile's first build)
+constexpr int TILE_THREADS = PASS_TILE / 2;
+template <bool DIT, bool LAZY, int R>
+__global__ void __launch_bounds__(TILE_THREADS)
+pass_tile_planes_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ tw,
+                        int32_t* __restrict__ out, int64_t n, int log_l0, stark::Field f) {
+  constexpr int E = 1 << R, K = PASS_TILE / E;
+  __shared__ uint32_t xs[stark::NW][PASS_TILE];
+  const int64_t l0 = int64_t(1) << log_l0, ntw = l0 << (R - 1), per_group = l0 / K;
+  const int64_t g = blockIdx.x / per_group, k0 = (blockIdx.x % per_group) * K;
+  const int64_t base = (g << (log_l0 + R)) + k0;
+  uint32_t p2[stark::NW];
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i)
+    p2[i] = (f.p[i] << 1) | (i > 0 ? f.p[i - 1] >> 31 : 0u);
+  for (int e = threadIdx.x; e < PASS_TILE; e += TILE_THREADS) {
+    uint32_t w[stark::NW];
+    stark::load_elem(a, n, base + (e / K) * l0 + e % K, w);
+#pragma unroll
+    for (int q = 0; q < stark::NW; ++q) xs[q][e] = w[q];
+  }
+  __syncthreads();
+  const int c = threadIdx.x % K, jj = threadIdx.x / K;
+#pragma unroll
+  for (int st = 0; st < R; ++st) {
+    const int s = DIT ? st : R - 1 - st;
+    const int j = ((jj >> s) << (s + 1)) | (jj & ((1 << s) - 1)), t = j & ((1 << s) - 1);
+    uint32_t u[stark::NW], v[stark::NW], w[stark::NW];
+#pragma unroll
+    for (int q = 0; q < stark::NW; ++q) {
+      u[q] = xs[q][j * K + c];
+      v[q] = xs[q][(j + (1 << s)) * K + c];
+    }
+    stark::load_elem(tw, ntw, (k0 + c + t * l0) << (R - 1 - s), w);
+    fused_butterfly<DIT, LAZY>(f, p2, u, v, w);
+#pragma unroll
+    for (int q = 0; q < stark::NW; ++q) {
+      xs[q][j * K + c] = u[q];
+      xs[q][(j + (1 << s)) * K + c] = v[q];
+    }
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < PASS_TILE; e += TILE_THREADS) {
+    uint32_t w[stark::NW];
+#pragma unroll
+    for (int q = 0; q < stark::NW; ++q) w[q] = xs[q][e];
+    fused_canonical<DIT, LAZY>(f, p2, w);
+    stark::store_elem(out, n, base + (e / K) * l0 + e % K, w);
+  }
+}
+// The library's tile, persistent: a CTA walks tiles b, b + grid, ..., the
+// next tile's raw limb planes copied into a second buffer with cp.async
+// (16 bytes a copy) while the current one's stages run
+constexpr int RAW_CHUNKS = stark::LIMBS * PASS_TILE / 4;  // 16-byte chunks a tile
+template <bool DIT, bool LAZY, int R>
+__device__ __forceinline__ void fetch_tile(const int32_t* __restrict__ a, int32_t* raw,
+                                          int64_t n, int log_l0, int64_t b) {
+  constexpr int K = PASS_TILE >> R, LOG_K = 9 - R;
+  const int64_t l0 = int64_t(1) << log_l0;
+  const int64_t k0 = (b << LOG_K) & (l0 - 1), g = b >> (log_l0 - LOG_K);
+  const int64_t base = (g << (log_l0 + R)) + k0;
+  for (int ch = threadIdx.x; ch < RAW_CHUNKS; ch += PASS_TILE / 2) {
+    const int plane = ch / (PASS_TILE / 4), e = 4 * (ch % (PASS_TILE / 4));
+    const int32_t* src = a + plane * n + base + (e / K) * l0 + (e % K);
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(raw + plane * PASS_TILE + e));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src));
+  }
+  asm volatile("cp.async.commit_group;");
+}
+
+template <bool DIT, bool LAZY, int R>
+__global__ void __launch_bounds__(PASS_TILE / 2)
+pass_tile_async_kernel(const int32_t* __restrict__ a, const uint4* __restrict__ tw,
+                       int32_t* __restrict__ out, int64_t n, int log_l0, stark::Field f) {
+  constexpr int K = PASS_TILE >> R, LOG_K = 9 - R;
+  extern __shared__ __align__(16) uint32_t dyn[];
+  uint32_t(*xs)[PASS_TILE] = reinterpret_cast<uint32_t(*)[PASS_TILE]>(dyn);
+  int32_t* raw = reinterpret_cast<int32_t*>(dyn + stark::NW * PASS_TILE);
+  const int64_t l0 = int64_t(1) << log_l0, tiles = n >> 9;
+  uint32_t p2[stark::NW];
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i)
+    p2[i] = (f.p[i] << 1) | (i > 0 ? f.p[i - 1] >> 31 : 0u);
+  const int e = 2 * threadIdx.x;
+  const int c = threadIdx.x & (K - 1), jj = threadIdx.x >> LOG_K;
+  int64_t b = blockIdx.x;
+  if (b < tiles) fetch_tile<DIT, LAZY, R>(a, raw, n, log_l0, b);
+  for (; b < tiles; b += gridDim.x) {
+    const int64_t k0 = (b << LOG_K) & (l0 - 1), g = b >> (log_l0 - LOG_K);
+    const int64_t col = (g << (log_l0 + R)) + k0 + (e / K) * l0 + (e % K);
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < stark::NW; ++i) {
+      const int2 lo = *reinterpret_cast<const int2*>(raw + 2 * i * PASS_TILE + e);
+      const int2 hi = *reinterpret_cast<const int2*>(raw + (2 * i + 1) * PASS_TILE + e);
+      *reinterpret_cast<uint2*>(&xs[i][e]) =
+          make_uint2((static_cast<uint32_t>(lo.x) & 0xFFFFu) | (static_cast<uint32_t>(hi.x) << 16),
+                     (static_cast<uint32_t>(lo.y) & 0xFFFFu) | (static_cast<uint32_t>(hi.y) << 16));
+    }
+    __syncthreads();
+    if (b + gridDim.x < tiles) fetch_tile<DIT, LAZY, R>(a, raw, n, log_l0, b + gridDim.x);
+#pragma unroll
+    for (int st = 0; st < R; ++st) {
+      const int s = DIT ? st : R - 1 - st;
+      const int j = ((jj >> s) << (s + 1)) | (jj & ((1 << s) - 1));
+      const int iu = j * K + c, iv = iu + (K << s);
+      uint32_t u[stark::NW], v[stark::NW];
+#pragma unroll
+      for (int q = 0; q < stark::NW; ++q) {
+        u[q] = xs[q][iu];
+        v[q] = xs[q][iv];
+      }
+      const int64_t ti = (k0 + c + (j & ((1 << s) - 1)) * l0) << (R - 1 - s);
+      const uint4 t0 = tw[2 * ti], t1 = tw[2 * ti + 1];
+      const uint32_t w[stark::NW] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+      fused_butterfly<DIT, LAZY>(f, p2, u, v, w);
+#pragma unroll
+      for (int q = 0; q < stark::NW; ++q) {
+        xs[q][iu] = u[q];
+        xs[q][iv] = v[q];
+      }
+      __syncthreads();
+    }
+    uint32_t y0[stark::NW], y1[stark::NW];
+#pragma unroll
+    for (int i = 0; i < stark::NW; ++i) {
+      const uint2 x = *reinterpret_cast<const uint2*>(&xs[i][e]);
+      y0[i] = x.x;
+      y1[i] = x.y;
+    }
+    fused_canonical<DIT, LAZY>(f, p2, y0);
+    fused_canonical<DIT, LAZY>(f, p2, y1);
+#pragma unroll
+    for (int i = 0; i < stark::NW; ++i) {
+      *reinterpret_cast<int2*>(out + 2 * i * n + col) =
+          make_int2(static_cast<int32_t>(y0[i] & 0xFFFFu), static_cast<int32_t>(y1[i] & 0xFFFFu));
+      *reinterpret_cast<int2*>(out + (2 * i + 1) * n + col) =
+          make_int2(static_cast<int32_t>(y0[i] >> 16), static_cast<int32_t>(y1[i] >> 16));
+    }
+  }
+}
+}  // namespace
+
+// BN254's lazy build, 3 stages a pass, l0 >= 64; ctas_per_sm CTAs an SM
+// persist (0: one CTA a tile)
+extern "C" int probe_pass_tile_async(const void* a, const void* tw, void* out, long long n,
+                                     long long l0, int dit, int ctas_per_sm,
+                                     const uint32_t* p_words, uint32_t np, void* stream) {
+  int log_l0 = 0;
+  while ((1LL << log_l0) < l0) ++log_l0;
+  if (l0 < PASS_TILE / 8) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (stark::NW + stark::LIMBS) * PASS_TILE * sizeof(uint32_t);
+  auto kernel = dit ? pass_tile_async_kernel<true, true, 3> : pass_tile_async_kernel<false, true, 3>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long tiles = n / PASS_TILE;
+  long long grid = ctas_per_sm > 0 ? static_cast<long long>(sms) * ctas_per_sm : tiles;
+  if (grid > tiles) grid = tiles;
+  const stark::Field f = stark::make_field(p_words, np);
+  kernel<<<static_cast<unsigned>(grid), PASS_TILE / 2, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(a), static_cast<const uint4*>(tw), static_cast<int32_t*>(out),
+      n, log_l0, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The library's kernel on passes of 4 or 5 stages (BN254's lazy build)
+extern "C" int probe_pass_wide(const void* a, const void* tw, void* out, long long n,
+                               long long l0, int stages, int dit, const uint32_t* p_words,
+                               uint32_t np, void* stream) {
+  int log_l0 = 0;
+  while ((1LL << log_l0) < l0) ++log_l0;
+  int log_k = 0;
+  while ((2 << log_k) << stages <= PASS_TILE && log_k < log_l0) ++log_k;
+  const unsigned blocks = static_cast<unsigned>(n >> (stages + log_k));
+  const unsigned threads = (1u << (stages + log_k)) / 2;
+  const stark::Field f = stark::make_field(p_words, np);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* ap = static_cast<const int32_t*>(a);
+  const uint4* tp = static_cast<const uint4*>(tw);
+  int32_t* op = static_cast<int32_t*>(out);
+  if (stages == 4 && dit)
+    butterfly_pass_kernel<true, true, 4><<<blocks, threads, 0, st>>>(ap, tp, op, n, log_l0, log_k, f);
+  else if (stages == 4)
+    butterfly_pass_kernel<false, true, 4><<<blocks, threads, 0, st>>>(ap, tp, op, n, log_l0, log_k, f);
+  else if (stages == 5 && dit)
+    butterfly_pass_kernel<true, true, 5><<<blocks, threads, 0, st>>>(ap, tp, op, n, log_l0, log_k, f);
+  else if (stages == 5)
+    butterfly_pass_kernel<false, true, 5><<<blocks, threads, 0, st>>>(ap, tp, op, n, log_l0, log_k, f);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// BN254's lazy build, 3 stages a pass; tables and shifts as Tables
+extern "C" int probe_pass_registers(const void* a, const void* tw0, const void* tw1,
+                                    const void* tw2, int shift0, int shift1, int shift2,
+                                    void* out, long long n, long long l0, int dit,
+                                    const uint32_t* p_words, uint32_t np, void* stream) {
+  int log_l0 = 0;
+  while ((1LL << log_l0) < l0) ++log_l0;
+  const Tables tbl = {{static_cast<const int32_t*>(tw0), static_cast<const int32_t*>(tw1),
+                       static_cast<const int32_t*>(tw2)}, {shift0, shift1, shift2}};
+  const unsigned blocks = static_cast<unsigned>(((n >> 3) + REG_THREADS - 1) / REG_THREADS);
+  const stark::Field f = stark::make_field(p_words, np);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int32_t* op = static_cast<int32_t*>(out);
+  const int32_t* ap = static_cast<const int32_t*>(a);
+  if (dit)
+    pass_registers_kernel<true, true, 3><<<blocks, REG_THREADS, 0, st>>>(ap, tbl, op, n, log_l0, f);
+  else
+    pass_registers_kernel<false, true, 3><<<blocks, REG_THREADS, 0, st>>>(ap, tbl, op, n, log_l0, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int probe_pass_tile_planes(const void* a, const void* tw, void* out, long long n,
+                                      long long l0, int dit, const uint32_t* p_words,
+                                      uint32_t np, void* stream) {
+  int log_l0 = 0;
+  while ((1LL << log_l0) < l0) ++log_l0;
+  if (l0 < PASS_TILE / 8) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>(n / PASS_TILE);
+  const stark::Field f = stark::make_field(p_words, np);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int32_t* op = static_cast<int32_t*>(out);
+  const int32_t* ap = static_cast<const int32_t*>(a);
+  const int32_t* tp = static_cast<const int32_t*>(tw);
+  if (dit)
+    pass_tile_planes_kernel<true, true, 3><<<blocks, TILE_THREADS, 0, st>>>(ap, tp, op, n, log_l0, f);
+  else
+    pass_tile_planes_kernel<false, true, 3><<<blocks, TILE_THREADS, 0, st>>>(ap, tp, op, n, log_l0, f);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
 # opcodes of the probe's own loads, stores and control flow
 NOT_COUNTED = ("LDG", "STG", "LDC", "ULDC", "EXIT", "BRA", "NOP", "S2R", "S2UR",
                "BSSY", "BSYNC", "RET")
@@ -129,9 +442,167 @@ def butterfly_instructions() -> dict:
     return out
 
 
-def kernel_instructions(library: str, pattern: str = "butterfly_fused") -> dict:
+def build_variants(tmp: str):
+    """The probe library of the pass's variants (`VARIANTS`) and what
+    `ptxas -v` said of it."""
+    import ctypes
+
+    from stark_tpu_torch.ops import build
+
+    src, so = os.path.join(tmp, "variants.cu"), os.path.join(tmp, "libvariants.so")
+    with open(src, "w") as f:
+        f.write(VARIANTS)
+    done = subprocess.run([_tool("nvcc"), *build.NVCC_FLAGS, "-shared", "-I", build.CSRC,
+                           "-o", so, src], capture_output=True, text=True)
+    if done.returncode:
+        raise RuntimeError(f"nvcc failed on the variants:\n{done.stdout}{done.stderr}")
+    log = (done.stdout + done.stderr).splitlines()
+    ptxas = [" ".join(x.strip() for x in log[i : i + 4]) for i, ln in enumerate(log)
+             if "Compiling entry" in ln and "pass_" in ln]
+    lib = ctypes.CDLL(so)
+    vp, ll, u32p = ctypes.c_void_p, ctypes.c_longlong, ctypes.POINTER(ctypes.c_uint32)
+    lib.probe_pass_registers.argtypes = ([vp] * 4 + [ctypes.c_int] * 3 + [vp, ll, ll,
+                                         ctypes.c_int, u32p, ctypes.c_uint32, vp])
+    lib.probe_pass_tile_planes.argtypes = [vp] * 3 + [ll, ll, ctypes.c_int, u32p,
+                                                      ctypes.c_uint32, vp]
+    lib.probe_pass_tile_async.argtypes = [vp] * 3 + [ll, ll, ctypes.c_int, ctypes.c_int,
+                                                     u32p, ctypes.c_uint32, vp]
+    lib.probe_pass_wide.argtypes = [vp] * 3 + [ll, ll, ctypes.c_int, ctypes.c_int, u32p,
+                                               ctypes.c_uint32, vp]
+    return lib, ptxas
+
+
+def pass_variants(lib, spec, big, small, x_big, x_small) -> list[dict]:
+    """Each variant of the pass at the prover's passes, held against the
+    plain version (`torch.equal`), timed in turns (variants in order, then
+    in reverse): per pass, and the whole run of each transform's outer
+    stages (`chip_smoke.median_ms`). The variants: the library's kernel
+    (`tile`: a tile in shared memory, 8-byte column accesses, twiddles as
+    packed words); the tile's first build (`tile_planes`: scalar accesses,
+    twiddles from limb planes); one thread a group in registers, twiddles
+    from the largest table's planes (`registers`, the pass's first build)
+    or from each stage's own (`registers_stage_tables`)."""
+    import chip_smoke
+    from stark_tpu_torch.ops import build, ntt
+    from stark_tpu_torch.ops import field_cuda as fc
+
+    def call(name, fn, x, *args):
+        words, np32, stream = fc.cuda_args(spec, x)
+        out = torch.empty_like(x)
+        i = args.index("out")
+        build.check(fn(x.data_ptr(), *args[:i], out.data_ptr(), *args[i + 1:], words, np32,
+                       stream), name)
+        return out
+
+    records = []
+    for kind, x, plan in (("dit", x_big, big), ("dif", x_small, small)):
+        n = x.shape[1]
+        tables = {l: tw for (_, l, tw) in plan.singles}
+        for l0, r, tw_words in plan.passes:
+            if r != 3:  # the variants are built for 3 stages
+                continue
+            top = tables[l0 << 2]
+            own = [tables[l0 << s].data_ptr() for s in range(3)]
+            want = ntt.butterfly_pass_plain(spec, x, tw_words, l0, r, kind)
+            dit = int(kind == "dit")
+            variants = {
+                "tile": lambda: ntt.butterfly_pass(spec, x, tw_words, l0, r, kind),
+                "tile_planes": lambda: call("tile_planes", lib.probe_pass_tile_planes, x,
+                                            top.data_ptr(), "out", n, l0, dit),
+                **{f"tile_async_{c}": (lambda c=c: call(
+                    "tile_async", lib.probe_pass_tile_async, x, tw_words.data_ptr(), "out", n,
+                    l0, dit, c)) for c in (0, 2, 3, 4)},
+                "registers": lambda: call("registers", lib.probe_pass_registers, x,
+                                          *[top.data_ptr()] * 3, 2, 1, 0, "out", n, l0, dit),
+                "registers_stage_tables": lambda: call(
+                    "registers_stage_tables", lib.probe_pass_registers, x, *own, 0, 0, 0,
+                    "out", n, l0, dit),
+            }
+            times = {name: [] for name in variants}
+            for name, fn in variants.items():
+                if not torch.equal(fn(), want):
+                    raise AssertionError(f"pass variant {name} [{kind} l0={l0}] != plain")
+            for order in (list(variants), list(variants)[::-1]):
+                for name in order:
+                    times[name].append(chip_smoke.median_ms(variants[name], 10))
+            records.append({"pass": f"{kind} n={n} l0={l0} r={r}", "ms": times})
+            print(json.dumps(records[-1]), flush=True)
+        # the yardstick of the column's bytes: a device copy, read once and written once
+        y = torch.empty_like(x)
+        records.append({"copy": f"(16, {n})", "bytes": 2 * x.numel() * 4,
+                        "ms": chip_smoke.median_ms(lambda: y.copy_(x), 10)})
+        print(json.dumps(records[-1]), flush=True)
+
+    def run_time(fn):
+        return chip_smoke.median_ms(fn, 10)
+
+    # whole runs of the outer stages: passes of 3 and of 2 (the last shorter),
+    # and the single stages
+    for kind, x, plan in (("dit", x_big, big), ("dif", x_small, small)):
+        want = x
+        for l0, r, tw in plan.passes:
+            want = ntt.butterfly_pass(spec, want, tw, l0, r, kind)
+        tables = {l: tw for (_, l, tw) in plan.singles}
+        twos = [(min(l for _, l, _ in c), len(c), ntt.pack_words(tables[max(l for _, l, _ in c)]))
+                for c in (plan.singles[i : i + 2] for i in range(0, len(plan.singles), 2))]
+
+        def passes(ps):
+            def go():
+                y = x
+                for l0, r, tw in ps:
+                    y = ntt.butterfly_pass(spec, y, tw, l0, r, kind)
+                return y
+            return go
+
+        def stages():
+            y = x
+            for m, l, tw in plan.singles:
+                y = ntt.butterfly_stage(spec, y, tw, m, l, kind)
+            return y
+
+        def wide(sizes):
+            """The run in passes of the given numbers of stages, each pass of
+            4 or 5 through the probe's build of the library's kernel."""
+            ps, i = [], 0
+            for r in sizes:
+                run = plan.singles[i : i + r]
+                i += r
+                ps.append((min(l for _, l, _ in run), r,
+                           ntt.pack_words(tables[max(l for _, l, _ in run)])))
+
+            def go():
+                y = x
+                for l0, r, tw in ps:
+                    y = (ntt.butterfly_pass(spec, y, tw, l0, r, kind) if r <= ntt.PASS_STAGES
+                         else call("wide", lib.probe_pass_wide, y, tw.data_ptr(), "out",
+                                   y.shape[1], l0, r, int(kind == "dit")))
+                return y
+            return go
+
+        runs = {"passes_of_3": passes(plan.passes), "passes_of_2": passes(twos),
+                "single_stages": stages}
+        if len(plan.singles) == 9:
+            runs.update({"passes_5_4": wide((5, 4)), "passes_4_5": wide((4, 5))})
+        if len(plan.singles) == 6:
+            runs.update({"passes_5_1": wide((5, 1)), "passes_4_2": wide((4, 2))})
+        times = {name: [] for name in runs}
+        for name, fn in runs.items():
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"run {name} [{kind}] differs")
+        for order in (list(runs), list(runs)[::-1]):
+            for name in order:
+                times[name].append(run_time(runs[name]))
+        records.append({"run": f"{kind} n={x.shape[1]}", "launches": {
+            "passes_of_3": len(plan.passes), "passes_of_2": len(twos),
+            "single_stages": len(plan.singles), "passes_5_4": 2, "passes_4_5": 2,
+            "passes_5_1": 2, "passes_4_2": 2}, "ms": times})
+        print(json.dumps(records[-1]), flush=True)
+    return records
+
+
+def kernel_instructions(library: str, pattern: str = "butterfly_(fused|pass)") -> dict:
     """SASS instructions of each kernel of a built library whose (mangled)
-    name holds `pattern`, as `cuobjdump -sass` lists them, all opcodes
+    name matches `pattern`, as `cuobjdump -sass` lists them, all opcodes
     counted: the same count for two builds means the same code."""
     text = subprocess.run([_tool("cuobjdump"), "-sass", library],
                           capture_output=True, text=True, check=True).stdout
@@ -139,7 +610,7 @@ def kernel_instructions(library: str, pattern: str = "butterfly_fused") -> dict:
     for ln in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", ln)
         if m:
-            name = m.group(1) if pattern in m.group(1) else None
+            name = m.group(1) if re.search(pattern, m.group(1)) else None
             if name:
                 out[name] = 0
         elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", ln):
@@ -151,7 +622,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the records to DIR/ntt_kernels.json")
     ap.add_argument("--library", action="append", default=[],
-                    help="also count the SASS of this library's butterfly_fused kernels "
+                    help="also count the SASS of this library's butterfly_fused and "
+                         "butterfly_pass kernels "
                          "(another build, such as a parent commit's); repeatable")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -203,6 +675,23 @@ def main(argv=None) -> int:
                             / (ISSUE_PER_CLOCK * sms * sm_hz) * 1e3)
         records.append({"kernel": "butterfly_fused", "case": label, **case})
         print(json.dumps(records[-1]), flush=True)
+
+    result = chip_smoke.compare_pass(spec, big, small, x_big, x_small)
+    chip_smoke.add_bounds(result, sm_hz)
+    for label, case in result["cases"].items():
+        # "[edges |short |bls12_381 ]kind n=... l0=... r=..."
+        *pre, kind, n, _, r = label.split()
+        canonical = bool(pre) and pre[0].startswith("bls12_381")
+        butterflies = int(r[2:]) * int(n[2:]) // 2
+        case["floor_ms"] = (instr[f"{kind}_canonical" if canonical else kind]["instructions"]
+                            * butterflies / (ISSUE_PER_CLOCK * sms * sm_hz) * 1e3)
+        records.append({"kernel": "butterfly_pass", "case": label, **case})
+        print(json.dumps(records[-1]), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, vptxas = build_variants(tmp)
+        records.append({"variants_ptxas": vptxas})
+        print(json.dumps(records[-1]), flush=True)
+        records += pass_variants(lib, spec, big, small, x_big, x_small)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "ntt_kernels.json"), "w") as f:

@@ -8,17 +8,54 @@
 //   Cooley-Tukey DIT (bit-reversed in, natural out):
 //     t = v * tw_k,     y[k] = u + t,     y[k + l] = u - t
 //
-// butterfly_stage replaces stark_tpu/ops/pallas_field.py:446
+// butterfly_stage and butterfly_pass replace stark_tpu/ops/pallas_field.py:446
 // `butterfly_stage` (one stage with l >= TILE, strided (16, 1, 2, 1024)
-// blocks). butterfly_fused replaces stark_tpu/ops/pallas_field.py:518
-// `butterfly_fused` (every stage with 2l <= block, run back to back in VMEM
-// with XOR-roll partner exchange and period-2l twiddle rows).
+// blocks): the stage as it is, and the run of such stages that the NTT plan
+// launches, up to three a launch. butterfly_fused replaces
+// stark_tpu/ops/pallas_field.py:518 `butterfly_fused` (every stage with
+// 2l <= block, run back to back in VMEM with XOR-roll partner exchange and
+// period-2l twiddle rows).
 //
 // butterfly_stage: what bounds it on an H100 is device memory, a stage
 // reads and writes the whole array (2 x 64 MiB at n = 2^20) for n/2
 // Montgomery products. One thread per (group, k) pair; consecutive threads
 // take consecutive k, so the u, v, twiddle and output rows are read and
-// written as contiguous 128-byte warp segments.
+// written as contiguous 128-byte warp segments. The plan no longer runs it
+// (`ops/ntt.py run` takes the passes); it stays, held against its plain
+// version.
+//
+// butterfly_pass: r <= 3 consecutive outer stages (l = l0 .. 4 l0, l0 >=
+// 2048 on the plan's path) in one launch, so the column moves once where
+// the stages moved it r times. Stage s pairs elements j and j + 2^s of the
+// group of 2^r elements base + j l0, and every twiddle of the pass comes from
+// its largest stage's table (tw_l[k] = tw_2l[2k]), which the plan holds as 8
+// packed words an element (32 bytes, half the limb planes' 64): two 16-byte
+// loads a twiddle. What bounds it: the column's bytes first. A device copy
+// of a (16, 2^20) column takes 0.049 ms and a pass 0.058 / 0.066 / 0.069-0.072
+// ms at r = 1 / 2 / 3 (one H100 80GB HBM3 at 700 W, `scripts/
+// ntt_kernels_cuda.py`): each stage adds its products (~600 SASS
+// instructions a butterfly) mostly under the bytes, and passes of 4 and 5
+// stages, which the probe also builds, save only 8% of the 2^20 run (the
+// products bind there). The design:
+// - A CTA holds a tile of the 2^r rows of one group at K = min(l0, 512 /
+//   2^r) consecutive k in shared memory, word major (conflict-free: a
+//   warp's lanes on consecutive k). 256 threads load two neighbouring
+//   elements each as 8-byte accesses to each limb plane, run one butterfly
+//   each a stage between __syncthreads, and store two each. About 48-64
+//   registers, 16 KB of shared memory, so 4-5 CTAs an SM overlap one
+//   another's loads, products and stores.
+// - Tried on the card and dropped (the probe script keeps them): one
+//   thread a group in registers (127-138 registers, 0.12-0.20 ms at 2^20:
+//   too few warps for the loads in flight), its twiddles from each stage's
+//   own table, the tile with scalar accesses and twiddles read from limb
+//   planes (0.082-0.090 ms), and a persistent tile that copies the next
+//   tile in with cp.async while the current one computes (0.080-0.092 ms).
+// - The butterflies are butterfly_fused's (fused_butterfly): lazy on BN254
+//   (DIT below 4p, DIF below 2p, reduced on the way out), canonical on
+//   BLS12-381, the same choice by the field (`ops/ntt.py fused_lazy`). The
+//   output is canonical, so a pass equals its stages run one by one, bit
+//   for bit. The kernel's index map and its lazy bounds are modelled in
+//   `tests/test_torch_ntt_pass.py`.
 //
 // butterfly_fused (replaces stark_tpu/ops/pallas_field.py:518). What bounds
 // it on an H100: the integer instruction stream. Its log2(block) stages move
@@ -120,6 +157,9 @@ __global__ void butterfly_stage_kernel(const int32_t* __restrict__ a,
   stark::store_elem(out, n, i0, y0);
   stark::store_elem(out, n, i1, y1);
 }
+
+constexpr int PASS_MAX_STAGES = 3;  // outer stages a butterfly_pass runs
+constexpr int PASS_TILE = 512;      // elements a CTA of the pass holds
 
 constexpr int FB_MAX_LOG = 11;  // blocks up to 2048 elements
 constexpr int FB_EPT = 4;       // elements a thread: two stages a round
@@ -589,6 +629,102 @@ butterfly_fused_kernel(const int32_t* __restrict__ a, const int32_t* __restrict_
   block_sync(cs);  // no CTA leaves while its partner may read its buffers
 }
 
+// A pass of R consecutive outer stages, l = l0 .. l0 2^(R-1) (see the header).
+// The groups are the 2^R elements base + j l0 (j < 2^R, base = g 2^R l0 + k,
+// k < l0). A CTA holds a tile of the 2^R rows j of one g at K = min(l0,
+// PASS_TILE / 2^R) consecutive k, k0 .. k0 + K - 1, in shared memory, word
+// major (an element's word q at xs[q][j K + c]); E K / 2 threads load two
+// neighbouring elements each (8-byte loads from each limb plane), run one
+// butterfly each a stage between __syncthreads, and store two each. Stage s
+// (l = l0 2^s) pairs row j with j + 2^s, twiddle tw_l[k + (j mod 2^s) l0]:
+// entry (k + (j mod 2^s) l0) 2^(R-1-s) of the largest stage's table `tw`,
+// packed as 8 words (two 16-byte loads). DIT runs s ascending, DIF
+// descending.
+template <bool DIT, bool LAZY, int R>
+__global__ void __launch_bounds__(PASS_TILE / 2)
+butterfly_pass_kernel(const int32_t* __restrict__ a, const uint4* __restrict__ tw,
+                      int32_t* __restrict__ out, int64_t n, int log_l0, int log_k,
+                      stark::Field f) {
+  __shared__ __align__(16) uint32_t xs[stark::NW][PASS_TILE];
+  const int K = 1 << log_k;
+  const int64_t l0 = int64_t(1) << log_l0;
+  const int64_t k0 = (static_cast<int64_t>(blockIdx.x) << log_k) & (l0 - 1);
+  const int64_t g = static_cast<int64_t>(blockIdx.x) >> (log_l0 - log_k);
+  const int64_t base = (g << (log_l0 + R)) + k0;
+  uint32_t p2[stark::NW];  // 2p, the lazy butterflies' bound
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i)
+    p2[i] = (f.p[i] << 1) | (i > 0 ? f.p[i - 1] >> 31 : 0u);
+  // tile elements e and e + 1 lie side by side in the planes: K is even, or
+  // K = l0 and the tile is one contiguous run
+  const int e = 2 * threadIdx.x;
+  const int64_t col = base + (e >> log_k) * l0 + (e & (K - 1));
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i) {
+    const int2 lo = *reinterpret_cast<const int2*>(a + 2 * i * n + col);
+    const int2 hi = *reinterpret_cast<const int2*>(a + (2 * i + 1) * n + col);
+    *reinterpret_cast<uint2*>(&xs[i][e]) =
+        make_uint2((static_cast<uint32_t>(lo.x) & 0xFFFFu) | (static_cast<uint32_t>(hi.x) << 16),
+                   (static_cast<uint32_t>(lo.y) & 0xFFFFu) | (static_cast<uint32_t>(hi.y) << 16));
+  }
+  __syncthreads();
+  const int c = threadIdx.x & (K - 1), jj = threadIdx.x >> log_k;
+#pragma unroll
+  for (int st = 0; st < R; ++st) {
+    const int s = DIT ? st : R - 1 - st;
+    const int j = ((jj >> s) << (s + 1)) | (jj & ((1 << s) - 1));  // bit s clear
+    const int iu = j * K + c, iv = iu + (K << s);
+    uint32_t u[stark::NW], v[stark::NW];
+#pragma unroll
+    for (int q = 0; q < stark::NW; ++q) {
+      u[q] = xs[q][iu];
+      v[q] = xs[q][iv];
+    }
+    const int64_t ti = (k0 + c + (j & ((1 << s) - 1)) * l0) << (R - 1 - s);
+    const uint4 t0 = tw[2 * ti], t1 = tw[2 * ti + 1];
+    const uint32_t w[stark::NW] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+    fused_butterfly<DIT, LAZY>(f, p2, u, v, w);
+#pragma unroll
+    for (int q = 0; q < stark::NW; ++q) {
+      xs[q][iu] = u[q];
+      xs[q][iv] = v[q];
+    }
+    __syncthreads();
+  }
+  uint32_t y0[stark::NW], y1[stark::NW];
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i) {
+    const uint2 x = *reinterpret_cast<const uint2*>(&xs[i][e]);
+    y0[i] = x.x;
+    y1[i] = x.y;
+  }
+  fused_canonical<DIT, LAZY>(f, p2, y0);
+  fused_canonical<DIT, LAZY>(f, p2, y1);
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i) {
+    *reinterpret_cast<int2*>(out + 2 * i * n + col) =
+        make_int2(static_cast<int32_t>(y0[i] & 0xFFFFu), static_cast<int32_t>(y1[i] & 0xFFFFu));
+    *reinterpret_cast<int2*>(out + (2 * i + 1) * n + col) =
+        make_int2(static_cast<int32_t>(y0[i] >> 16), static_cast<int32_t>(y1[i] >> 16));
+  }
+}
+
+template <bool DIT, bool LAZY>
+cudaError_t launch_pass(int stages, const int32_t* a, const uint4* tw, int32_t* out,
+                        int64_t n, int log_l0, const stark::Field& f, cudaStream_t st) {
+  int log_k = 0;  // K = min(l0, PASS_TILE / 2^stages)
+  while ((2 << log_k) << stages <= PASS_TILE && log_k < log_l0) ++log_k;
+  const unsigned blocks = static_cast<unsigned>(n >> (stages + log_k));
+  const unsigned threads = (1u << (stages + log_k)) / 2;
+  if (stages == 1)
+    butterfly_pass_kernel<DIT, LAZY, 1><<<blocks, threads, 0, st>>>(a, tw, out, n, log_l0, log_k, f);
+  else if (stages == 2)
+    butterfly_pass_kernel<DIT, LAZY, 2><<<blocks, threads, 0, st>>>(a, tw, out, n, log_l0, log_k, f);
+  else
+    butterfly_pass_kernel<DIT, LAZY, 3><<<blocks, threads, 0, st>>>(a, tw, out, n, log_l0, log_k, f);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int stark_butterfly_stage(const void* a, const void* tw, void* out,
@@ -658,4 +794,30 @@ extern "C" int stark_butterfly_fused(const void* a, const void* tw_cat,
   err = cudaLaunchKernelEx(&cfg, kernel, ap, tp, op, static_cast<int64_t>(n), log_block, cs, f);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A pass of `stages` (1 .. 3) outer stages from width l0 (a power of two;
+// n a multiple of l0 2^stages); tw: the largest stage's table, l0
+// 2^(stages-1) elements of 8 packed words. lazy: as for butterfly_fused.
+extern "C" int stark_butterfly_pass(const void* a, const void* tw, void* out, long long n,
+                                    long long l0, int stages, int dit, int lazy,
+                                    const uint32_t* p_words, uint32_t np, void* stream) {
+  int log_l0 = 0;
+  while ((1LL << log_l0) < l0) ++log_l0;
+  const uint32_t top = p_words[stark::NW - 1];
+  if (stages < 1 || stages > PASS_MAX_STAGES || (1LL << log_l0) != l0 ||
+      n % (l0 << stages) != 0 || top >= (lazy ? 0x33333333u : 0x80000000u))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  const stark::Field f = stark::make_field(p_words, np);
+  const int32_t* ap = static_cast<const int32_t*>(a);
+  const uint4* tp = static_cast<const uint4*>(tw);
+  int32_t* op = static_cast<int32_t*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      lazy ? (dit ? launch_pass<true, true>(stages, ap, tp, op, n, log_l0, f, st)
+                  : launch_pass<false, true>(stages, ap, tp, op, n, log_l0, f, st))
+           : (dit ? launch_pass<true, false>(stages, ap, tp, op, n, log_l0, f, st)
+                  : launch_pass<false, false>(stages, ap, tp, op, n, log_l0, f, st));
+  return static_cast<int>(err);
 }

@@ -42,6 +42,10 @@ _SIGNATURES = {
         _vp, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int, ctypes.c_int, _u32p,
         ctypes.c_uint32, _vp,
     ],
+    "stark_butterfly_pass": [
+        _vp, _vp, _vp, _ll, _ll, ctypes.c_int, ctypes.c_int, ctypes.c_int, _u32p,
+        ctypes.c_uint32, _vp,
+    ],
     "stark_blake2s_words": [_vp, _vp, _ll, ctypes.c_int, _ll, _vp],
     "stark_mpow_scalar": [
         _vp, _vp, ctypes.c_int, _u32p, ctypes.c_int, ctypes.c_int, _u32p, ctypes.c_uint32,

@@ -3,14 +3,16 @@
 Counterpart of `stark_tpu/ops/ntt.py` on its Pallas plan (`NttPlan`
 `:231-262`, `_run_pallas :304-330`, `lde :522-555`), on every device:
 per-stage twiddle tables tw_k = root^(k*m) (k < l) shared by both
-directions; stages with 2l > block run one at a time through
-`butterfly_stage`, the run of stages with 2l <= block runs in one
-`butterfly_fused` pass. The split changes no value: `block` is a plan
-argument.
+directions; the stages with 2l > block (the plan's `singles`, which the TPU
+runs one at a time) run in passes of up to `PASS_STAGES` consecutive
+stages through `butterfly_pass`, the run of stages with 2l <= block in one
+`butterfly_fused` pass. Neither split changes a value: `block` is a plan
+argument, and a pass equals its stages run one by one.
 
-The two butterfly wrappers launch `csrc/ntt.cu` on a CUDA tensor (replacing
-`stark_tpu/ops/pallas_field.py:446 butterfly_stage` and `:518
-butterfly_fused`) and run their plain PyTorch versions on a CPU tensor.
+The butterfly wrappers launch `csrc/ntt.cu` on a CUDA tensor (replacing
+`stark_tpu/ops/pallas_field.py:446 butterfly_stage`, as the single stage
+and as the multi-stage pass, and `:518 butterfly_fused`) and run their
+plain PyTorch versions on a CPU tensor.
 `make_best_lde` picks the LDE engine by name: these butterflies, or the CRT
 matrix-product engine of `ops/mxu_ntt.py`.
 """
@@ -29,6 +31,9 @@ from stark_tpu_torch.ops import modmath as mm
 # block, each with 64 KB of exchange buffers and 32 KB of twiddles, two CTAs
 # an SM).
 FUSED_BLOCK = 2048
+# Outer stages a `butterfly_pass` runs at most: groups of 2^3 elements, each
+# read and written once
+PASS_STAGES = 3
 
 _KINDS = ("dif", "dit")
 
@@ -141,6 +146,75 @@ def butterfly_fused(spec: FieldSpec, a, tw_cat, block: int, kind: str):
 butterfly_fused.launches = 0
 
 
+def pass_ls(l0: int, r: int, kind: str) -> list[int]:
+    """The stage widths of a pass of r stages from l0, in execution order."""
+    ls = [l0 << s for s in range(r)]
+    return ls if kind == "dit" else ls[::-1]
+
+
+def pack_words(planes):
+    """(16, k) limb planes -> (k, 8) packed words, element by element (the
+    int32 bit patterns of limb 2i | limb 2i+1 << 16): the layout a pass
+    reads its twiddles in, 32 bytes an element."""
+    lo, hi = planes[0::2].to(torch.int64), planes[1::2].to(torch.int64)
+    w = (lo & 0xFFFF) | ((hi & 0xFFFF) << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32).t().contiguous()
+
+
+def unpack_words(words):
+    """Inverse of `pack_words`: (k, 8) -> (16, k)."""
+    w = words.t().to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16], dim=1).reshape(-1, w.shape[1]).to(torch.int32)
+
+
+def butterfly_pass_plain(spec: FieldSpec, a, tw_words, l0: int, r: int, kind: str):
+    """r consecutive stages, l = l0 .. l0 2^(r-1) (dit ascending, dif
+    descending), each a whole-array `butterfly_stage_plain`. tw_words:
+    (l0 2^(r-1), 8), the largest stage's table as `pack_words`; stage l's
+    table is its every (l0 2^(r-1) / l)-th element, since tw_l[k] =
+    root^(k n / 2l) = tw_2l[2k]."""
+    n = a.shape[1]
+    tw = unpack_words(tw_words)
+    top = l0 << (r - 1)
+    for l in pass_ls(l0, r, kind):
+        a = butterfly_stage_plain(
+            spec, a, tw[:, :: top // l].contiguous(), n // (2 * l), l, kind
+        )
+    return a
+
+
+def butterfly_pass(spec: FieldSpec, a, tw_words, l0: int, r: int, kind: str):
+    """A pass of r <= `PASS_STAGES` outer stages (see
+    `butterfly_pass_plain`) on a (16, n) plane. On a CUDA tensor each group
+    of 2^r elements (stride l0) is read once, its r stages run in shared
+    memory and it is written once; the field picks the kernel's build
+    (`fused_lazy`), and the output is canonical."""
+    _check_kind(kind)
+    fc.check_planes(spec, a)
+    n = a.shape[1]
+    if (not 1 <= r <= PASS_STAGES or l0 < 1 or l0 & (l0 - 1) or n % (l0 << r)
+            or tw_words.shape != (l0 << (r - 1), 8) or tw_words.dtype != torch.int32
+            or not tw_words.is_contiguous() or tw_words.device != a.device):
+        raise ValueError(
+            f"pass shapes: a {tuple(a.shape)}, tw_words {tuple(tw_words.shape)} "
+            f"{tw_words.dtype} on {tw_words.device}, l0={l0}, r={r}"
+        )
+    if a.device.type == "cpu":
+        return butterfly_pass_plain(spec, a, tw_words, l0, r, kind)
+    words, np32, stream = fc.cuda_args(spec, a)
+    out = torch.empty_like(a)
+    rc = build.load().stark_butterfly_pass(
+        a.data_ptr(), tw_words.data_ptr(), out.data_ptr(), n, l0, r,
+        int(kind == "dit"), int(fused_lazy(spec)), words, np32, stream,
+    )
+    build.check(rc, "butterfly_pass")
+    butterfly_pass.launches += 1
+    return out
+
+
+butterfly_pass.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # plans
 # ---------------------------------------------------------------------------
@@ -172,10 +246,31 @@ class NttPlan:
         self.fused_tw = (
             torch.cat([tw for (_, _, tw) in fused], dim=1) if fused else None
         )
+        # (l0, r, the table of width l0 2^(r-1) as packed words, which the
+        # pass reads)
+        tables = {l: tw for (_, l, tw) in stages}
+        self.passes = [(l0, r, pack_words(tables[l0 << (r - 1)]))
+                       for l0, r in pass_plan(n, self.block, direction)]
+
+
+def outer_ls(n: int, block: int, kind: str) -> list[int]:
+    """The widths of the stages with 2l > min(n, block), the plan's
+    singles, in execution order (dit ascending, dif descending)."""
+    ls = [1 << s for s in range(n.bit_length() - 1) if 2 << s > min(n, block)]
+    return ls if kind == "dit" else ls[::-1]
+
+
+def pass_plan(n: int, block: int, kind: str) -> list[tuple[int, int]]:
+    """(l0, r) of each pass: `outer_ls` in execution order, cut into runs
+    of `PASS_STAGES` consecutive stages (the last shorter where the count is
+    not a multiple); l0 is a run's smallest width."""
+    ls = outer_ls(n, block, kind)
+    runs = [ls[i : i + PASS_STAGES] for i in range(0, len(ls), PASS_STAGES)]
+    return [(min(run), len(run)) for run in runs]
 
 
 def run(spec: FieldSpec, a, plan: NttPlan):
-    """Execute a plan: singles and the fused run in direction order."""
+    """Execute a plan: the passes and the fused run in direction order."""
 
     def fused(a):
         if plan.fused_tw is None:
@@ -183,12 +278,12 @@ def run(spec: FieldSpec, a, plan: NttPlan):
         return butterfly_fused(spec, a, plan.fused_tw, plan.block, plan.direction)
 
     if plan.direction == "dif":
-        for m, l, tw in plan.singles:
-            a = butterfly_stage(spec, a, tw, m, l, "dif")
+        for l0, r, tw in plan.passes:
+            a = butterfly_pass(spec, a, tw, l0, r, "dif")
         return fused(a)
     a = fused(a)
-    for m, l, tw in plan.singles:
-        a = butterfly_stage(spec, a, tw, m, l, "dit")
+    for l0, r, tw in plan.passes:
+        a = butterfly_pass(spec, a, tw, l0, r, "dit")
     return a
 
 

@@ -55,13 +55,13 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
     nttm.check_lde_engine(lde_engine)
     if digest != "blake2s":
         raise NotImplementedError(
-            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1 "
-            "item 12, Poseidon digest)"
+            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1, "
+            "Poseidon digest)"
         )
     if precision > MAX_PRECISION:
         raise NotImplementedError(
             f"precision {precision} > 2^22 needs the big-domain path "
-            "(ROADMAP.md Queue 1 item 11, big-domain path)"
+            "(ROADMAP.md Queue 1, big-domain path)"
         )
     dev = torch.device(device)
     p = spec.p

@@ -105,13 +105,13 @@ def _stages_cached(spec, steps, precision, original_steps, digest, device, lde_e
 def _check_scope(mesh, digest: str):
     if mesh is not None:
         raise NotImplementedError(
-            "mesh: multi-GPU proving is not ported (ROADMAP.md Queue 1 item 16, "
+            "mesh: multi-GPU proving is not ported (ROADMAP.md Queue 1, "
             "Multi-GPU)"
         )
     if digest != "blake2s":
         raise NotImplementedError(
-            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1 "
-            "item 12, Poseidon digest)"
+            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1, "
+            "Poseidon digest)"
         )
 
 

@@ -97,8 +97,8 @@ def verify_r1cs_proof(spec: FieldSpec, proof: StarkProof, public_wires,
     check_lde_engine(lde_engine)
     if digest != "blake2s":
         raise NotImplementedError(
-            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1 "
-            "item 12, Poseidon digest)"
+            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1, "
+            "Poseidon digest)"
         )
     dev = devmod.resolve(device)
     p = spec.p

@@ -60,7 +60,7 @@ def test_prove_many_edges(chain):
     assert runner.prove_many(r1cs, [], device="cpu") == []
     with pytest.raises(ValueError, match="pipeline"):
         runner.prove_many(r1cs, witnesses, pipeline=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, Multi-GPU"):
         runner.prove_many(r1cs, witnesses, mesh=object(), device="cpu")
     bad = [b"\x02" + bytes(31)] + witnesses[0][1:]
     with pytest.raises(ValueError, match=r"witness\[0\]"):

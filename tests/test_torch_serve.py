@@ -198,7 +198,7 @@ def test_worker_warmup_and_poseidon(compute):
     assert sorted(by_id[1]["result"]) == ["ok", "seconds", "steps", "warmed"]
     assert by_id[1]["result"]["steps"] == 16 and by_id[1]["result"]["warmed"] > 0
     assert by_id[2]["error"]["type"] == "NotImplementedError"
-    assert "item 12" in by_id[2]["error"]["message"]
+    assert "ROADMAP.md Queue 1, Poseidon digest" in by_id[2]["error"]["message"]
     assert "error" in by_id[3]
     assert by_id[4]["error"]["type"] == "FileNotFoundError"
     assert by_id[5]["result"]["proof"] == compute[2]  # the default route, after EOF-less errors
