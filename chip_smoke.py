@@ -11,8 +11,9 @@ non-zero and no phase's error is swallowed:
 2. build: the kernel library is built with nvcc from stark_tpu_torch/csrc;
    the record's `ptxas` list holds what `ptxas -v` said of every kernel
    (registers, spills), the ones redesigned for Hopper among them;
-3. kernels: each of the 23 CUDA kernels (the 22 TPU kernels' counterparts
-   and the multi-stage pass) against its plain PyTorch version
+3. kernels: each of the 24 CUDA kernels (the 22 TPU kernels' counterparts,
+   the multi-stage pass and the vanishing product's pre-pass) against its
+   plain PyTorch version
    on the card, at the prover's shapes for 43,690 constraints (steps 2^17,
    precision 2^20), inputs from a numpy seed; tolerance: exact equality
    (integer field arithmetic with canonical outputs), with the median
@@ -48,7 +49,11 @@ non-zero and no phase's error is swallowed:
    order), shifts 0, 1 and n - 1 and the 2^17 domain's prover shape;
    `linear_combination_shoup` a pattern of 8 and of 1,024 columns, every
    k_j p - 1 with every plane through `with_edges`, and BLS12-381's field
-   at 2^16.
+   at 2^16. `horner_eval` and `vanishing_eval` run at counts on each side
+   of their groups (`compare_groups`), up to the `bits` golden's 1,062
+   public wires (compared at 2^14, timed alone at 2^20), with each case's
+   group and product floor (`floor_ms`); their pre-pass,
+   `vanishing_coeffs`, at 1,062 and 17 points.
    Then, in a record of its own (`prefix_prod`), `prefix_prod` forward and
    reversed and `multi_inv` at 2^17, 2^20 and at lengths 80, 96 and 160:
    each equal (`torch.equal`) to the same function on CPU tensors, with its
@@ -58,7 +63,12 @@ non-zero and no phase's error is swallowed:
    `bits` and `pedersen_test` proofs on both fold routes (`GOLDENS`), must
    be byte-identical to the committed goldens and the `ragged_mix(120)`
    proof must match its committed sha256; the port's verifier must accept
-   each;
+   each. The `bits` golden's first prove (its 1,062 public wires make the
+   boundary polynomials long) is run with every launch counter set to 0
+   just before and read just after, and with the device time of each call
+   of `horner_eval` and `vanishing_eval` in it (`kernels_ms`);
+   `vanishing_coeffs`, which the real-size circuit's two public wires do
+   not need, must launch there;
 5. real size: `squaring_chain(43690)` proved twice (cold and warm) on the
    default route (the radix-4 inverse-DFT fold) and verified; the launch
    counter of every kernel of that route must be > 0 for the cold proving
@@ -93,8 +103,9 @@ The line before the card's lists the kernels of the three paths as JSON
 (`kernels`; each with the numbers of its first case, the largest shape the
 proving run gives it, named under `case`; `path` names the phase whose run
 counted its `launches`: `real_size`, `serve` for the two fold kernels,
-which the default route does not run, or `crt` for the three kernels of
-the CRT engine) and, under `off_path`, the two
+which the default route does not run, `crt` for the three kernels of
+the CRT engine, or `goldens: bits` for `vanishing_coeffs`) and, under
+`off_path`, the two
 ported kernels no path runs: `linear_combination` on the (16, n)
 x^steps table, whose place the stages' Shoup pattern pair takes, and
 `butterfly_stage`, whose place the multi-stage pass takes. The last
@@ -206,6 +217,7 @@ KERNELS = {
     "shoup_mul_periodic": (_PROTOCOL_CU, f"{_PK}:268"),
     "linear_combination_shoup": (_PROTOCOL_CU, f"{_PK}:319"),
     "horner_eval": (_PROTOCOL_CU, f"{_PK}:214"),
+    "vanishing_coeffs": (_PROTOCOL_CU, f"{_PK}:236"),
     "vanishing_eval": (_PROTOCOL_CU, f"{_PK}:236"),
     "sub_mul": (_PROTOCOL_CU, f"{_PK}:353"),
     "from_mont_pack_words": (_PROTOCOL_CU, f"{_PK}:373"),
@@ -229,6 +241,14 @@ OFF_PATH = ("linear_combination", "butterfly_stage")
 LAGRANGE_ONLY = ("fri_fold_pre", "fri_fold_post")
 # run only on the CRT LDE engine: counted in the crt phase
 CRT_ONLY = ("residues_in", "matmul_fold", "reconstruct")
+# run only for circuits with more public wires than the real-size circuit's
+# two (spans of points): counted in the `bits` golden's first prove
+BITS_ONLY = ("vanishing_coeffs",)
+# the wrappers of `protocol/kernels.py` whose device time the goldens phase
+# reads within the `bits` golden's first prove (its 1,062 public wires)
+BITS_TIMED = ("horner_eval", "vanishing_eval")
+LONG_D, LONG_POINTS = 1062, 1061  # the `bits` golden's public wires; one fewer
+N_CHECK = 1 << 14  # where the long cases are compared with their plain versions
 # the engine's disk cache of host-built tables, inside the (ignored) build tree
 PLAN_CACHE = os.path.join(ROOT, "stark_tpu_torch", "_build", "plans")
 PROVE_MANY_X0 = (3, 5, 7, 11)  # start values of the four pipelined witnesses
@@ -556,18 +576,7 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
         fk.linear_combination_shoup_plain,
         lc_cases,
     )
-    out["horner_eval"] = compare(
-        "horner_eval",
-        lambda c, x: fk.horner_eval(spec, c, x),
-        lambda c, x: fk.horner_eval_plain(spec, c, x),
-        {f"n={N} d={d}": ((rand(d), x_big), 2 * plane, (d - 1) * N * MM) for d in (2, 17)},
-    )
-    out["vanishing_eval"] = compare(
-        "vanishing_eval",
-        lambda x, pts: fk.vanishing_eval(spec, x, pts),
-        lambda x, pts: fk.vanishing_eval_plain(spec, x, pts),
-        {f"n={N} points={k}": ((x_big, rand(k)), 2 * plane, k * N * MM) for k in (2, 17)},
-    )
+    out.update(compare_groups(spec, rand, x_big, a_edge, sm_hz))
     out["sub_mul"] = compare(
         "sub_mul",
         lambda *a: fk.sub_mul(spec, *a),
@@ -600,6 +609,99 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
                                    post_cases)
     for result in out.values():
         add_bounds(result, sm_hz)
+    return out
+
+
+def time_alone(result: dict, label: str, fn, args, nbytes: int, ops: int,
+               reps: int = 5) -> None:
+    """Add to a `compare` result a case timed without its plain version (held
+    to it at a smaller n by another case)."""
+    result["cases"][label] = {"ms": median_ms(lambda: fn(*args), reps), "plain_ms": None,
+                              "bytes": nbytes, "ops": ops, "ops_per_s": INT_OPS_PER_S,
+                              "library_ms": None, "chain": 0}
+
+
+def compare_groups(spec, rand, x_big, a_edge, sm_hz: float) -> dict:
+    """`horner_eval`, `vanishing_eval` and the pre-pass of the latter,
+    `vanishing_coeffs`. Horner: the prover's d = 2 first, then 1, 3, 4, 5,
+    8, 9 and 17 (each side of the groups of `fused_kernels.GROUPS`) at 2^20;
+    d = 1,062 (the `bits` golden's public wires) compared at 2^14 on the
+    first columns of the 2^20 case, which is timed alone and must equal it
+    there; d = 17 on BLS12-381's field at 2^16. The vanishing product
+    likewise at 2, 0, 1, 3, 5, 8, 9, 17 and 1,061 points, and on BLS12-381
+    at 17 and 100 (where 2^16 elements pay for the pre-pass). The pre-pass at
+    1,062 points (33 spans of 32 and one of 6) and 17, on both fields (its
+    plain version takes seconds). Bounds: Horner's d - 1 products an
+    element, the product's npts - 1, the pre-pass's s(s - 1)/2 a span of s;
+    `floor_ms`, each case's operations a thread in the kernel's design
+    (`fused_kernels.horner_ops`, `vanishing_ops`) at the clocks of
+    `fused_kernels._COST`. The plain versions' times are of their one
+    comparison call."""
+    from stark_tpu_torch.fields.field import BLS12_381_FR as bls
+    from stark_tpu_torch.protocol import fused_kernels as fk
+
+    device, N, MM = x_big.device, x_big.shape[1], MONT_MUL_OPS
+    plane = 64 * N
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    hv = np.random.default_rng(SEED + 12)
+
+    def hv_planes(field, n):
+        planes = random_planes(hv, field, n, device)
+        return with_edges(field, planes) if n else planes
+
+    bls_n = N // 16
+    x_check, x_bls = a_edge[:, :N_CHECK].contiguous(), hv_planes(bls, bls_n)
+    # the parent's draws for d = 2, 17 and 2, 17 points, then this function's own
+    horner_in = {(spec, d, N): (rand(d), x_big) for d in (2, 17)}
+    vanish_in = {(spec, k, N): (x_big, rand(k)) for k in (2, 17)}
+    horner_in.update({(spec, d, N): (hv_planes(spec, d), x_big) for d in (1, 3, 4, 5, 8, 9)})
+    vanish_in.update({(spec, k, N): (x_big, hv_planes(spec, k)) for k in (0, 1, 3, 5, 8, 9)})
+    long_c, long_pts = hv_planes(spec, LONG_D), hv_planes(spec, LONG_POINTS)
+    horner_in[(spec, LONG_D, N_CHECK)] = (long_c, x_check)
+    vanish_in[(spec, LONG_POINTS, N_CHECK)] = (x_check, long_pts)
+    horner_in[(bls, 17, bls_n)] = (hv_planes(bls, 17), x_bls)
+    vanish_in[(bls, 17, bls_n)] = (x_bls, hv_planes(bls, 17))
+    vanish_in[(bls, 100, bls_n)] = (x_bls, hv_planes(bls, 100))  # spans at 2^16
+
+    def label(field, count, n, what):
+        return f"{'' if field is spec else field.name + ' '}n={n} {what}={count}"
+
+    def floor_ms(ops: dict, n: int) -> float:
+        return fk.ops_cost(ops) * n / (sms * sm_hz) * 1e3
+
+    out = {}
+    for name, inputs, what, choose, ops_of in (
+            ("horner_eval", horner_in, "d", fk.horner_group, fk.horner_ops),
+            ("vanishing_eval", vanish_in, "points", fk.vanishing_group, fk.vanishing_ops)):
+        wrapper, plain = getattr(fk, name), getattr(fk, name + "_plain")
+        cases = {label(field, count, n, what): ((field, *args), 2 * 64 * n,
+                                                 max(count - 1, 0) * n * MM)
+                 for (field, count, n), args in inputs.items()}
+        result = compare(name, wrapper, plain, cases, reps=(10, 0))
+        long = LONG_D if name == "horner_eval" else LONG_POINTS
+        args = (spec, long_c, a_edge) if name == "horner_eval" else (spec, a_edge, long_pts)
+        got = wrapper(*args)
+        if not torch.equal(got[:, :N_CHECK], wrapper(*cases[label(spec, long, N_CHECK, what)][0])):
+            raise AssertionError(f"{name}: the 2^20 case differs from the 2^14 one on its columns")
+        time_alone(result, label(spec, long, N, what), wrapper, args, 2 * plane,
+                   (long - 1) * N * MM)
+        for (field, count, n) in list(inputs) + [(spec, long, N)]:
+            case = result["cases"][label(field, count, n, what)]
+            case["group"] = (choose(field, count) if name == "horner_eval"
+                             else choose(field, count, n))
+            case["design_ops"] = ops_of(count, case["group"])
+            case["floor_ms"] = floor_ms(case["design_ops"], n)
+        out[name] = result
+
+    coeff_cases = {}
+    for field, count in ((spec, LONG_D), (spec, 17), (bls, 17)):
+        pts = hv_planes(field, count)
+        spans = [fk.SPAN] * (count // fk.SPAN) + [count % fk.SPAN] * (count % fk.SPAN > 0)
+        prefix = "" if field is spec else field.name + " "
+        coeff_cases[f"{prefix}points={count}"] = (
+            (field, pts), 2 * 64 * count, sum(s * (s - 1) // 2 for s in spans) * MM)
+    out["vanishing_coeffs"] = compare("vanishing_coeffs", fk.vanishing_coeffs,
+                                      fk.vanishing_coeffs_plain, coeff_cases, reps=(10, 0))
     return out
 
 
@@ -899,6 +1001,55 @@ def prove_and_check(name, r1cs, witness, device, golden_text=None, golden_sha=No
             "verify_s": time.time() - t0, "proof_bytes": len(text), "sha256": sha}
 
 
+def timed_wrappers(module, names):
+    """Wrap `module`'s functions `names` so that each call records CUDA events
+    around its launches and the width of its small operand; returns
+    ({name: [(start, end, count)]}, a function that restores them)."""
+    spans = {name: [] for name in names}
+    originals = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def timed(spec, *args):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            result = fn(spec, *args)
+            end.record()
+            small = args[0] if name == "horner_eval" else args[1]
+            spans[name].append((start, end, small.shape[1]))
+            return result
+        return timed
+
+    for name in names:
+        setattr(module, name, wrap(name, originals[name]))
+    return spans, lambda: [setattr(module, n, fn) for n, fn in originals.items()]
+
+
+def prove_bits_first(circuit, device, want, fri_fold, lde_engine) -> dict:
+    """The `bits` golden's first (cold) prove with every launch counter set to
+    0 just before and read just after, and the device time of the calls of
+    `BITS_TIMED` in it: the path of `BITS_ONLY`, which must launch."""
+    from stark_tpu_torch.protocol import kernels
+
+    wrap = wrappers()
+    for fn in wrap.values():
+        fn.launches = 0
+    spans, restore = timed_wrappers(kernels, BITS_TIMED)
+    try:
+        rec = prove_and_check("bits", *circuit, device, golden_text=want,
+                              fri_fold=fri_fold, lde_engine=lde_engine)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    rec["launches"] = {name: fn.launches for name, fn in wrap.items()}
+    rec["kernels_ms"] = {name: [{"terms": count, "ms": start.elapsed_time(end)}
+                                for start, end, count in calls]
+                         for name, calls in spans.items()}
+    missing = [name for name in BITS_ONLY + BITS_TIMED if rec["launches"][name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the bits prove: {missing}")
+    return rec
+
+
 def phase_goldens(device) -> list[dict]:
     from stark_tpu_torch.r1cs.synth import ragged_mix
 
@@ -907,7 +1058,10 @@ def phase_goldens(device) -> list[dict]:
         with open(os.path.join(FIXTURES, golden)) as f:
             want = f.read()
         circuit = _fixture(name)
-        for fri_fold, lde_engine in routes:
+        for k, (fri_fold, lde_engine) in enumerate(routes):
+            if name == "bits" and k == 0:
+                out.append(prove_bits_first(circuit, device, want, fri_fold, lde_engine))
+                continue
             out.append(prove_and_check(name, *circuit, device, golden_text=want,
                                        fri_fold=fri_fold, lde_engine=lde_engine))
     with open(os.path.join(FIXTURES, "ragged120_proof_sha256.txt")) as f:
@@ -944,8 +1098,8 @@ def phase_real(device, r1cs, witness, profile: bool, lde_engine: str = "butterfl
     proof, cold_s, launches, peak_cold = timed_prove()
     # the butterfly engine's run must launch every kernel but the other
     # routes'; the CRT engine's, which finds the circuit's tables made, its three
-    wanted = CRT_ONLY if crt else [name for name in wrap
-                                   if name not in OFF_PATH + LAGRANGE_ONLY + CRT_ONLY]
+    wanted = CRT_ONLY if crt else [
+        name for name in wrap if name not in OFF_PATH + LAGRANGE_ONLY + CRT_ONLY + BITS_ONLY]
     missing = [name for name in wanted if launches[name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the proving run: {missing}")
@@ -1251,7 +1405,7 @@ def phase_serve(device, r1cs, witness, want_proof) -> dict:
             if per_request[key]["launches"].get(name, 0) <= 0:
                 raise AssertionError(f"{name} was not launched by request {key}")
     missing = [name for name, n in launches.items()
-               if n <= 0 and name not in OFF_PATH + CRT_ONLY]
+               if n <= 0 and name not in OFF_PATH + CRT_ONLY + BITS_ONLY]
     if missing:
         raise AssertionError(f"kernels not launched by the worker's run: {missing}")
 
@@ -1386,6 +1540,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     goldens = phase_goldens(device)
     emit({"phase": "goldens", "results": goldens, "seconds": time.time() - t0})
+    bits = next(rec for rec in goldens if "launches" in rec)
 
     from stark_tpu_torch.r1cs.synth import squaring_chain
 
@@ -1412,7 +1567,9 @@ def main(argv=None) -> int:
         src, rep = KERNELS[name]
         label, case = next(iter(kstats[name]["cases"].items()))
         path, run = (("serve", served) if name in LAGRANGE_ONLY
-                     else ("crt", crt_run) if name in CRT_ONLY else ("real_size", real))
+                     else ("crt", crt_run) if name in CRT_ONLY
+                     else ("goldens: bits", bits) if name in BITS_ONLY
+                     else ("real_size", real))
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "path": path, "launches": run["launches"][name],
                 "max_abs_err": kstats[name]["max_abs_err"], "case": label,

@@ -24,7 +24,7 @@
 // block in shared memory as packed words; coefficients and points in tiles of
 // SMALL_TILE columns. The TPU wrappers materialised rolled copies of whole
 // planes (a tile cannot wrap); here a rolled operand is read at its shifted
-// index. `vanishing_eval` starts from R mod p in the Field argument; `sub_mul`
+// index. `vanishing_eval` of no points is R mod p from the Field argument; `sub_mul`
 // takes b as a plane or as one (16, 1) column; `from_mont_pack_words` stores
 // the 8 packed words as they sit in registers, the little-endian words of the
 // canonical value. The Shoup kernels multiply by constants that repeat along
@@ -34,7 +34,7 @@
 //
 // What bounds them on an H100: device memory, 64 bytes a plane an element,
 // for all but `horner_eval` and `vanishing_eval`, whose run-time loops of
-// products turn integer bound at long polynomials. Two were redesigned for it:
+// products turn integer bound at long polynomials. Four were redesigned:
 //
 // `linear_combination_shoup` (8 planes in, 1 out: 0.180 ms at 2^20 over
 // 3.35 TB/s) issued 14 full products and 10 modular additions an element
@@ -81,6 +81,42 @@
 // (a Montgomery product costs ~7 SM clocks a thread at full occupancy)
 // take about as long as its bytes, which keeps it above its bound; three
 // outputs a thread, P read five times by one thread, was slower.
+//
+// `horner_eval` (d coefficients) and `vanishing_eval` (npts points) run, at
+// every x, a chain as long as the circuit's count of public wires (2 on the
+// real-size circuit, 1,062 on the `bits` golden): bound by their products,
+// not their bytes, past two terms. Each did one CIOS product and one
+// addition a term (the first a product by zero or one), 9.4 SM clocks a
+// term at 2^20. Now a thread works in groups of G terms, each a wide sum
+// reduced once (G a build, 1, 2, 4 or 8; the wrapper takes the cheapest by
+// a cost model in measured clocks: `fused_kernels.horner_group`,
+// `vanishing_group`):
+// - Horner in x^G: x^2 .. x^G once (G - 1 CIOS products), then from the
+//   highest group down acc <- REDC(acc*x^G + sum_{0<j<G} c_j*x^j +
+//   c_0*2^256), c_0*2^256 a word offset, not a product: G wide products
+//   and one reduction per G coefficients (2.8 and 4.8 SM clocks a thread
+//   against 7.4 for a CIOS product). The highest group, which alone may be
+//   short, has no acc term; a lone highest coefficient is the start.
+// - The vanishing product by spans of 32 points: each span's monic product
+//   x^s + sum_{j<s} e_j*x^j (`vanishing_coeffs_kernel`, once a call, a warp
+//   a span) valued by the same Horner in x^G with the leading 1 in the
+//   highest group (a shifted power, not a product), and multiplied into
+//   acc by one CIOS product from the second span on: per G points G wide
+//   products and a reduction, and one CIOS product per 32 points. An
+//   earlier step, groups of G points each valued by one wide sum and
+//   multiplied in, paid a CIOS product per G points: 16% slower at 17
+//   points, 9% at 1,061. The pre-pass is latency-bound (about 1 us a
+//   step), so the wrapper counts it in, spread over the elements: below
+//   2^20 few points keep G = 1, the product of the differences x - q
+//   without the product by one.
+// - Bounds: with every operand below p, a group's sum W < G*p^2 + p*2^256
+//   (with the leading 1: (G - 1)*p^2 + 2p*2^256), so T = REDC(W) < W/2^256
+//   + p stays below 8p, where the subtractions of 4p, 2p and p make it
+//   canonical, for G <= 31 on BN254 and G <= 13 on BLS12-381 (with the 1:
+//   27 and 12): `fused_kernels.group_fits` derives them exactly.
+// - Registers bound G: the powers take 8G of them (G = 8: 121-123, two
+//   blocks an SM). G = 12 (one block), the powers in shared memory and
+//   more blocks for G = 1 were all slower (scripts/horner_kernels_cuda.py).
 
 #include "field.cuh"
 
@@ -553,30 +589,116 @@ shoup_mul_periodic_kernel(const int32_t* __restrict__ w_pat,
   stark::store_elem(out, n, i, r);
 }
 
-// out = (..(c[d-1]*x + c[d-2])*x + ..)*x + c[0], from acc = 0; d >= 0.
-__global__ void __launch_bounds__(THREADS)
+// --- horner_eval and vanishing_eval: groups of G terms, summed wide --------
+
+// acc += c*2^256: c's words at words 8..15, the carry into word 16.
+__device__ __forceinline__ void add_shifted(uint32_t (&acc)[WIDE], const uint32_t (&c)[NW]) {
+  asm("add.cc.u32 %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.cc.u32 %7, %7, %16;\n\t"
+      "addc.u32 %8, %8, 0;"
+      : "+r"(acc[8]), "+r"(acc[9]), "+r"(acc[10]), "+r"(acc[11]), "+r"(acc[12]),
+        "+r"(acc[13]), "+r"(acc[14]), "+r"(acc[15]), "+r"(acc[16])
+      : "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(c[4]), "r"(c[5]),
+        "r"(c[6]), "r"(c[7]));
+}
+
+// r = acc*2^-256 mod p, canonical, for a wide sum whose REDC stays below 8p
+// (the header's bound on G).
+__device__ __forceinline__ void redc_canonical(const Field& f, uint32_t (&acc)[WIDE],
+                                               uint32_t (&r)[NW]) {
+  redc_wide(f, acc);
+  uint32_t t[NW + 1];
+#pragma unroll
+  for (int w = 0; w <= NW; ++w) t[w] = acc[NW + w];
+  reduce_below_8p(f, t);
+#pragma unroll
+  for (int w = 0; w < NW; ++w) r[w] = t[w];
+}
+
+__device__ __forceinline__ void row_words(const uint32_t* row, uint32_t (&v)[NW]) {
+#pragma unroll
+  for (int w = 0; w < NW; ++w) v[w] = row[w];
+}
+
+// xp[k] = x^(k+1) (Montgomery) for k < m <= G from xp[0] = x: m - 1 products.
+template <int G>
+__device__ __forceinline__ void powers(const Field& f, int64_t m, uint32_t (&xp)[G][NW]) {
+#pragma unroll
+  for (int k = 1; k < G; ++k)
+    if (k < m) stark::mont_mul(f, xp[k - 1], xp[0], xp[k]);
+}
+
+// Columns of a small operand staged at once: whole groups of G.
+template <int G>
+__host__ __device__ constexpr int group_tile() { return SMALL_TILE / G * G; }
+
+// One group of Horner's rule in x^G, coefficients c[0..r) (shared memory):
+// acc <- REDC(acc*x^G + sum_{0<j<r} c_j*x^j + c_0*2^256), or without the
+// acc term for the first (highest) group, which alone may be short; a first
+// group of one coefficient is that coefficient.
+template <int G>
+__device__ __forceinline__ void horner_group(const Field& f, uint32_t (&xp)[G][NW],
+                                             uint32_t (*c)[NW], int r, bool first,
+                                             uint32_t (&acc)[NW]) {
+  uint32_t k[NW];
+  if (first && r == 1) {
+    row_words(c[0], acc);
+    return;
+  }
+  uint32_t w[WIDE];
+#pragma unroll
+  for (int j = 0; j < WIDE; ++j) w[j] = 0;
+  if (!first) mac_wide(w, acc, xp[G - 1]);
+#pragma unroll
+  for (int j = 1; j < G; ++j) {
+    if (j < r) {
+      row_words(c[j], k);
+      mac_wide(w, k, xp[j - 1]);
+    }
+  }
+  row_words(c[0], k);
+  add_shifted(w, k);
+  redc_canonical(f, w, acc);
+}
+
+// out = c[d-1]*x^(d-1) + .. + c[0] (0 for d = 0): Horner's rule in x^G over
+// groups of G coefficients from the highest down, the highest group short.
+template <int G, int MINB = 1>
+__global__ void __launch_bounds__(THREADS, MINB)
 horner_kernel(const int32_t* __restrict__ coeffs, int64_t d,
               const int32_t* __restrict__ xs, int32_t* __restrict__ out,
               int64_t n, Field f) {
-  __shared__ uint32_t cs[SMALL_TILE][NW];
-  int64_t i = global_index();
-  bool live = i < n;
-  uint32_t x[NW], acc[NW], t[NW];
+  constexpr int TILE = group_tile<G>();
+  __shared__ __align__(16) uint32_t cs[TILE][NW];
+  const int64_t i = global_index();
+  const bool live = i < n;
+  uint32_t xp[G][NW], acc[NW];
 #pragma unroll
   for (int w = 0; w < NW; ++w) acc[w] = 0;
-  if (live) stark::load_elem(xs, n, i, x);
-  // tiles from the highest coefficients down; the first may be short
+  if (live && d > 1) stark::load_elem(xs, n, i, xp[0]);
+  bool first = true;
+  // tiles of whole groups from the highest coefficients down; the first may
+  // be short, and its first group
   for (int64_t hi = d; hi > 0;) {
-    int count = static_cast<int>((hi - 1) % SMALL_TILE) + 1;
-    int64_t base = hi - count;
+    const int64_t base = (hi - 1) / TILE * TILE;
+    const int count = static_cast<int>(hi - base);
     __syncthreads();
     stage_cols(coeffs, d, base, count, cs);
     __syncthreads();
     if (live) {
+      if (first) powers<G>(f, d - 1 < G ? d - 1 : G, xp);
 #pragma unroll 1
-      for (int j = count - 1; j >= 0; --j) {
-        stark::mont_mul(f, acc, x, t);
-        stark::mod_add(f, t, cs[j], acc);
+      for (int top = count; top > 0;) {
+        const int lo = (top - 1) / G * G;
+        horner_group<G>(f, xp, cs + lo, top - lo, first, acc);
+        first = false;
+        top = lo;
       }
     }
     hi = base;
@@ -584,29 +706,136 @@ horner_kernel(const int32_t* __restrict__ coeffs, int64_t d,
   if (live) stark::store_elem(out, n, i, acc);
 }
 
-// out = prod_j (x - pts[j]), from acc = R mod p; npts >= 0.
+// Points a span covers: the vanishing product's points in spans of SPAN, one
+// warp forming each span's monic product.
+constexpr int SPAN = 32;
+
+// The coefficients of each span's monic product: prod_{k<s} (x - q_k) =
+// x^s + sum_{j<s} e_j*x^j, e_j at column lo + j of es for the span of points
+// lo .. lo + s - 1 (lo = SPAN*span; the last span short). One warp a span:
+// lane j holds c_j of the product so far, from x - q_0 (c_1 = 1).
+// Multiplying in x - q_k: c_j <- c_{j-1} - q_k*c_j, c_{j-1} from lane j - 1
+// by a shuffle, so the s - 1 steps cost one product's latency each.
 __global__ void __launch_bounds__(THREADS)
-vanishing_kernel(const int32_t* __restrict__ pts, int64_t npts,
+vanishing_coeffs_kernel(const int32_t* __restrict__ pts, int64_t npts,
+                        int32_t* __restrict__ es, Field f) {
+  const int j = static_cast<int>(threadIdx.x % SPAN);
+  const int64_t lo = global_index() / SPAN * SPAN;
+  // s is the same for the whole warp, so its steps and shuffles are too
+  const int s = lo < npts ? static_cast<int>(npts - lo < SPAN ? npts - lo : SPAN) : 0;
+  uint32_t c[NW], q[NW], t[NW], below[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) c[w] = t[w] = 0;
+  if (s == 0) return;
+  stark::load_elem(pts, npts, lo, q);
+  if (j == 0) stark::mod_sub(f, t, q, c);
+  if (j == 1) stark::set_elem(c, f.one);
+  if (s > 1) stark::load_elem(pts, npts, lo + 1, q);
+#pragma unroll 1
+  for (int k = 1; k < s; ++k) {
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      below[w] = __shfl_up_sync(0xFFFFFFFFu, c[w], 1);
+      if (j == 0) below[w] = 0;
+    }
+    stark::mont_mul(f, q, c, t);
+    if (k + 1 < s) stark::load_elem(pts, npts, lo + k + 1, q);  // the next step's point
+    stark::mod_sub(f, below, t, c);
+  }
+  if (j < s) stark::store_elem(es, npts, lo + j, c);
+}
+
+// The value at x of a span's monic product x^s + sum_{j<s} e_j*x^j, from its
+// coefficients e[0..s) in shared memory: Horner's rule in x^G over the s + 1
+// coefficients, the leading 1 in the highest group. That group, e[lo..s)
+// with lo = G*floor(s/G), is REDC(sum_{0<j<t} e_{lo+j}*x^j + (x^t +
+// e_lo)*2^256) for t = s - lo > 1 coefficients, x + e_lo for one, the 1
+// alone for none; each group below takes acc*x^G (after the lone 1,
+// x^G*2^256) and G - 1 coefficients' products and e_{lo'}*2^256.
+template <int G>
+__device__ __forceinline__ void span_value(const Field& f, uint32_t (&xp)[G][NW],
+                                           uint32_t (*e)[NW], int s, uint32_t (&v)[NW]) {
+  uint32_t k[NW], w[WIDE];
+  const int lo = s / G * G, t = s - lo;
+  if (t == 1) {
+    row_words(e[lo], k);
+    stark::mod_add(f, xp[0], k, v);
+  } else if (t > 1) {
+#pragma unroll
+    for (int i = 0; i < WIDE; ++i) w[i] = 0;
+    row_words(e[lo], k);
+    add_shifted(w, k);
+#pragma unroll
+    for (int j = 1; j < G; ++j) {
+      if (j < t) {
+        row_words(e[lo + j], k);
+        mac_wide(w, k, xp[j - 1]);
+      } else if (j == t) {
+        add_shifted(w, xp[j - 1]);
+      }
+    }
+    redc_canonical(f, w, v);
+  }
+#pragma unroll 1
+  for (int top = lo; top > 0; top -= G) {
+#pragma unroll
+    for (int i = 0; i < WIDE; ++i) w[i] = 0;
+    if (top == s) {
+      add_shifted(w, xp[G - 1]);
+    } else {
+      mac_wide(w, v, xp[G - 1]);
+    }
+#pragma unroll
+    for (int j = 1; j < G; ++j) {
+      row_words(e[top - G + j], k);
+      mac_wide(w, k, xp[j - 1]);
+    }
+    row_words(e[top - G], k);
+    add_shifted(w, k);
+    redc_canonical(f, w, v);
+  }
+}
+
+// out = prod_j (x - pts[j]) (R mod p for no points). G = 1: the differences
+// x - q_j, the first as it is, each further one multiplied in (es: the
+// points). G > 1: the spans' values (`span_value`; es: their coefficients),
+// the first as it is, each further one multiplied in.
+template <int G>
+__global__ void __launch_bounds__(THREADS)
+vanishing_kernel(const int32_t* __restrict__ es, int64_t npts,
                  const int32_t* __restrict__ xs, int32_t* __restrict__ out,
                  int64_t n, Field f) {
-  __shared__ uint32_t ps[SMALL_TILE][NW];
-  int64_t i = global_index();
-  bool live = i < n;
-  uint32_t x[NW], acc[NW], t[NW], u[NW];
+  static_assert(SMALL_TILE % SPAN == 0, "a tile holds whole spans");
+  constexpr int STEP = G == 1 ? 1 : SPAN;
+  __shared__ __align__(16) uint32_t cs[SMALL_TILE][NW];
+  const int64_t i = global_index();
+  const bool live = i < n;
+  uint32_t xp[G][NW], acc[NW], v[NW], t[NW];
   stark::set_elem(acc, f.one);
-  if (live) stark::load_elem(xs, n, i, x);
+  if (live && npts > 0) stark::load_elem(xs, n, i, xp[0]);
+  bool first = true;
   for (int64_t base = 0; base < npts; base += SMALL_TILE) {
-    int count = static_cast<int>(npts - base < SMALL_TILE ? npts - base
-                                                          : SMALL_TILE);
+    const int count = static_cast<int>(npts - base < SMALL_TILE ? npts - base : SMALL_TILE);
     __syncthreads();
-    stage_cols(pts, npts, base, count, ps);
+    stage_cols(es, npts, base, count, cs);
     __syncthreads();
     if (live) {
+      if (first) powers<G>(f, npts < G ? npts : G, xp);
 #pragma unroll 1
-      for (int j = 0; j < count; ++j) {
-        stark::mod_sub(f, x, ps[j], t);
-        stark::mont_mul(f, acc, t, u);
-        stark::set_elem(acc, u);
+      for (int lo = 0; lo < count; lo += STEP) {
+        if (G == 1) {
+          row_words(cs[lo], t);
+          stark::mod_sub(f, xp[0], t, v);
+        } else {
+          span_value<G>(f, xp, cs + lo, count - lo < SPAN ? count - lo : SPAN, v);
+        }
+        if (first) {
+          stark::set_elem(acc, v);
+        } else {
+          stark::mont_mul(f, acc, v, t);
+          stark::set_elem(acc, t);
+        }
+        first = false;
       }
     }
   }
@@ -747,21 +976,47 @@ extern "C" int stark_shoup_mul_periodic(const void* w_pat, const void* wp_pat,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int stark_horner_eval(const void* coeffs, long long d,
+// group: the G of a build (`fused_kernels.GROUPS`), checked against the
+// field's bound by the wrapper.
+extern "C" int stark_horner_eval(const void* coeffs, long long d, int group,
                                  const void* xs, void* out, long long n,
                                  const uint32_t* field_words, uint32_t np,
                                  void* stream) {
-  STARK_LAUNCH(horner_kernel, n, stream, in(coeffs), d, in(xs), outp(out), n,
-               stark::make_field(field_words, np));
+  const Field f = stark::make_field(field_words, np);
+  switch (group) {
+    case 1: STARK_LAUNCH(horner_kernel<1>, n, stream, in(coeffs), d, in(xs), outp(out), n, f); break;
+    case 2: STARK_LAUNCH(horner_kernel<2>, n, stream, in(coeffs), d, in(xs), outp(out), n, f); break;
+    case 4: STARK_LAUNCH(horner_kernel<4>, n, stream, in(coeffs), d, in(xs), outp(out), n, f); break;
+    case 8: STARK_LAUNCH(horner_kernel<8>, n, stream, in(coeffs), d, in(xs), outp(out), n, f); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int stark_vanishing_eval(const void* pts, long long npts,
+// es: (16, npts), the points for group 1, else each span's coefficients
+// (`vanishing_coeffs`).
+extern "C" int stark_vanishing_eval(const void* es, long long npts, int group,
                                     const void* xs, void* out, long long n,
                                     const uint32_t* field_words, uint32_t np,
                                     void* stream) {
-  STARK_LAUNCH(vanishing_kernel, n, stream, in(pts), npts, in(xs), outp(out),
-               n, stark::make_field(field_words, np));
+  const Field f = stark::make_field(field_words, np);
+  switch (group) {
+    case 1: STARK_LAUNCH(vanishing_kernel<1>, n, stream, in(es), npts, in(xs), outp(out), n, f); break;
+    case 2: STARK_LAUNCH(vanishing_kernel<2>, n, stream, in(es), npts, in(xs), outp(out), n, f); break;
+    case 4: STARK_LAUNCH(vanishing_kernel<4>, n, stream, in(es), npts, in(xs), outp(out), n, f); break;
+    case 8: STARK_LAUNCH(vanishing_kernel<8>, n, stream, in(es), npts, in(xs), outp(out), n, f); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pts, es: (16, npts); a warp a span of SPAN points.
+extern "C" int stark_vanishing_coeffs(const void* pts, long long npts, void* es,
+                                      const uint32_t* field_words, uint32_t np,
+                                      void* stream) {
+  const long long threads = (npts + SPAN - 1) / SPAN * SPAN;
+  STARK_LAUNCH(vanishing_coeffs_kernel, threads, stream, in(pts), npts, outp(es),
+               stark::make_field(field_words, np));
   return static_cast<int>(cudaGetLastError());
 }
 

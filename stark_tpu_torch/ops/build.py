@@ -72,8 +72,13 @@ _SIGNATURES = {
     "stark_shoup_mul_periodic": [
         _vp, _vp, _ll, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp,
     ],
-    "stark_horner_eval": [_vp, _ll, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp],
-    "stark_vanishing_eval": [_vp, _ll, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp],
+    "stark_horner_eval": [
+        _vp, _ll, ctypes.c_int, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp,
+    ],
+    "stark_vanishing_eval": [
+        _vp, _ll, ctypes.c_int, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp,
+    ],
+    "stark_vanishing_coeffs": [_vp, _ll, _vp, _u32p, ctypes.c_uint32, _vp],
     "stark_sub_mul": [
         _vp, _vp, ctypes.c_int, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp,
     ],

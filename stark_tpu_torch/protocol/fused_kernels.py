@@ -7,7 +7,8 @@ Counterpart of `stark_tpu/protocol/pallas_kernels.py` for its kernels
 `linear_combination_shoup` (`:319`), `sub_mul` (`:353`),
 `from_mont_pack_words` (`:373`), `fri_fold_pre` (`:433`) and `fri_fold_post`
 (`:478`), with the same signatures but for the fold pair, which passes the
-x in place of the TPU pair's (16, 16, q) cubics. The kernels are
+x in place of the TPU pair's (16, 16, q) cubics. `vanishing_coeffs` is the
+pre-pass of `vanishing_eval`: each span of points' monic product. The kernels are
 `csrc/protocol.cu` and, for the two halves of FRI's Lagrange fold,
 `csrc/fri.cu`; each header says what bounds its kernels on an H100 and what
 the design does about it.
@@ -266,7 +267,109 @@ def linear_combination_shoup(spec: FieldSpec, k_mont, xw_pat, xwp_pat, p_ev, a_e
     return out
 
 
-# --- boundary helpers -------------------------------------------------------
+# --- boundary helpers: groups of G terms, each summed wide, reduced once ----
+#
+# Both kernels evaluate at each x in groups of G terms (`csrc/protocol.cu`):
+# Horner's rule in x^G, over the coefficients, and over each span of SPAN
+# points' monic product (`vanishing_coeffs`), whose values are multiplied.
+# GROUPS are the builds of G; a call takes the cheapest build that the
+# field's bound allows, by the cost model below.
+
+GROUPS = (1, 2, 4, 8)
+SPAN = 32  # points a span of the vanishing product covers: a warp a span
+# SM clocks a thread at full occupancy on an H100 80GB HBM3 at 700 W
+# (scripts/horner_kernels_cuda.py): a CIOS product, a wide product, a
+# group's reduction (REDC and the subtractions of 4p, 2p, p), a modular
+# subtraction
+_COST = {"cios": 7.4, "wide": 2.8, "redc": 4.8, "sub": 0.5}
+# the pre-pass's device time on the same card, microseconds: a launch, a
+# step (one product's latency: it runs a warp a span), and each span but the
+# first; and the card's SM clocks in a microsecond (132 SMs at 1,980 MHz),
+# to spread that time over the main kernel's elements
+_PREPASS_US = {"launch": 5.0, "step": 0.95, "span": 0.45}
+_CARD_CLOCKS_PER_US = 132 * 1980
+
+
+def group_fits(spec: FieldSpec, g: int, lead: bool = False) -> bool:
+    """Whether a group of g terms keeps the kernels' wide sum in bounds on
+    this field: with every operand p - 1 and the reduction's multiple of p
+    at its largest, T = (W + (2^256 - 1) p) / 2^256 < 8p, which the three
+    subtractions (4p, 2p, p) make canonical. W: g products below p^2 (the
+    accumulator by x^G, g - 1 coefficients) and one coefficient times
+    2^256; with `lead`, a group holding a monic polynomial's leading 1: g - 1
+    products and two values times 2^256."""
+    p, r = spec.p, 1 << 256
+    if lead:
+        w = (g - 1) * (p - 1) ** 2 + 2 * (p - 1) * r
+    else:
+        w = g * (p - 1) ** 2 + (p - 1) * r
+    return (w + (r - 1) * p) // r < 8 * p
+
+
+def horner_ops(d: int, g: int) -> dict:
+    """What `horner_kernel<g>` does a thread for d coefficients: min(g, d - 1)
+    - 1 CIOS products (the powers of x); for the highest group, of
+    d - g*floor((d - 1)/g) coefficients, nothing (one) or that many less one
+    wide products and a reduction; for each group below it g wide products
+    and a reduction."""
+    if d <= 1:
+        return {"cios": 0, "wide": 0, "redc": 0, "sub": 0}
+    top, full = d - (d - 1) // g * g, (d - 1) // g
+    return {"cios": min(g, d - 1) - 1, "wide": full * g + top - 1,
+            "redc": full + (top > 1), "sub": 0}
+
+
+def vanishing_ops(npts: int, g: int) -> dict:
+    """What `vanishing_kernel<g>` does a thread for npts points. g = 1: a
+    subtraction a point and a CIOS product for each point but the first.
+    g > 1: min(g, npts) - 1 CIOS products (the powers), one more for each
+    span but the first; for each span of s points, t = s mod g and
+    f = floor(s/g): a subtraction (t = 1) or t - 1 wide products and a
+    reduction (t > 1) for its highest group, and f groups of g wide
+    products (one fewer after a lone leading 1) and a reduction."""
+    if g == 1:
+        return {"cios": max(npts - 1, 0), "wide": 0, "redc": 0, "sub": npts}
+    spans = [SPAN] * (npts // SPAN) + ([npts % SPAN] if npts % SPAN else [])
+    ops = {"cios": max(min(g, npts) - 1 + len(spans) - 1, 0), "wide": 0, "redc": 0,
+           "sub": 0}
+    for s in spans:
+        t, f = s % g, s // g
+        ops["sub"] += t == 1
+        ops["wide"] += (t - 1 if t > 1 else 0) + f * g - (t == 0)
+        ops["redc"] += (t > 1) + f
+    return ops
+
+
+def prepass_cost(npts: int, n: int) -> float:
+    """Modelled SM clocks a thread of `vanishing_kernel` that the pre-pass
+    for npts points adds at n elements: its device time on the whole card,
+    spread over the n."""
+    spans = -(-npts // SPAN)
+    us = (_PREPASS_US["launch"] + _PREPASS_US["step"] * (min(npts, SPAN) - 1)
+          + _PREPASS_US["span"] * (spans - 1))
+    return us * _CARD_CLOCKS_PER_US / max(n, 1)
+
+
+def ops_cost(ops: dict) -> float:
+    """Modelled SM clocks a thread of a count from `horner_ops` or
+    `vanishing_ops`."""
+    return sum(_COST[k] * v for k, v in ops.items())
+
+
+def horner_group(spec: FieldSpec, d: int) -> int:
+    """The build of `horner_kernel` for d coefficients: the cheapest by the
+    cost model within the field's bound, the smallest on a tie."""
+    return min((g for g in GROUPS if group_fits(spec, g)),
+               key=lambda g: ops_cost(horner_ops(d, g)))
+
+
+def vanishing_group(spec: FieldSpec, npts: int, n: int) -> int:
+    """The build of `vanishing_kernel` for npts points at n elements, as
+    `horner_group` (its groups take both forms of `group_fits`), the
+    pre-pass that every build but G = 1 runs counted in."""
+    return min((g for g in GROUPS if group_fits(spec, g) and group_fits(spec, g, lead=True)),
+               key=lambda g: ops_cost(vanishing_ops(npts, g))
+               + (prepass_cost(npts, n) if g > 1 and npts else 0.0))
 
 
 def horner_eval_plain(spec, coeffs_mont, xs_full):
@@ -282,10 +385,49 @@ def horner_eval(spec: FieldSpec, coeffs_mont, xs_full):
     _check(spec, (xs_full,), (coeffs_mont,))
     if xs_full.device.type == "cpu":
         return horner_eval_plain(spec, coeffs_mont, xs_full)
+    d = coeffs_mont.shape[1]
+    g = horner_group(spec, d)
     out = torch.empty_like(xs_full)
     _launch(horner_eval, spec, xs_full, lambda lib, w, np32, st: lib.stark_horner_eval(
-        coeffs_mont.data_ptr(), coeffs_mont.shape[1], xs_full.data_ptr(),
-        out.data_ptr(), xs_full.shape[1], w, np32, st))
+        coeffs_mont.data_ptr(), d, g, xs_full.data_ptr(), out.data_ptr(),
+        xs_full.shape[1], w, np32, st))
+    return out
+
+
+def vanishing_coeffs_plain(spec, points_mont):
+    """Each span's coefficients as the kernel's warp forms them, every span
+    at once: lane j of a span holds c_j, from x - q_0 (c_1 = 1, the rest
+    0); multiplying in x - q_k, c_j <- c_(j-1) - q_k*c_j (c_(-1) = 0), for
+    the spans that have a point k."""
+    L, npts = points_mont.shape
+    spans = -(-npts // SPAN)
+    q = torch.zeros((L, spans * SPAN), dtype=points_mont.dtype, device=points_mont.device)
+    q[:, :npts] = points_mont
+    q = q.reshape(L, spans, SPAN)
+    sizes = torch.full((spans,), SPAN, device=q.device)
+    sizes[-1:] = npts - (spans - 1) * SPAN
+    c = torch.zeros_like(q)
+    c[:, :, 0] = mm.msub(spec, torch.zeros_like(q[:, :, 0]), q[:, :, 0])
+    c[:, :, 1:2] = mm.mont_one(spec, q.device)[:, :, None]
+    for k in range(1, min(npts, SPAN)):
+        below = torch.cat([torch.zeros_like(c[:, :, :1]), c[:, :, :-1]], dim=2)
+        prod = _mul(spec, q[:, :, k : k + 1].expand_as(c).reshape(L, -1), c.reshape(L, -1))
+        step = mm.msub(spec, below.reshape(L, -1), prod).reshape(c.shape)
+        c = torch.where((sizes > k)[None, :, None], step, c)
+    return c.reshape(L, -1)[:, :npts].contiguous()
+
+
+def vanishing_coeffs(spec: FieldSpec, points_mont):
+    """(16, npts) points -> (16, npts) coefficients of each span of SPAN
+    points' monic product (the last span short): column SPAN*i + j holds e_j
+    of span i, prod_k (x - q_k) = x^s + sum_(j<s) e_j x^j."""
+    _check(spec, (points_mont,))
+    if points_mont.device.type == "cpu":
+        return vanishing_coeffs_plain(spec, points_mont)
+    out = torch.empty_like(points_mont)
+    _launch(vanishing_coeffs, spec, points_mont,
+            lambda lib, w, np32, st: lib.stark_vanishing_coeffs(
+                points_mont.data_ptr(), points_mont.shape[1], out.data_ptr(), w, np32, st))
     return out
 
 
@@ -301,11 +443,14 @@ def vanishing_eval(spec: FieldSpec, xs_full, points_mont):
     _check(spec, (xs_full,), (points_mont,))
     if xs_full.device.type == "cpu":
         return vanishing_eval_plain(spec, xs_full, points_mont)
+    npts = points_mont.shape[1]
+    g = vanishing_group(spec, npts, xs_full.shape[1])
+    es = points_mont if g == 1 else vanishing_coeffs(spec, points_mont)
     out = torch.empty_like(xs_full)
     _launch(vanishing_eval, spec, xs_full,
             lambda lib, w, np32, st: lib.stark_vanishing_eval(
-                points_mont.data_ptr(), points_mont.shape[1], xs_full.data_ptr(),
-                out.data_ptr(), xs_full.shape[1], w, np32, st))
+                es.data_ptr(), npts, g, xs_full.data_ptr(), out.data_ptr(),
+                xs_full.shape[1], w, np32, st))
     return out
 
 
@@ -442,6 +587,6 @@ def fri_fold_post(spec: FieldSpec, sx, xs4, ys4, invs):
 
 for _wrapper in (rand_combination, q1_eval, q2_eval, q3_eval, linear_combination,
                  shoup_mul_periodic, linear_combination_shoup, horner_eval,
-                 vanishing_eval, sub_mul, from_mont_pack_words, fri_fold_pre,
-                 fri_fold_post):
+                 vanishing_coeffs, vanishing_eval, sub_mul, from_mont_pack_words,
+                 fri_fold_pre, fri_fold_post):
     _wrapper.launches = 0

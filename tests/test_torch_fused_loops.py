@@ -1,8 +1,9 @@
 """The plain versions of the port's three kernels with a run-time loop against
 the JAX package's Pallas kernels themselves, run in interpret mode on the
-CPU: `horner_eval` (one coefficient and several), `vanishing_eval` (one point
-and several) and `mpow_scalar` (e = p - 2, p - 1, 0, 1, a 33-bit exponent
-and 2^256 - 1 on BN254's scalar field, p - 2 on BLS12-381's).
+CPU: `horner_eval` (one coefficient and several, up to one past a group of
+four of the CUDA kernel's), `vanishing_eval` (one point and several,
+likewise) and `mpow_scalar` (e = p - 2, p - 1, 0, 1, a 33-bit exponent and
+2^256 - 1 on BN254's scalar field, p - 2 on BLS12-381's).
 
 Each Pallas kernel is called directly (`pallas_kernels.horner_eval(spec,
 ...)`, `pallas_field.mpow_scalar`) at a tiny width: n = 16, and (16, 4) for
@@ -33,14 +34,14 @@ from torch_fused_inputs import cols as _cols, eq as _eq, no_launch as _no_launch
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("d", [1, 3, 5])
 def test_horner_matches_pallas(d):
     (coeffs,) = _cols(8, width=d)
     (xs,) = _cols(9)
     _eq(_no_launch(fk.horner_eval, _t(coeffs), _t(xs)), jpk.horner_eval(spec, coeffs, xs))
 
 
-@pytest.mark.parametrize("npts", [1, 3])
+@pytest.mark.parametrize("npts", [1, 3, 5])
 def test_vanishing_matches_pallas(npts):
     (pts,) = _cols(10, width=npts)
     (xs,) = _cols(11)
