@@ -131,7 +131,8 @@ cores (the `wgmma` s8 instruction it uses). `residues_in` is counted by
 what the function needs, not by the instructions its kernel spends: the
 (P+1, 32) table times the 32 bytes of a lane is an int8 matrix product, 2 * 32
 multiply-adds a prime and lane at that same tensor-core rate (the kernel
-forms it with dp4a on the CUDA cores, which the bound does not excuse), and
+forms it with mma.sync, whose rate is below wgmma's, which the bound does
+not excuse), and
 beside it 7 integer operations a prime and lane (one Barrett step of 5: high
 product, product, subtraction, comparison, conditional subtraction; two for
 the digits), 6 more with a pre-table (the product and a second step). Where

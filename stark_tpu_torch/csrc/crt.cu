@@ -11,26 +11,50 @@
 // bodies split every constant table into bf16 digits because their matrix
 // unit multiplies bf16; none of those splits is carried over.
 //
-// residues_in. The residue of a 256-bit value v = sum_l byte_l * 256^l is
+// residues_in (replaces stark_tpu/ops/pallas_crt.py:106 residues_in). The
+// residue of a 256-bit value v = sum_l byte_l * 256^l is
 // raw = sum_l Cb[i][l] * byte_l reduced mod q_i, Cb the balanced residue of
-// 256^l, |raw| < 2^27. A thread owns four lanes (k .. k+3, b) of the (K, B)
-// operand, keeps their 32 bytes as 8 packed words each, and for each prime
-// forms raw with 16 dp4a instructions a lane: Cb = c0 + 128*c1 with c0, c1
-// in [-64, 63] packed four to a word, the data bytes offset by -128 to make
-// them signed (the row's constant 128 * sum_l Cb[l] puts that back). The
-// reduction is one Barrett step with floor(2^32 / q), exact for any 32-bit
-// value up to one conditional subtraction, then the product with the
-// pre-table residue (< 2^28) and a second step. The four lanes' digits leave
-// as one word per plane, (P+1, K/4, B) int32: a warp writes 128 contiguous
-// bytes, and matmul_fold's producer moves each word, four contraction steps,
-// into its K-major tile with one 4-byte copy. Bytes bound the function (64
-// in, 2 per prime of pre-table, 2 per prime out, a lane): the table-by-bytes
-// product is a (P+1, 32) x (32, N) int8 matrix product, small at the tensor
-// cores' rate, and the reductions and digits are ~7 integer operations a
-// prime and lane, ~13 with a pre-table.
-// This version forms the product on the CUDA cores instead, and those 16
-// dp4a a prime and lane are what hold it above that bound; the table sits
-// in shared memory and is read as 16-byte vectors to keep them fed.
+// 256^l, |raw| < 2^26. What bounds it: bytes (64 in, 2 per prime of
+// pre-table, 2 per prime out, a lane). The table-by-bytes product is a
+// (P+1, 32) x (32, lanes) int8 matrix product, and the design runs it on the
+// tensor cores (mma.sync m16n8k32, s8 table digits x u8 data bytes): on the
+// CUDA cores it took 16 dp4a a prime and lane and held the kernel at twice
+// its bound. Left on the CUDA cores is the epilogue, ~9 integer operations a
+// prime and lane, ~15 with a pre-table: raw = a0 + 128 * a1 (Cb = c0 + 128 c1,
+// c0 and c1 in [-64, 63], the two A planes), one Barrett step by
+// floor(2^32 / q) (exact for any 32-bit value up to one conditional
+// subtraction; the accumulator starts at q * 2^14 > |raw| to make it
+// nonnegative), the product with the pre-table residue (< 2^28), a second
+// step, the two 7-bit digits.
+// - A warp tile is 4 contraction rows k (one output word) x 16 lanes b: 8
+//   n-tiles of 8 lanes, n-tile (j, h) holding row 4k4 + j and, in column n,
+//   lane b0 + 4(n/2) + 2h + n%2. So in the accumulator thread t holds lanes
+//   b0 + 4t .. b0 + 4t + 3 (columns 2t, 2t + 1 of both h) of all four rows:
+//   whole output words, stored as 16-byte vectors, and its pre-table reads
+//   are 8 bytes (4 lanes) a prime and row; a warp's store or pre-table load
+//   covers 64 or 32 contiguous bytes of 8 primes, whole sectors.
+// - B fragments: the register of thread (g, t) holds bytes 4t..4t+3 of its
+//   column's lane, word t of the element (stark::load_elem's words), and
+//   bytes 16 + 4t.. (word t + 4). Thread pairs g, g + 1 load the lo and the
+//   hi limb plane of that word for the 4 lanes b0 + 4(g/2) .. + 3 as one
+//   16-byte vector each and swap half of it (one shuffle) to hold the whole
+//   word of their two lanes in both n-tiles h.
+// - A fragments (4 registers a prime tile and plane) come from the
+//   kernel_table rows in shared memory, read without bank conflicts.
+// - A warp walks tiles with a stride over a grid of as many blocks as fit
+//   the card; a prime tile's 8 pre-table loads are issued together, ahead
+//   of its products.
+// - Rows k >= K load zeros and so give zero digits; lanes b >= B are not
+//   stored; B % 4 != 0 takes scalar loads and stores.
+// What holds it above the bound on an H100 (scripts/crt_kernels_cuda.py
+// --probe): the loads and stores alone, in this order, take 1.3 times a
+// device copy of as many bytes, since a warp instruction reads 32 bytes of
+// a prime's pre-table row; the arithmetic alone takes under that. Staging
+// tiles through shared memory (cp.async) or an L2 prefetch of the next
+// tile was slower: fewer blocks an SM, more traffic.
+// The digits leave as (P+1, ceil(K/4), B) int32 words, four contraction
+// rows a word, the layout matmul_fold's producer copies into its K-major
+// tiles four steps at a time.
 //
 // matmul_fold (replaces stark_tpu/ops/pallas_crt.py:176 matmul_fold). All
 // digits fit int8 (W in [-64, 63], x in [0, 127]), so the four digit
@@ -78,16 +102,37 @@
 // W plane and an s8 x u8 product are left for when the tensor cores, and not
 // the loads, are shown to bind.
 //
-// reconstruct. With s_i the t-scaled residues, the value is REDC(Y),
-// Y = sum_i gp_i*s_i + k*(-M mod p), gp_i = (M/q_i) mod p, and the wrap
-// count k = ((sum_i grr_i*s_i - s_r) * M^-1) mod q_r from the redundant
-// prime. A thread owns one lane: it accumulates Y in 9 words (s_i < 2^14,
-// k < 2^14 and the at most 57 primes of a basis give Y < 2^275; the 9 words
-// hold any basis below 2^19 primes) from the (P+1, 8)-word table in
-// shared memory, runs the word-wise Montgomery reduction of field.cuh's
-// style (8 rounds), and subtracts p once: u = (Y + m*p)/R < Y/R + p
-// < 2^19 + p < 2p, so one conditional subtraction is canonical. Bytes bound
-// it (4 per prime in, 64 out, a lane).
+// reconstruct (replaces stark_tpu/ops/pallas_crt.py:254 reconstruct, body
+// stark_tpu/ops/crt.py:294). With s_i the t-scaled residues, the value is
+// REDC(Y), Y = sum_i gp_i * s_i + k * (-M mod p), gp_i = (M/q_i) mod p, and
+// the wrap count k = ((sum_i grr_i * s_i - s_r) * M^-1) mod q_r from the
+// redundant prime. The JAX body's integer meaning is kept: Y's base-256
+// digit columns are D0 + 128 * D1 + k * negM_d, D0 = G (s & 127) and
+// D1 = G (s >> 7) over the P primes, G the (ND + 2 = 37, P) balanced digits
+// of gp_i (rows 0..34) and of grr_i (rows 35, 36, 7-bit), |D| < 2^20 for
+// P <= 64. What bounds it: bytes (4 per prime in, 64 out, a lane). With one
+// thread a lane forming Y word by word (an 8-word multiply-add a prime) and
+// three 64-bit remainders by q_r, it issued ~2,100 integer instructions a
+// lane and ran at twice its bound. The design:
+// - D0 and D1 run on the tensor cores: mma.sync m16n8k32, A = G (rows padded
+//   to 48: three m-tiles; primes padded to 64: two k-steps; s8, held in
+//   registers, the fragments built on the host, CrtBasis.rec_frags),
+//   B = the digits of s (u8): a register holds four consecutive primes of
+//   one lane, loaded as four rows and packed in pairs of 16-bit halves.
+// - A warp takes rounds of 32 lanes as 4 n-tiles of 8 and issues all of a
+//   round's 65 loads before it packs any (written the other way, with the
+//   packing between the loads, it took 18% longer on an H100).
+// - A lane's 37 sums come out spread over the 8 groups of the warp;
+//   E = D0 + 128 * D1 goes to shared memory (44 words a lane: stores and
+//   16-byte reads free of bank conflicts) and each thread reads back its
+//   own lane's.
+// - Per lane, on the CUDA cores: k from rows 35 and 36 (E35 + 128 E36 is
+//   sum_i grr_i s_i), each row and the sum reduced by a Barrett step by
+//   floor(2^32 / q_r), no 64-bit remainder; the 35 columns plus k * negM_d
+//   (the digits a kernel argument); their carry into 9 words of Y in
+//   64-bit sums; the word-wise Montgomery reduction of field.cuh's style
+//   (8 rounds) and one conditional subtraction: u = (Y + m*p)/R < Y/R + p
+//   < 2^19 + p < 2p.
 #include <cuda.h>
 
 #include "field.cuh"
@@ -100,7 +145,7 @@ using stark::NW;
 constexpr int QBITS = 14;
 constexpr int QMASK = (1 << QBITS) - 1;
 // words of one prime's table row: 8 of c0, 8 of c1, q, floor(2^32/q),
-// 128 * sum_l Cb[l], delta = 2^14 - q
+// 0 (unused), delta = 2^14 - q
 constexpr int TABLE_ROW = 20;
 
 // v mod q for any 32-bit v, with m = floor(2^32 / q): the quotient estimate
@@ -110,73 +155,182 @@ __device__ __forceinline__ uint32_t barrett(uint32_t v, uint32_t q, uint32_t m) 
   return r >= q ? r - q : r;
 }
 
+// d += a (16 x 32, s8, row-major) * b (32 x 8, u8, column-major) in the
+// m16n8k32 fragments of the PTX ISA. With g = lane / 4, t = lane % 4: a[0]
+// holds row g, columns 4t..4t+3 (a byte each, the lowest first), a[1] row
+// g + 8, a[2] and a[3] the same rows at columns 16 + 4t..; b0 holds rows
+// 4t..4t+3 of column g, b1 rows 16 + 4t..; d[0], d[1] are row g, columns
+// 2t and 2t + 1, d[2], d[3] the same of row g + 8.
+__device__ __forceinline__ void mma_s8u8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The grid of a kernel whose warps walk `work` units with a stride: as many
+// blocks as fit on the card at once, fewer where there is less work.
+template <typename Kernel>
+unsigned resident_grid(Kernel kernel, int threads, size_t shared, long long work) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, shared);
+  const long long warps = threads / 32;
+  const long long want = (work + warps - 1) / warps;
+  const long long most = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  return static_cast<unsigned>(want < most ? want : most);
+}
+
 // ---------------------------------------------------------------------------
 // residues_in
 // ---------------------------------------------------------------------------
 
-constexpr int RIN_THREADS = 128;
+constexpr int RIN_WARPS = 4;
+constexpr int RIN_THREADS = 32 * RIN_WARPS;
+constexpr int RIN_TB = 16;  // lanes b of a warp tile (times 4 rows k)
 
-template <bool HAS_PRE>
+// 4 int32 of a row from column b, zeros past B or where !live.
+__device__ __forceinline__ void load4(const int32_t* __restrict__ row, int64_t b, int64_t B,
+                                      bool live, uint32_t (&v)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = live && b + e < B ? row[b + e] : 0;
+}
+
+// 4 int16 of a row from column b as two words (lanes b, b+1 and b+2, b+3).
+__device__ __forceinline__ void load4_i16(const int16_t* __restrict__ row, int64_t b,
+                                          int64_t B, bool live, uint32_t (&v)[2]) {
+  uint32_t h[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) h[e] = live && b + e < B ? static_cast<uint16_t>(row[b + e]) : 0;
+  v[0] = h[0] | (h[1] << 16), v[1] = h[2] | (h[3] << 16);
+}
+
+// 4 words to a row from column b; VEC: B % 4 == 0 and b a multiple of 4, so
+// the four are all in or all out.
+template <bool VEC>
+__device__ __forceinline__ void store4(int32_t* __restrict__ row, int64_t b, int64_t B,
+                                       const uint32_t (&v)[4]) {
+  if (VEC) {
+    if (b < B) *reinterpret_cast<int4*>(row + b) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (b + e < B) row[b + e] = static_cast<int32_t>(v[e]);
+  }
+}
+
+template <bool HAS_PRE, bool VEC>
 __global__ void __launch_bounds__(RIN_THREADS)
 residues_in_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ table,
                    const int16_t* __restrict__ pre, int32_t* __restrict__ o0,
-                   int32_t* __restrict__ o1, int p1, int64_t K, int64_t K4,
-                   int64_t B) {
-  extern __shared__ __align__(16) int32_t tab[];
-  for (int i = threadIdx.x; i < p1 * TABLE_ROW; i += blockDim.x) tab[i] = table[i];
+                   int32_t* __restrict__ o1, int p1, int64_t K, int64_t K4, int64_t B,
+                   int64_t tiles_b, int64_t tiles) {
+  extern __shared__ __align__(16) int32_t tab[];  // (16 * mtiles, TABLE_ROW)
+  const int mtiles = (p1 + 15) / 16;
+  for (int i = threadIdx.x; i < 16 * mtiles * TABLE_ROW; i += blockDim.x)
+    tab[i] = i < p1 * TABLE_ROW ? table[i] : 0;  // rows past p1: zero digits
   __syncthreads();
-  int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= K4 * B) return;
-  const int64_t k4 = idx / B, b = idx % B, n = K * B;
-  uint32_t w[4][NW];
-  bool live[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    live[j] = 4 * k4 + j < K;
-    if (live[j]) {
-      stark::load_elem(x, n, (4 * k4 + j) * B + b, w[j]);
-#pragma unroll
-      for (int t = 0; t < NW; ++t) w[j][t] ^= 0x80808080u;  // byte - 128, signed
-    } else {
-#pragma unroll
-      for (int t = 0; t < NW; ++t) w[j][t] = 0;
-    }
-  }
-  for (int i = 0; i < p1; ++i) {
-    const int4* row = reinterpret_cast<const int4*>(tab + i * TABLE_ROW);
-    int cw[TABLE_ROW];
-#pragma unroll
-    for (int v = 0; v < TABLE_ROW / 4; ++v) {
-      int4 c = row[v];
-      cw[4 * v] = c.x;
-      cw[4 * v + 1] = c.y;
-      cw[4 * v + 2] = c.z;
-      cw[4 * v + 3] = c.w;
-    }
-    const uint32_t q = cw[16], m = cw[17];
-    uint32_t d0 = 0, d1 = 0;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int c = g / 2, par = g % 2;
+  const int64_t n = K * B;
+  for (int64_t tile = static_cast<int64_t>(blockIdx.x) * RIN_WARPS + threadIdx.x / 32;
+       tile < tiles; tile += static_cast<int64_t>(gridDim.x) * RIN_WARPS) {
+    const int64_t k4 = tile / tiles_b, b0 = (tile % tiles_b) * RIN_TB;
+    // B fragments of the 8 n-tiles: bf[j][h] = words t, t + 4 of the lane
+    // b0 + 4c + 2h + par of row 4k4 + j
+    uint32_t bf[4][2][2];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      int a0 = 0, a1 = 0;
+      const int64_t k = 4 * k4 + j;
 #pragma unroll
-      for (int t = 0; t < NW; ++t) {
-        a0 = __dp4a(static_cast<int>(w[j][t]), cw[t], a0);
-        a1 = __dp4a(static_cast<int>(w[j][t]), cw[NW + t], a1);
+      for (int r = 0; r < 2; ++r) {
+        // this thread: the lo (par 0) or hi (par 1) limb of word t + 4r of
+        // lanes b0 + 4c .. + 3; its partner g ^ 1 the other limb
+        const int32_t* row = x + (2 * (t + 4 * r) + par) * n + k * B;
+        uint32_t v[4];
+        if (VEC) {
+          int4 u = make_int4(0, 0, 0, 0);
+          if (k < K && b0 + 4 * c < B) u = *reinterpret_cast<const int4*>(row + b0 + 4 * c);
+          v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+        } else {
+          load4(row, b0 + 4 * c, B, k < K, v);
+        }
+        const uint32_t send = ((par ? v[0] : v[1]) & 0xFFFFu) | ((par ? v[2] : v[3]) << 16);
+        const uint32_t recv = __shfl_xor_sync(0xFFFFFFFFu, send, 4);
+        bf[j][0][r] = par ? (recv & 0xFFFFu) | (v[1] << 16) : (v[0] & 0xFFFFu) | (recv << 16);
+        bf[j][1][r] = par ? (recv >> 16) | (v[3] << 16) : (v[2] & 0xFFFFu) | (recv & 0xFFFF0000u);
       }
-      int raw = a0 + a1 * 128 + cw[18];  // |raw| < 2^27
-      uint32_t r = barrett(static_cast<uint32_t>(raw) + (q << QBITS), q, m);
-      if (HAS_PRE && live[j]) {
-        uint32_t t = static_cast<uint16_t>(
-            pre[static_cast<int64_t>(i) * n + (4 * k4 + j) * B + b]);
-        r = barrett(r * t, q, m);  // < 2^28
-      }
-      if (!live[j]) r = 0;
-      d0 |= (r & 127u) << (8 * j);
-      d1 |= (r >> 7) << (8 * j);
     }
-    int64_t o = (static_cast<int64_t>(i) * K4 + k4) * B + b;
-    o0[o] = static_cast<int32_t>(d0);
-    o1[o] = static_cast<int32_t>(d1);
+    for (int mt = 0; mt < mtiles; ++mt) {
+      const int i0 = 16 * mt + g, i1 = i0 + 8;  // the primes of this thread's rows
+      const int32_t* r0 = tab + i0 * TABLE_ROW;
+      const int32_t* r1 = tab + i1 * TABLE_ROW;
+      const uint32_t a0[4] = {static_cast<uint32_t>(r0[t]), static_cast<uint32_t>(r1[t]),
+                              static_cast<uint32_t>(r0[t + 4]),
+                              static_cast<uint32_t>(r1[t + 4])};
+      const uint32_t a1[4] = {static_cast<uint32_t>(r0[NW + t]),
+                              static_cast<uint32_t>(r1[NW + t]),
+                              static_cast<uint32_t>(r0[NW + t + 4]),
+                              static_cast<uint32_t>(r1[NW + t + 4])};
+      const uint32_t q[2] = {static_cast<uint32_t>(r0[16]), static_cast<uint32_t>(r1[16])};
+      const uint32_t m[2] = {static_cast<uint32_t>(r0[17]), static_cast<uint32_t>(r1[17])};
+      // pre-table residues of lanes b0 + 4t .. + 3, all loaded before the
+      // prime tile's products: pw[j][prime][word], lanes 2word, 2word + 1
+      uint32_t pw[4][2][2];
+      if (HAS_PRE) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int pr = 0; pr < 2; ++pr) {
+            const int i = pr ? i1 : i0;
+            const int64_t k = 4 * k4 + j;
+            const int16_t* row = pre + (static_cast<int64_t>(i) * K + k) * B;
+            if (VEC) {
+              int2 u = make_int2(0, 0);
+              if (i < p1 && k < K && b0 + 4 * t < B)
+                u = *reinterpret_cast<const int2*>(row + b0 + 4 * t);
+              pw[j][pr][0] = u.x, pw[j][pr][1] = u.y;
+            } else {
+              load4_i16(row, b0 + 4 * t, B, i < p1 && k < K, pw[j][pr]);
+            }
+          }
+      }
+      uint32_t w0[2][4] = {}, w1[2][4] = {};  // [prime][lane b0 + 4t + e]: words
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int d0[4] = {static_cast<int>(q[0] << QBITS), static_cast<int>(q[0] << QBITS),
+                       static_cast<int>(q[1] << QBITS), static_cast<int>(q[1] << QBITS)};
+          int d1[4] = {0, 0, 0, 0};
+          mma_s8u8(d0, a0, bf[j][h][0], bf[j][h][1]);
+          mma_s8u8(d1, a1, bf[j][h][0], bf[j][h][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int pr = e / 2, col = e % 2;
+            // q * 2^14 + raw, in (0, 2^29)
+            const uint32_t v = static_cast<uint32_t>(d0[e]) + 128u * static_cast<uint32_t>(d1[e]);
+            uint32_t r = barrett(v, q[pr], m[pr]);
+            if (HAS_PRE) {
+              const uint32_t tw = pw[j][pr][h];
+              r = barrett(r * (col ? tw >> 16 : tw & 0xFFFFu), q[pr], m[pr]);  // < 2^28
+            }
+            w0[pr][2 * h + col] |= (r & 127u) << (8 * j);
+            w1[pr][2 * h + col] |= (r >> 7) << (8 * j);
+          }
+        }
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        const int i = pr ? i1 : i0;
+        if (i < p1) {
+          const int64_t o = (static_cast<int64_t>(i) * K4 + k4) * B;
+          store4<VEC>(o0 + o, b0 + 4 * t, B, w0[pr]);
+          store4<VEC>(o1 + o, b0 + 4 * t, B, w1[pr]);
+        }
+      }
+    }
   }
 }
 
@@ -441,55 +595,47 @@ matmul_fold_kernel(const __grid_constant__ CUtensorMap wmap,
 // reconstruct
 // ---------------------------------------------------------------------------
 
-constexpr int REC_THREADS = 128;
+constexpr int REC_WARPS = 4;
+constexpr int REC_THREADS = 32 * REC_WARPS;
+constexpr int ND = 35;           // base-256 digit columns of Y (crt.ND)
+constexpr int REC_MT = 3;        // m-tiles: the ND + 2 rows of G padded to 48
+constexpr int REC_KS = 2;        // k-steps: up to 64 primes (crt.REC_PRIMES)
+constexpr int REC_STRIDE = 44;   // words of one lane's sums in shared memory
 
-// y (NW + 2 words) += a (NW words) * s
-__device__ __forceinline__ void mul_add_word(uint32_t y[NW + 2],
-                                             const uint32_t* __restrict__ a,
-                                             uint32_t s) {
-  uint64_t c = 0;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    uint64_t v = static_cast<uint64_t>(a[j]) * s + y[j] + c;
-    y[j] = static_cast<uint32_t>(v);
-    c = v >> 32;
-  }
-  uint64_t v = static_cast<uint64_t>(y[NW]) + c;
-  y[NW] = static_cast<uint32_t>(v);
-  y[NW + 1] += static_cast<uint32_t>(v >> 32);
-}
+struct NegMDigits {
+  int32_t d[ND];  // balanced base-256 digits of -M mod p
+};
 
-__global__ void __launch_bounds__(REC_THREADS)
-reconstruct_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ gp,
-                   const int32_t* __restrict__ grr, int32_t* __restrict__ out,
-                   int P, int64_t n, uint32_t qr, uint32_t minv, Field f) {
-  extern __shared__ __align__(16) uint32_t sh[];  // (P+1)*8 words of gp, P of grr
-  uint32_t* sgp = sh;
-  uint32_t* sgrr = sh + (P + 1) * NW;
-  for (int i = threadIdx.x; i < (P + 1) * NW; i += blockDim.x)
-    sgp[i] = static_cast<uint32_t>(gp[i]);
-  for (int i = threadIdx.x; i < P; i += blockDim.x)
-    sgrr[i] = static_cast<uint32_t>(grr[i]);
-  __syncthreads();
-  int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+// One lane's epilogue: its 37 column sums E and redundant residue s_r ->
+// its 16 limbs of X * R^-1 mod p.
+__device__ __forceinline__ void reconstruct_lane(const int32_t (&es)[ND + 2], int32_t s_r,
+                                                 uint32_t qr, uint32_t mr, uint32_t minv,
+                                                 const NegMDigits& negm, const Field& f,
+                                                 int32_t* __restrict__ out, int64_t n,
+                                                 int64_t l) {
+  const uint32_t sr = static_cast<uint32_t>(s_r);
+  // wrap count: E35 + 128 E36 = sum_i grr_i s_i; each row, then the sum
+  // with q_r - s_r, reduced by a Barrett step (all inputs < 2^32)
+  const uint32_t off = qr << QBITS;  // > 2^27 > |E|
+  const uint32_t e0 = barrett(static_cast<uint32_t>(es[ND]) + off, qr, mr);
+  const uint32_t e1 = barrett(static_cast<uint32_t>(es[ND + 1]) + off, qr, mr);
+  const uint32_t kd = barrett(e0 + 128 * e1 + qr - sr, qr, mr);  // < 2^22
+  const int32_t k = static_cast<int32_t>(barrett(kd * minv, qr, mr));  // kd * minv < 2^28
 
+  // Y = sum_d (E_d + k * negM_d) 256^d >= 0, in 9 words (Y < 2^275)
   uint32_t y[NW + 2];
+  int64_t acc = 0;
 #pragma unroll
-  for (int j = 0; j < NW + 2; ++j) y[j] = 0;
-  uint64_t ksum = 0;
-  for (int i = 0; i < P; ++i) {
-    uint32_t si = static_cast<uint32_t>(s[static_cast<int64_t>(i) * n + lane]);
-    ksum += static_cast<uint64_t>(sgrr[i]) * si;
-    mul_add_word(y, sgp + i * NW, si);
+  for (int w = 0; w < NW + 1; ++w) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * w + i < ND)
+        acc += static_cast<int64_t>(es[4 * w + i] + k * negm.d[4 * w + i]) *
+               (static_cast<int64_t>(1) << (8 * i));
+    y[w] = static_cast<uint32_t>(acc);
+    acc >>= 32;  // arithmetic: the columns are signed
   }
-  // wrap count: k = ((sum_i grr_i*s_i - s_r) * M^-1) mod q_r, canonical
-  int64_t kd = static_cast<int64_t>(ksum % qr) -
-               static_cast<int64_t>(static_cast<uint32_t>(s[static_cast<int64_t>(P) * n + lane]));
-  kd %= static_cast<int64_t>(qr);
-  if (kd < 0) kd += qr;
-  uint32_t k = static_cast<uint32_t>(static_cast<uint64_t>(kd) * minv % qr);
-  mul_add_word(y, sgp + P * NW, k);
+  y[NW + 1] = 0;
 
   // word-wise Montgomery reduction of Y (9 words live, y[9] takes carries)
 #pragma unroll
@@ -509,11 +655,86 @@ reconstruct_kernel(const int32_t* __restrict__ s, const int32_t* __restrict__ gp
     y[NW + 1] = 0;
   }
   stark::cond_sub_p(f, y[NW], y);
-  stark::store_elem(out, n, lane, y);
+  stark::store_elem(out, n, l, y);
 }
 
-inline unsigned blocks_for(long long n, int threads) {
-  return static_cast<unsigned>((n + threads - 1) / threads);
+__global__ void __launch_bounds__(REC_THREADS)
+reconstruct_kernel(const int32_t* __restrict__ s, const int4* __restrict__ frags,
+                   int32_t* __restrict__ out, int P, int64_t n, int64_t rounds,
+                   uint32_t qr, uint32_t mr, uint32_t minv, NegMDigits negm, Field f) {
+  __shared__ __align__(16) int32_t sums[REC_WARPS][32 * REC_STRIDE];
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  int32_t* sh = sums[threadIdx.x / 32];
+  uint32_t a[REC_MT][REC_KS][4];  // G's fragments, (3, 2, 32) int4 on the device
+#pragma unroll
+  for (int mt = 0; mt < REC_MT; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < REC_KS; ++ks) {
+      const int4 v = frags[(mt * REC_KS + ks) * 32 + lane];
+      a[mt][ks][0] = v.x, a[mt][ks][1] = v.y, a[mt][ks][2] = v.z, a[mt][ks][3] = v.w;
+    }
+  for (int64_t round = static_cast<int64_t>(blockIdx.x) * REC_WARPS + threadIdx.x / 32;
+       round < rounds; round += static_cast<int64_t>(gridDim.x) * REC_WARPS) {
+    const int64_t l0 = round * 32;
+    // the round's residues, all loaded before any is used: thread (g, t)
+    // takes primes 32ks + 16r + 4t .. + 3 of lane l0 + 8nt + g
+    uint32_t v[4][REC_KS][2][4];  // [nt][ks][r][i], each < 2^14
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int ks = 0; ks < REC_KS; ++ks)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int prime = 32 * ks + 16 * r + 4 * t + i;
+            const int64_t col = l0 + 8 * nt + g;
+            v[nt][ks][r][i] = prime < P && col < n ? s[prime * n + col] : 0;
+          }
+    const int32_t s_r = l0 + lane < n ? s[P * n + l0 + lane] : 0;
+    // B fragments, the digit planes: b[nt][plane][ks][r], four primes a
+    // register, packed in pairs of 16-bit halves
+    uint32_t b[4][2][REC_KS][2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int ks = 0; ks < REC_KS; ++ks)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t* w = v[nt][ks][r];
+          const uint32_t u02 = w[0] | (w[2] << 16), u13 = w[1] | (w[3] << 16);
+          b[nt][0][ks][r] = (u02 & 0x007F007Fu) | ((u13 & 0x007F007Fu) << 8);
+          b[nt][1][ks][r] = ((u02 >> 7) & 0x007F007Fu) | (((u13 >> 7) & 0x007F007Fu) << 8);
+        }
+    __syncwarp();  // the last round's sums are read; the mma takes the whole warp
+    // E = D0 + 128 D1 of rows 16mt + g (+8) and lanes 2t, 2t + 1 of each n-tile
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < REC_MT; ++mt) {
+        int d0[4] = {0, 0, 0, 0}, d1[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int ks = 0; ks < REC_KS; ++ks) {
+          mma_s8u8(d0, a[mt][ks], b[nt][0][ks][0], b[nt][0][ks][1]);
+          mma_s8u8(d1, a[mt][ks], b[nt][1][ks][0], b[nt][1][ks][1]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * mt + g + 8 * (e / 2);
+          if (row < ND + 2) sh[(8 * nt + 2 * t + e % 2) * REC_STRIDE + row] = d0[e] + 128 * d1[e];
+        }
+      }
+    __syncwarp();
+    int32_t es[ND + 2];  // this thread's lane: |E| < 2^27
+#pragma unroll
+    for (int v = 0; v < 9; ++v) {
+      const int4 w = *reinterpret_cast<const int4*>(sh + lane * REC_STRIDE + 4 * v);
+      es[4 * v] = w.x, es[4 * v + 1] = w.y, es[4 * v + 2] = w.z, es[4 * v + 3] = w.w;
+    }
+    es[ND + 1] = sh[lane * REC_STRIDE + ND + 1];
+    const int64_t l = l0 + lane;
+    if (l < n) reconstruct_lane(es, s_r, qr, mr, minv, negm, f, out, n, l);
+  }
 }
 
 }  // namespace
@@ -523,21 +744,22 @@ inline unsigned blocks_for(long long n, int threads) {
 extern "C" int stark_crt_residues_in(const void* x, const void* table,
                                      const void* pre, void* o0, void* o1, int p1,
                                      long long K, long long B, void* stream) {
-  long long K4 = (K + 3) / 4;
-  if (K4 * B > 0) {
-    size_t shared = static_cast<size_t>(p1) * TABLE_ROW * sizeof(int32_t);
-    auto st = static_cast<cudaStream_t>(stream);
-    unsigned blocks = blocks_for(K4 * B, RIN_THREADS);
-    if (pre != nullptr)
-      residues_in_kernel<true><<<blocks, RIN_THREADS, shared, st>>>(
+  const long long K4 = (K + 3) / 4, tiles_b = (B + RIN_TB - 1) / RIN_TB;
+  const long long tiles = K4 * tiles_b;
+  if (tiles > 0 && p1 > 0) {
+    const size_t shared = static_cast<size_t>((p1 + 15) / 16) * 16 * TABLE_ROW * sizeof(int32_t);
+    auto launch = [&](auto kernel) {
+      kernel<<<resident_grid(kernel, RIN_THREADS, shared, tiles), RIN_THREADS, shared,
+               static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int32_t*>(x), static_cast<const int32_t*>(table),
           static_cast<const int16_t*>(pre), static_cast<int32_t*>(o0),
-          static_cast<int32_t*>(o1), p1, K, K4, B);
+          static_cast<int32_t*>(o1), p1, K, K4, B, tiles_b, tiles);
+    };
+    const bool vec = B % 4 == 0;
+    if (pre != nullptr)
+      vec ? launch(residues_in_kernel<true, true>) : launch(residues_in_kernel<true, false>);
     else
-      residues_in_kernel<false><<<blocks, RIN_THREADS, shared, st>>>(
-          static_cast<const int32_t*>(x), static_cast<const int32_t*>(table),
-          nullptr, static_cast<int32_t*>(o0), static_cast<int32_t*>(o1), p1, K,
-          K4, B);
+      vec ? launch(residues_in_kernel<false, true>) : launch(residues_in_kernel<false, false>);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -605,19 +827,24 @@ extern "C" int stark_crt_matmul_fold(const void* w, const void* x0, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// s (P+1, n) residues, gp (P+1, 8) words, grr (P) -> out (16, n) limbs.
-extern "C" int stark_crt_reconstruct(const void* s, const void* gp,
-                                     const void* grr, void* out, int P,
+// s (P+1, n) residues, frags (3, 2, 32) int4 fragments of G, negm (35) digits
+// of -M mod p (host memory) -> out (16, n) limbs.
+extern "C" int stark_crt_reconstruct(const void* s, const void* frags, void* out, int P,
                                      long long n, uint32_t qr, uint32_t minv,
+                                     const int32_t* negm_digits,
                                      const uint32_t* field_words, uint32_t np,
                                      void* stream) {
+  if (P > 32 * REC_KS) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    size_t shared = (static_cast<size_t>(P + 1) * NW + P) * sizeof(uint32_t);
-    reconstruct_kernel<<<blocks_for(n, REC_THREADS), REC_THREADS, shared,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(s), static_cast<const int32_t*>(gp),
-        static_cast<const int32_t*>(grr), static_cast<int32_t*>(out), P, n, qr,
-        minv, stark::make_field(field_words, np));
+    NegMDigits negm;
+    for (int d = 0; d < ND; ++d) negm.d[d] = negm_digits[d];
+    const long long rounds = (n + 31) / 32;
+    const uint32_t mr = static_cast<uint32_t>((1ull << 32) / qr);
+    reconstruct_kernel<<<resident_grid(reconstruct_kernel, REC_THREADS, 0, rounds),
+                         REC_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(s), static_cast<const int4*>(frags),
+        static_cast<int32_t*>(out), P, n, rounds, qr, mr, minv, negm,
+        stark::make_field(field_words, np));
   }
   return static_cast<int>(cudaGetLastError());
 }

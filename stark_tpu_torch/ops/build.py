@@ -93,8 +93,8 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, _vp,
     ],
     "stark_crt_reconstruct": [
-        _vp, _vp, _vp, _vp, ctypes.c_int, _ll, ctypes.c_uint32, ctypes.c_uint32,
-        _u32p, ctypes.c_uint32, _vp,
+        _vp, _vp, _vp, ctypes.c_int, _ll, ctypes.c_uint32, ctypes.c_uint32,
+        ctypes.POINTER(ctypes.c_int32), _u32p, ctypes.c_uint32, _vp,
     ],
 }
 

@@ -43,8 +43,12 @@ R256 = 1 << 256
 ND = 35  # base-256 digits in the reconstruction sum (bound < 2^(8*35))
 TEMP_BYTES = 2 << 30  # default budget of the plain product for its four float32 buffers
 # words of one prime's row in `CrtBasis.kernel_table`: 8 + 8 packed digit words
-# of 256^l mod q, then q, floor(2^32 / q), 128 * sum_l Cb[l] and delta = 2^14 - q
+# of 256^l mod q, then q, floor(2^32 / q), 0 (unused) and delta = 2^14 - q
 TABLE_ROW = 20
+# `reconstruct`'s kernel: G's ND + 2 rows padded to REC_ROWS and its primes
+# to REC_PRIMES, the tensor cores' tiles (three m-tiles of 16, two k-steps of 32)
+REC_ROWS = 48
+REC_PRIMES = 64
 
 
 def _is_prime(n: int) -> bool:
@@ -116,10 +120,6 @@ def _fold_count(bound_bits: int, dmax_bits: int = 10) -> int:
     return c
 
 
-def _words8(v: int) -> list[int]:
-    return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
-
-
 def _pack_i8(digits: np.ndarray) -> np.ndarray:
     """(..., 4k) signed digits in [-128, 127] -> (..., k) int32 words, digit
     4w + e in byte e of word w (little-endian)."""
@@ -143,6 +143,36 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(m, K) @ (K, N) -> (m, N) float32, exact (integer sums < 2^24)."""
     _check_exact_matmul(b)
     return a.to(torch.float32) @ b.to(torch.float32)
+
+
+def mma_a_fragments(a: np.ndarray) -> np.ndarray:
+    """A (16m, 32k) int8 matrix -> its m16n8k32 A fragments, (m, k, 32, 4)
+    int32: for lane (g, t) = (lane // 4, lane % 4) of a warp, register 0
+    holds row g, columns 4t .. 4t+3 of the tile (one byte each, the lowest
+    first), register 1 row g + 8, registers 2 and 3 the same rows at columns
+    16 + 4t .. (the PTX ISA's layout)."""
+    rows, cols = a.shape
+    assert rows % 16 == 0 and cols % 32 == 0 and -128 <= a.min() and a.max() < 128
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    out = np.zeros((rows // 16, cols // 32, 32, 4, 4), np.int8)
+    for mt in range(rows // 16):
+        for ks in range(cols // 32):
+            for reg in range(4):
+                r = 16 * mt + g + 8 * (reg % 2)
+                c = 32 * ks + 16 * (reg // 2) + 4 * t
+                out[mt, ks, :, reg] = a[r[:, None], c[:, None] + np.arange(4)]
+    return np.ascontiguousarray(out.view("<i4")[..., 0])
+
+
+def rec_fragments(G: np.ndarray) -> np.ndarray:
+    """G (ND + 2, P) balanced digits -> the A fragments of `reconstruct`'s
+    kernel, (3, k, 32, 4) int32: rows padded with zeros to REC_ROWS, primes
+    to REC_PRIMES or the next multiple of 32 past P (the kernel takes
+    P <= REC_PRIMES, two k-steps)."""
+    a = np.zeros((REC_ROWS, max(REC_PRIMES, -(-G.shape[1] // 32) * 32)), np.int64)
+    a[: G.shape[0], : G.shape[1]] = G
+    return mma_a_fragments(a)
 
 
 class CrtBasis:
@@ -239,25 +269,19 @@ class CrtBasis:
         return b
 
     def _kernel_tables(self) -> None:
-        """The kernels' tables (see TABLE_ROW) from the digit tables: plain
-        integers, the digit splits of the reconstruction constants undone."""
+        """The kernels' tables from the digit tables: `kernel_table` (see
+        TABLE_ROW); for `reconstruct`, G's int8 tensor-core fragments
+        (`rec_fragments`) and the digits of -M mod p as int32."""
         qa = self.qs.astype(np.int64)
         c0, c1 = self.C0.astype(np.int64), self.C1.astype(np.int64)
         self.kernel_table = np.concatenate(
-            [_pack_i8(c0), _pack_i8(c1), qa, (1 << 32) // qa,
-             128 * (c0 + 128 * c1).sum(axis=1, keepdims=True), QBASE - qa],
+            [_pack_i8(c0), _pack_i8(c1), qa, (1 << 32) // qa, np.zeros_like(qa),
+             QBASE - qa],
             axis=1,
         ).astype(np.int32)
         assert self.kernel_table.shape == (len(self.qs_host), TABLE_ROW)
-        G = self.G.astype(np.int64)
-        gp = [sum(int(G[d, i]) << (8 * d) for d in range(ND)) for i in range(self.P)]
-        negM = sum(int(self.negM_dig[d, 0]) << (8 * d) for d in range(ND))
-        assert all(0 <= g < self.p for g in gp + [negM])
-        self.gp_words = np.array(
-            [_words8(g) for g in gp + [negM]], np.uint32
-        ).view(np.int32)  # (P+1, 8): (M/q_i) mod p, then -M mod p
-        # (M/q_i) mod q_r, unbalanced
-        self.grr = ((G[ND] + 128 * G[ND + 1]) % self.qr).astype(np.int32)
+        self.rec_frags = rec_fragments(self.G.astype(np.int64))
+        self.negm_digits = self.negM_dig[:, 0].astype(np.int32)
         self._on: dict = {}
 
     def on(self, device) -> dict:
@@ -268,7 +292,7 @@ class CrtBasis:
             hit = {
                 name: torch.from_numpy(getattr(self, name)).to(dev)
                 for name in ("qs", "deltas", "C0", "C1", "G", "negM_dig", "NB", "PB",
-                             "kernel_table", "gp_words", "grr")
+                             "kernel_table", "rec_frags")
             }
             self._on[dev] = hit
         return hit

@@ -26,6 +26,8 @@ the JAX package's (P+1, K, B) planes back as integers.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from stark_tpu_torch.ops import build, crt
@@ -195,12 +197,16 @@ def reconstruct(basis: crt.CrtBasis, s: torch.Tensor) -> torch.Tensor:
     _check(s, torch.int32, (_p1(basis), s.shape[1]), "residues")
     if s.device.type == "cpu":
         return reconstruct_plain(basis, s)
+    if basis.P > crt.REC_PRIMES:
+        raise ValueError(
+            f"the reconstruct kernel takes at most {crt.REC_PRIMES} primes, not {basis.P}")
     words, np32, stream = _stream(basis, s)
-    t = basis.on(s.device)
     out = torch.empty((16, s.shape[1]), dtype=torch.int32, device=s.device)
     rc = build.load().stark_crt_reconstruct(
-        s.data_ptr(), t["gp_words"].data_ptr(), t["grr"].data_ptr(), out.data_ptr(),
-        basis.P, s.shape[1], basis.qr, basis.minv_qr, words, np32, stream,
+        s.data_ptr(), basis.on(s.device)["rec_frags"].data_ptr(), out.data_ptr(),
+        basis.P, s.shape[1], basis.qr, basis.minv_qr,
+        basis.negm_digits.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), words, np32,
+        stream,
     )
     build.check(rc, "reconstruct")
     reconstruct.launches += 1

@@ -108,12 +108,13 @@ def test_basis_tables_equal(bound_bits):
 def test_kernel_tables_from_jax_leaves(bases):
     """`interop.crt_basis_from_numpy` on the JAX basis' leaves gives the
     kernels the tables the port's own basis gives them, and those tables hold
-    the plain integers: 256^l mod q, (M/q_i) mod p, -M mod p, (M/q_i) mod q_r."""
+    the plain integers: 256^l mod q, (M/q_i) mod p in G's tensor-core
+    fragments with (M/q_i) mod q_r, and -M mod p."""
     jb, tb = bases
     other = interop.crt_basis_from_numpy(
         tspec, {k: getattr(jb, k) for k in interop._BASIS_STATIC},
         {k: f32(getattr(jb, k)) for k in interop._BASIS_TABLES})
-    for name in ("kernel_table", "gp_words", "grr") + TABLES:
+    for name in ("kernel_table", "rec_frags", "negm_digits") + TABLES:
         assert np.array_equal(getattr(other, name), getattr(tb, name)), name
     table = tb.kernel_table
     digits = table[:, :16].copy().view(np.int8).reshape(-1, 2, 32).astype(np.int64)
@@ -121,12 +122,25 @@ def test_kernel_tables_from_jax_leaves(bases):
         cb = digits[i, 0] + 128 * digits[i, 1]
         assert [int(c) % q for c in cb] == [pow(256, l, q) for l in range(32)]
         assert table[i, 16] == q and table[i, 17] == (1 << 32) // q
-        assert table[i, 18] == 128 * cb.sum() and table[i, 19] == (1 << 14) - q
-    words = tb.gp_words.view(np.uint32)
-    vals = [sum(int(w) << (32 * j) for j, w in enumerate(row)) for row in words]
+        assert table[i, 18] == 0 and table[i, 19] == (1 << 14) - q
+    # rec_frags: lane (g, t) register r of tile (mt, ks) holds rows 16mt + g
+    # (+8 for odd r), columns 32ks + 16(r // 2) + 4t .. + 3 of G
+    frag = tb.rec_frags.copy().view(np.int8).reshape(3, 2, 32, 4, 4).astype(np.int64)
+    g_pad = np.zeros((crt.REC_ROWS, crt.REC_PRIMES), np.int64)
+    for mt in range(3):
+        for ks in range(2):
+            for lane in range(32):
+                for r in range(4):
+                    row = 16 * mt + lane // 4 + 8 * (r % 2)
+                    col = 32 * ks + 16 * (r // 2) + 4 * (lane % 4)
+                    g_pad[row, col:col + 4] = frag[mt, ks, lane, r]
+    assert not g_pad[crt.ND + 2:].any() and not g_pad[:, tb.P:].any()
     qs = tb.qs_host[:-1]
-    assert vals == [(tb.M // q) % P for q in qs] + [(-tb.M) % P]
-    assert [int(g) for g in tb.grr] == [(tb.M // q) % tb.qr for q in qs]
+    vals = [sum(int(g_pad[d, i]) << (8 * d) for d in range(crt.ND)) for i in range(tb.P)]
+    assert vals == [(tb.M // q) % P for q in qs]
+    grr = g_pad[crt.ND, : tb.P] + 128 * g_pad[crt.ND + 1, : tb.P]
+    assert [int(g) % tb.qr for g in grr] == [(tb.M // q) % tb.qr for q in qs]
+    assert sum(int(d) << (8 * k) for k, d in enumerate(tb.negm_digits)) == (-tb.M) % P
 
 
 def test_plan_tables_equal(bases):
