@@ -10,7 +10,9 @@ mirror `stark_tpu.cli`; the bare 3-argument form means `run`, like the
 reference's binary. `--fri-fold` names FRI's fold route for the proving
 commands; `--lde-engine` names the engine of the low-degree extensions
 (the butterfly NTT, or the CRT matrix-product engine of `ops/mxu_ntt.py`) for
-every command. The proof is the same on either of each.
+every command. The proof is the same on either of each. `--digest` names
+the tree digest of `prove`, `verify` and `run` (the worker takes it per
+request): blake2s, or poseidon for the l-tree and FRI's trees.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ def main(argv=None) -> int:
             sp.add_argument("r1cs")
             sp.add_argument("wtns")
             sp.add_argument("proof_json")
+            sp.add_argument("--digest", choices=("blake2s", "poseidon"), default="blake2s",
+                            help="tree digest (the reference's H: Digest): poseidon "
+                            "commits the l-tree and FRI's trees")
         sp.add_argument("--device", default="cuda",
                         help="cuda (the default; needs a card) or cpu")
         if name != "verify":
@@ -56,16 +61,17 @@ def main(argv=None) -> int:
     t0 = time.time()
     if args.cmd == "prove":
         runner.prove_with_file_path(args.r1cs, args.wtns, args.proof_json,
-                                    device=args.device, fri_fold=args.fri_fold,
-                                    lde_engine=args.lde_engine)
+                                    digest=args.digest, device=args.device,
+                                    fri_fold=args.fri_fold, lde_engine=args.lde_engine)
     elif args.cmd == "verify":
         runner.verify_with_file_path(args.r1cs, args.wtns, args.proof_json,
-                                     device=args.device, lde_engine=args.lde_engine)
+                                     digest=args.digest, device=args.device,
+                                     lde_engine=args.lde_engine)
         print("Done proof verification")
     else:
         runner.run_with_file_path(args.r1cs, args.wtns, args.proof_json,
-                                  device=args.device, fri_fold=args.fri_fold,
-                                  lde_engine=args.lde_engine)
+                                  digest=args.digest, device=args.device,
+                                  fri_fold=args.fri_fold, lde_engine=args.lde_engine)
         print("Done proof verification")
     print(f"{args.cmd}: {time.time() - t0:.3f}s")
     return 0

@@ -7,6 +7,10 @@ interpolation through the kernels `fri_fold_pre` / `fri_fold_post`
 (`_fri_chain_j :244`, `prove_low_degree_pending :304`), host assembly
 (`assemble_fri :395`) and the host verifier (`verify_low_degree_proof :417`).
 
+Every tree of the recursion (and the last round's root that the verifier
+recomputes) takes the prover's `digest`, "blake2s" or "poseidon", as at
+`stark_tpu/fri/fri.py:66, 270, 424-490`.
+
 The route is an explicit argument, `fri_fold="dft"` (the default, as in the
 JAX package) or `"lagrange"` (the JAX package's `STARK_TPU_FRI_LAGRANGE=1`).
 Both give the same field values, so the proof does not depend on it. On the
@@ -105,11 +109,12 @@ def n_rounds(max_deg_plus_1: int, cutoff: int = MIN_DEG_DIRECT_CHECKING) -> int:
 
 def prove_low_degree_pending(spec: FieldSpec, values, xs_full, max_deg_plus_1: int,
                              exclude_multiples_of: int, first_tree: mt.DeviceMerkleTree,
-                             fri_fold: str = "dft"):
+                             fri_fold: str = "dft", digest: str = "blake2s"):
     """The whole FRI recursion, enqueued without a host sync. `first_tree`
     is the caller's tree over `values` with 32-byte leaves (the prover's
-    l-tree; the reference recommits identical content); `fri_fold` names
-    the fold's route in every round. Returns the
+    l-tree, under the same `digest`; the reference recommits identical
+    content); `fri_fold` names the fold's route in every round, `digest`
+    the column trees' digest. Returns the
     pending record whose `device_arrays` the caller materializes with the
     rest of the proof: per round (root2, col_flat, val_flat), then the
     direct-check `last` words."""
@@ -123,7 +128,7 @@ def prove_low_degree_pending(spec: FieldSpec, values, xs_full, max_deg_plus_1: i
         sx = dt.digest_le_int_mont(spec, layers[-1][:, 0])
         column = fold(spec, values, xs, sx, fri_fold)
         c_words = leaves_to_words(spec, [column])
-        c_layers = mt.build_layers(c_words, 32)
+        c_layers = mt.build_layers_digest(c_words, 32, digest)
         root2_w = c_layers[-1][:, 0]
         ys = dt.pseudorandom_indices(root2_w, quarter, QUERIES_PER_ROUND,
                                      exclude_multiples_of)
@@ -185,9 +190,10 @@ def assemble_fri(spec: FieldSpec, pending, flats) -> list:
 
 def verify_low_degree_proof(spec: FieldSpec, merkle_root: bytes, root_of_unity: int,
                             proof, max_deg_plus_1: int, exclude_multiples_of: int,
-                            device) -> bool:
-    """Host FRI verification (`fri.rs:226-404`); raises on failure. The
-    last round's Merkle root is recomputed with the device tree."""
+                            device, digest: str = "blake2s") -> bool:
+    """Host FRI verification (`fri.rs:226-404`); raises on failure. `digest`
+    must be the prover's tree digest. The last round's Merkle root is
+    recomputed with the device tree."""
     p = spec.p
     rou_deg = 1
     test_val = root_of_unity
@@ -207,8 +213,9 @@ def verify_low_degree_proof(spec: FieldSpec, merkle_root: bytes, root_of_unity: 
             prf.root2, rou_deg // 4, QUERIES_PER_ROUND, exclude_multiples_of
         )
         poly_positions = [j * (rou_deg // 4) + y for y in ys for j in range(4)]
-        column_values = mt.verify_multi_branch(prf.root2, ys, prf.column_branches)
-        poly_values = mt.verify_multi_branch(merkle_root, poly_positions, prf.poly_branches)
+        column_values = mt.verify_multi_branch(prf.root2, ys, prf.column_branches, digest)
+        poly_values = mt.verify_multi_branch(merkle_root, poly_positions, prf.poly_branches,
+                                             digest)
         for i, y in enumerate(ys):
             x1 = pow(root_of_unity, y, p)
             xs4 = [q * x1 % p for q in roots4]
@@ -232,7 +239,7 @@ def verify_low_degree_proof(spec: FieldSpec, merkle_root: bytes, root_of_unity: 
     if len(data) <= max_deg_plus_1:
         raise ValueError("last data too short")
     decoded = [spec.from_bytes_le(v) for v in data]
-    if mt.commit_root(list(data), device) != merkle_root:
+    if mt.commit_root(list(data), device, digest) != merkle_root:
         raise ValueError("FRI last-round root mismatch")
     xs = [pow(root_of_unity, i, p) for i in range(len(data))]
     if exclude_multiples_of:

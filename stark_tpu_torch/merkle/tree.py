@@ -1,12 +1,14 @@
-"""Blake2s Merkle trees with every layer on the device.
+"""Merkle trees with every layer on the device, blake2s or Poseidon.
 
-Counterpart of `stark_tpu/merkle/tree.py` (blake2s only): leaves are (W, N)
-int32 word rows, layer k+1 hashes the concatenated digest pairs of layer k
-with the `blake2s_words` kernel, and the host sees only roots and the
-gathered branch columns. Tree shape: power-of-two leaf count;
-layer0[i] = blake2s(leaf_i), layer_{k+1}[i] = blake2s(layer_k[2i] ||
-layer_k[2i+1]). Branches are bottom-up sibling lists checked by the
-index-parity walk (`validate_proof`).
+Counterpart of `stark_tpu/merkle/tree.py`: leaves are (W, N) int32 word
+rows, layer k+1 hashes the digest pairs of layer k, and the host sees only
+roots and the gathered branch columns. Tree shape: power-of-two leaf count;
+layer0[i] = H(leaf_i), layer_{k+1}[i] = H(layer_k[2i] || layer_k[2i+1]).
+Blake2s layers come from the `blake2s_words` kernel; Poseidon layers
+(`digest="poseidon"`, 32-byte value leaves only) from `poseidon_leaves` and
+`poseidon_pairs`, in the same (8, n) word layout, so gathers, branches and
+roots do not depend on the digest. Branches are bottom-up sibling lists
+checked by the index-parity walk (`validate_proof`) on the host.
 """
 
 from __future__ import annotations
@@ -18,6 +20,15 @@ import torch
 
 from stark_tpu_torch.protocol.transcript import blake
 from stark_tpu_torch.ops import blake2s as b2
+from stark_tpu_torch.ops import poseidon as pos
+
+DIGESTS = ("blake2s", "poseidon")
+
+
+def check_digest(digest: str) -> str:
+    if digest not in DIGESTS:
+        raise ValueError(f"unknown digest {digest!r}: one of {DIGESTS}")
+    return digest
 
 
 @dataclass
@@ -37,6 +48,25 @@ def build_layers(leaf_words: torch.Tensor, leaf_bytes: int) -> list[torch.Tensor
         pair = h.reshape(8, m, 2)
         msg = torch.cat([pair[:, :, 0], pair[:, :, 1]], dim=0).contiguous()
         h = b2.blake2s_words(msg, 64)
+        layers.append(h)
+    return layers
+
+
+def build_layers_digest(leaf_words: torch.Tensor, leaf_bytes: int,
+                        digest: str = "blake2s") -> list[torch.Tensor]:
+    """`build_layers` under either digest. Poseidon takes 32-byte value
+    leaves only (rows 0-7 of the leaf words): its input is capped at 64
+    bytes and must be canonical in BLS12-381's Fr, which holds for the
+    canonical BN254 values of the l-tree and the FRI trees. One
+    `poseidon_leaves` launch, then one `poseidon_pairs` launch a level."""
+    if check_digest(digest) == "blake2s":
+        return build_layers(leaf_words, leaf_bytes)
+    if leaf_bytes != 32:
+        raise ValueError(f"poseidon trees take 32-byte value leaves, got {leaf_bytes}")
+    h = pos.poseidon_leaves(leaf_words)
+    layers = [h]
+    while h.shape[1] > 1:
+        h = pos.poseidon_pairs(h)
         layers.append(h)
     return layers
 
@@ -90,28 +120,37 @@ def commit_words(leaf_words: torch.Tensor, leaf_bytes: int) -> DeviceMerkleTree:
     return DeviceMerkleTree(leaf_words, leaf_bytes, build_layers(leaf_words, leaf_bytes))
 
 
-def commit_root(leaves: list[bytes], device) -> bytes:
+def commit_root(leaves: list[bytes], device, digest: str = "blake2s") -> bytes:
     """Root of a tree over equal-length byte leaves (power-of-two count),
-    hashed on `device`."""
+    hashed on `device` with `digest`."""
     arr = np.frombuffer(b"".join(leaves), dtype=np.uint8).reshape(len(leaves), -1)
     n, leaf_bytes = arr.shape
     if n & (n - 1):
         raise ValueError("power-of-two leaf count required")
     words = torch.from_numpy(b2.bytes_to_words_np(arr, leaf_bytes).view(np.int32))
-    return commit_words(words.to(device), leaf_bytes).root
+    words = words.to(device)
+    return DeviceMerkleTree(words, leaf_bytes,
+                            build_layers_digest(words, leaf_bytes, digest)).root
 
 
-def validate_proof(proof: MerkleProof, root: bytes, index: int) -> bytes:
+def _host_digest(digest: str):
+    return blake if check_digest(digest) == "blake2s" else pos.poseidon_digest
+
+
+def validate_proof(proof: MerkleProof, root: bytes, index: int,
+                   digest: str = "blake2s") -> bytes:
     """Index-parity sibling walk on the host; raises on failure."""
-    current = blake(proof.leaf)
+    h = _host_digest(digest)
+    current = h(proof.leaf)
     t = index
     for node in proof.nodes:
-        current = blake(current + node) if t % 2 == 0 else blake(node + current)
+        current = h(current + node) if t % 2 == 0 else h(node + current)
         t //= 2
     if current != root:
         raise ValueError("merkle proof validation failed")
     return proof.leaf
 
 
-def verify_multi_branch(root: bytes, indices, proofs: list[MerkleProof]) -> list[bytes]:
-    return [validate_proof(p, root, int(i)) for i, p in zip(indices, proofs)]
+def verify_multi_branch(root: bytes, indices, proofs: list[MerkleProof],
+                        digest: str = "blake2s") -> list[bytes]:
+    return [validate_proof(p, root, int(i), digest) for i, p in zip(indices, proofs)]

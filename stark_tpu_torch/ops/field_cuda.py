@@ -22,11 +22,13 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from stark_tpu_torch.fields.field import LIMB_BITS, FieldSpec, int_to_limbs
 from stark_tpu_torch.ops import build
 
 _MASK = (1 << LIMB_BITS) - 1
+_SKEW_MAX = 1 << 23  # int64 elements (64 MiB) of `mul_cols`' one-product form
 
 
 def _words8(x: int) -> list[int]:
@@ -52,21 +54,35 @@ def _col(limbs, like: torch.Tensor) -> torch.Tensor:
 
 
 def normalize(cols: torch.Tensor):
-    """(K, N) int64 deferred-carry columns (any sign) -> exact 16-bit limbs
-    and the carry out of the top column (negative on a borrow)."""
-    out = torch.empty_like(cols)
+    """(K, N) int64 deferred-carry columns (any sign, |column| < 2^46) ->
+    exact 16-bit limbs and the carry out of the top column (negative on a
+    borrow). The carry runs over 32-bit digits, two columns each (a lone top
+    column is a digit of 16 bits), so the loop takes half as many steps."""
+    K = cols.shape[0]
+    digits = cols[0::2].clone()
+    digits[: K // 2] += cols[1::2] << LIMB_BITS
+    out = torch.empty_like(digits)
     c = torch.zeros_like(cols[0])
-    for k in range(cols.shape[0]):
-        v = cols[k] + c
-        out[k] = v & _MASK
-        c = v >> LIMB_BITS
-    return out, c
+    for k in range(digits.shape[0]):
+        v = digits[k] + c
+        out[k] = v
+        c = v >> (2 * LIMB_BITS if 2 * k + 1 < K else LIMB_BITS)
+    limbs = torch.stack([out & _MASK, (out >> LIMB_BITS) & _MASK], dim=1)
+    return limbs.reshape(-1, cols.shape[1])[:K], c
 
 
 def mul_cols(a: torch.Tensor, b: torch.Tensor, ncols: int) -> torch.Tensor:
     """Columns 0..ncols-1 of the limb product a*b (no carries): out[k] =
-    sum_{i+j=k} a_i*b_j. a: (La, N), b: (Lb, N) or (Lb, 1), int64 limbs."""
-    out = torch.zeros((ncols, a.shape[1]), dtype=torch.int64, device=a.device)
+    sum_{i+j=k} a_i*b_j. a: (La, N), b: (Lb, N) or (Lb, 1), int64 limbs.
+    Up to `_SKEW_MAX` elements, every a_i*b_j at once, row i shifted i
+    columns by a padded reshape, then summed (a few ops at any La: what a
+    narrow product costs is its number of ops); above it, a row at a time."""
+    La, Lb, n = a.shape[0], b.shape[0], a.shape[1]
+    if La * (La + Lb) * n <= _SKEW_MAX:
+        prod = F.pad((a[:, None] * b[None]).expand(La, Lb, n), (0, 0, 0, La))
+        cols = prod.reshape(-1, n)[: La * (La + Lb - 1)].reshape(La, La + Lb - 1, n).sum(0)
+        return F.pad(cols[:ncols], (0, 0, 0, max(0, ncols - cols.shape[0])))
+    out = torch.zeros((ncols, n), dtype=torch.int64, device=a.device)
     for i in range(a.shape[0]):
         hi = min(b.shape[0], ncols - i)
         if hi <= 0:

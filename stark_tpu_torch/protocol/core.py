@@ -1,8 +1,12 @@
 """Prover stages for one (spec, steps, precision, original_steps, device).
 
 Counterpart of `stark_tpu/protocol/core.py:276 build_proof_stages` for one
-device, the blake2s digest and precision <= 2^22 (the full (L, N) domain
-tables), on its device-arithmetization path. Stages are plain Python
+device and precision <= 2^22 (the full (L, N) domain tables), on its
+device-arithmetization path. `digest` ("blake2s" or "poseidon") is the tree
+digest of the l-tree (and so of FRI's first value tree); the m-tree and the
+a-tree are blake2s under either, as in the JAX package (`core.py:288-300`):
+the m-tree's 256-byte leaves exceed Poseidon's 64-byte input, and the
+a-tree's 40-byte leaves straddle its 32-byte chunks. Stages are plain Python
 functions over tensors, collected in a dict; there is no jit. Buffer
 donation (`core.py:513-518`) is dropped: at precision 2^20 the live
 columns take a few GB of an 80 GB card.
@@ -53,11 +57,7 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
     "butterfly" or "crt" (`ops/ntt.py make_best_lde`); the columns, and so
     the proof, are the same on either."""
     nttm.check_lde_engine(lde_engine)
-    if digest != "blake2s":
-        raise NotImplementedError(
-            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1, "
-            "Poseidon digest)"
-        )
+    mt.check_digest(digest)
     if precision > MAX_PRECISION:
         raise NotImplementedError(
             f"precision {precision} > 2^22 needs the big-domain path "
@@ -194,7 +194,8 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
         return rest_a(evs, outs[8], r_mont, i2_mont, inv_zb2_table)
 
     def commit_chain(cols):
-        """m-commit -> k coefficients -> linear combination -> l-commit."""
+        """m-commit -> k coefficients -> linear combination -> l-commit
+        (the l-tree under `digest`)."""
         m_words = leaves_to_words(spec, [cols[n] for n in COL_NAMES])
         m_layers = mt.build_layers(m_words, 256)
         k_mont = dt.k_coeffs_mont(spec, m_layers[-1][:, 0])
@@ -202,7 +203,7 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
             spec, k_mont, None, *[cols[n] for n in COL_NAMES], x2s_pats=x2_pats
         )
         l_words = leaves_to_words(spec, [l_ev])
-        l_layers = mt.build_layers(l_words, 32)
+        l_layers = mt.build_layers_digest(l_words, 32, digest)
         return m_words, m_layers, k_mont, l_ev, l_words, l_layers
 
     def pos_gather(l_root_words8, l_words, l_layers, m_words, m_layers):

@@ -108,11 +108,7 @@ def _check_scope(mesh, digest: str):
             "mesh: multi-GPU proving is not ported (ROADMAP.md Queue 1, "
             "Multi-GPU)"
         )
-    if digest != "blake2s":
-        raise NotImplementedError(
-            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1, "
-            "Poseidon digest)"
-        )
+    mt.check_digest(digest)
 
 
 def mk_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires, n_constraints: int,
@@ -137,7 +133,9 @@ def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
     tensor already on `device` (`runner.prove_many` uploads it ahead).
     `fri_fold` names FRI's fold route ("dft" or "lagrange"); the proof is
     the same on either. `lde_engine` names the engine of the 9 LDEs
-    ("butterfly" or "crt"); the proof is the same on either, too."""
+    ("butterfly" or "crt"); the proof is the same on either, too. `digest`
+    ("blake2s" or "poseidon") commits the l-tree and FRI's trees; the
+    m-tree, the a-tree and the transcript are blake2s under either."""
     _check_scope(mesh, digest)
     fri.check_fold_route(fri_fold)
     check_lde_engine(lde_engine)
@@ -211,7 +209,7 @@ def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
     # --- FRI; the l-tree is round 0's value tree ---
     pending = fri.prove_low_degree_pending(
         spec, l_ev, xs_full, precision // 4, skips, first_tree=l_tree,
-        fri_fold=fri_fold,
+        fri_fold=fri_fold, digest=digest,
     )
     return {
         "pending": pending,

@@ -7,7 +7,12 @@ default, or "lagrange": FRI's fold route, the JAX package's
 `STARK_TPU_FRI_LAGRANGE`; the proof is the same on either) and
 `lde_engine=` ("butterfly" by default, or "crt": the engine of the LDEs, the
 JAX package's `STARK_TPU_MXU`; the proof is the same on either, and the
-verifying entry points take it too). The prover
+verifying entry points take it too). Every entry point takes `digest=`
+("blake2s" by default, or "poseidon": the l-tree's and FRI's tree digest,
+the reference's `H: Digest`). `verify_with_witness` keeps the 6
+circuit-static public-column LDEs on the parsed circuit for its next verify
+when they fit 512 MiB (`stark_tpu/protocol/runner.py:258-276`);
+`verify_cache=False` keeps nothing. The prover
 always derives S and P on the device from the witness; the circuit-static
 arithmetization comes from the C++ host library when it builds, from the
 pure-Python arithmetizer otherwise.
@@ -21,6 +26,7 @@ import torch
 from stark_tpu_torch import device as devmod
 from stark_tpu_torch import native
 from stark_tpu_torch.fields.field import BN254_FR, FieldSpec
+from stark_tpu_torch.protocol.params import derive_params
 from stark_tpu_torch.r1cs.arithmetize import Arithmetization, arithmetize, slot_wire_ids_np
 from stark_tpu_torch.r1cs.reader import R1csContents, read_r1cs, read_witness
 from stark_tpu_torch.protocol import proof as proof_mod
@@ -105,7 +111,7 @@ def prove_with_witness(r1cs: R1csContents, witness_bytes: list[bytes], mesh=None
 
 
 def prove_many(r1cs: R1csContents, witness_bytes_list, pipeline: int = 2, mesh=None,
-               device="cuda", fri_fold: str = "dft",
+               digest: str = "blake2s", device="cuda", fri_fold: str = "dft",
                lde_engine: str = "butterfly") -> list:
     """Prove many witnesses of ONE circuit, for a proving service.
 
@@ -158,7 +164,7 @@ def prove_many(r1cs: R1csContents, witness_bytes_list, pipeline: int = 2, mesh=N
         arith.witness_le = on_dev
         in_flight.append(enqueue_r1cs_proof(
             spec, arith, public_wires, h.n_constraints, h.n_wires, mesh=mesh,
-            device=dev, fri_fold=fri_fold, lde_engine=lde_engine))
+            digest=digest, device=dev, fri_fold=fri_fold, lde_engine=lde_engine))
         arith.witness_le = None
         del on_dev
         if i + 1 < len(witness_bytes_list):
@@ -170,20 +176,33 @@ def prove_many(r1cs: R1csContents, witness_bytes_list, pipeline: int = 2, mesh=N
     return proofs
 
 
+def verify_cache_fits(spec: FieldSpec, precision: int) -> bool:
+    """The JAX runner's size gate: 6 (L, precision) int32 planes within 512
+    MiB (402 MB at precision 2^20)."""
+    return 6 * spec.num_limbs * 4 * precision <= 512 << 20
+
+
 def verify_with_witness(r1cs: R1csContents, public_wires_bytes: list[bytes], proof,
                         digest: str = "blake2s", device="cuda",
-                        lde_engine: str = "butterfly") -> bool:
+                        lde_engine: str = "butterfly",
+                        verify_cache: bool = True) -> bool:
     spec = _spec_for(r1cs)
     h = r1cs.header
     public_wires = [spec.from_bytes_le(w) for w in public_wires_bytes]
     if public_wires[0] != 1:
         raise ValueError("public wire 0 must be 1")
     arith = _static_arith(spec, r1cs)
+    ev_cache = None
+    if verify_cache and verify_cache_fits(
+            spec, derive_params(spec, arith.original_steps).precision):
+        ev_cache = getattr(r1cs, "_torch_ev_cache", None)
+        if ev_cache is None:
+            ev_cache = r1cs._torch_ev_cache = {}
     return verify_r1cs_proof(
         spec, proof, public_wires, arith.public_first_indices,
         arith.permuted_indices, arith.coefficients, arith.flag0, arith.flag1,
         arith.flag2, h.n_constraints, h.n_wires, digest=digest, device=device,
-        lde_engine=lde_engine,
+        lde_engine=lde_engine, ev_cache=ev_cache,
     )
 
 

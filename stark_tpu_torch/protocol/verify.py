@@ -5,7 +5,10 @@ cryptography, FRI, the Merkle branches, then the spot checks of the
 constraint, boundary and linear-combination identities on the host. The
 circuit-static public columns (K, F0, F1, F2, idx, perm) are
 low-degree-extended on the device with the prover's stages and gathered at
-the spot checks.
+the spot checks; `ev_cache`, a dict the caller keeps per circuit, holds
+those 6 LDEs across verifies (`stark_tpu/protocol/verify.py:143-150,
+210-222`), keyed by device. The l-tree's and FRI's branches are walked
+under the proof's `digest`; the m-tree's are blake2s under either.
 """
 
 from __future__ import annotations
@@ -91,15 +94,15 @@ def verify_r1cs_proof(spec: FieldSpec, proof: StarkProof, public_wires,
                       public_first_indices, permuted_indices, coefficients,
                       flag0, flag1, flag2, n_constraints: int, n_wires: int,
                       digest: str = "blake2s", device="cuda",
-                      lde_engine: str = "butterfly") -> bool:
+                      lde_engine: str = "butterfly", ev_cache: dict | None = None) -> bool:
     """Raises (ValueError / AssertionError) on a bad proof; True otherwise.
-    `lde_engine` names the engine of the 6 public columns' LDEs."""
+    `lde_engine` names the engine of the 6 public columns' LDEs (the same
+    values on either). `ev_cache`: where it holds the 6 LDEs for this
+    device, they are taken from it and neither the columns nor their LDEs
+    are made; otherwise they are made and stored in it. The LDEs depend on
+    the circuit alone: not on the proof, its digest or the engine."""
     check_lde_engine(lde_engine)
-    if digest != "blake2s":
-        raise NotImplementedError(
-            f"digest={digest!r}: only blake2s is ported (ROADMAP.md Queue 1, "
-            "Poseidon digest)"
-        )
+    mt.check_digest(digest)
     dev = devmod.resolve(device)
     p = spec.p
     original_steps = len(coefficients)
@@ -111,7 +114,8 @@ def verify_r1cs_proof(spec: FieldSpec, proof: StarkProof, public_wires,
     _validate_proof_shape(proof, precision)
 
     if not fri.verify_low_degree_proof(
-        spec, proof.l_root, params.g2, proof.fri_proof, precision // 4, skips, dev
+        spec, proof.l_root, params.g2, proof.fri_proof, precision // 4, skips, dev,
+        digest,
     ):
         raise ValueError("FRI verification failed")
 
@@ -120,21 +124,27 @@ def verify_r1cs_proof(spec: FieldSpec, proof: StarkProof, public_wires,
     )
     aug = augmented_positions(positions, params)
     main_leaves = mt.verify_multi_branch(proof.m_root, aug, proof.main_branches)
-    l_leaves = mt.verify_multi_branch(proof.l_root, positions, proof.linear_comb_branches)
+    l_leaves = mt.verify_multi_branch(proof.l_root, positions, proof.linear_comb_branches,
+                                      digest)
 
     # device LDEs of the public columns, gathered at the spot checks
-    stages = _stages_cached(spec, steps, precision, original_steps, digest, dev,
-                            lde_engine)
-    plo, phi = lo_hi_words(permuted_column(permuted_indices, original_steps, steps), dev)
-    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    smalls = stages["v_cols"](
-        to_dev(_col_bytes_np(spec, _pad_col(coefficients, steps))),
-        to_dev(np.asarray(_pad_col(flag1, steps), dtype=np.uint8)),
-        to_dev(np.asarray(_pad_col(flag2, steps), dtype=np.uint8)),
-        plo,
-        phi,
-    )
-    evs = stages["lde_many"](smalls)
+    evs = ev_cache.get(str(dev)) if ev_cache is not None else None
+    if evs is None:
+        stages = _stages_cached(spec, steps, precision, original_steps, digest, dev,
+                                lde_engine)
+        plo, phi = lo_hi_words(permuted_column(permuted_indices, original_steps, steps),
+                               dev)
+        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        smalls = stages["v_cols"](
+            to_dev(_col_bytes_np(spec, _pad_col(coefficients, steps))),
+            to_dev(np.asarray(_pad_col(flag1, steps), dtype=np.uint8)),
+            to_dev(np.asarray(_pad_col(flag2, steps), dtype=np.uint8)),
+            plo,
+            phi,
+        )
+        evs = stages["lde_many"](smalls)
+        if ev_cache is not None:
+            ev_cache[str(dev)] = evs
     pos_t = torch.as_tensor(positions, dtype=torch.int64, device=dev)
     gathered = torch.stack([mm.from_mont(spec, e[:, pos_t]) for e in evs])
     gathered = gathered.cpu().numpy().view(np.uint32)  # (6, L, n_pos)

@@ -18,8 +18,9 @@ the stream). The first line out is the ready event,
 Methods: ping, prove, verify, run (prove+verify), warmup, shutdown.
 `prove` accepts "inline": true to return the proof JSON in the response
 instead of (or beside) writing a file; `prove`/`verify`/`run` accept
-"digest", of which only "blake2s" is ported: "poseidon" comes back as an
-error naming its ROADMAP item. Errors come back as
+"digest" ("blake2s", the default, or "poseidon"). A verify keeps the
+circuit's 6 public-column LDEs on the cached circuit (the runner's size
+gate), so repeat verifies of one circuit skip them. Errors come back as
 {"id", "error": {"type", "message"}}: the worker never dies on a bad
 request.
 

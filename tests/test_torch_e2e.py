@@ -174,10 +174,14 @@ def test_cuda_without_card_raises(compute):
 
 
 def test_out_of_scope_arguments_raise(compute):
-    r1cs, _, _ = compute
+    r1cs, pub, golden = compute
     with open(os.path.join(FIX, "compute.wtns"), "rb") as f:
         witness = read_witness(f.read())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.prove_with_witness(r1cs, witness, digest="poseidon", device="cpu")
+    # an unknown digest, as `stark_tpu/merkle/tree.py:310` refuses it
+    with pytest.raises(ValueError, match="digest"):
+        runner.prove_with_witness(r1cs, witness, digest="sha256", device="cpu")
+    with pytest.raises(ValueError, match="digest"):
+        runner.verify_with_witness(r1cs, pub, proof_mod.from_json(golden), digest="sha256",
+                                   device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         runner.prove_with_witness(r1cs, witness, mesh=object(), device="cpu")

@@ -6,9 +6,9 @@
   golden (the golden holds both routes), through the runner and the CLI;
 * the worker, driven over `io.StringIO`: ready, ping, warmup, prove inline,
   run to a file, verify, an unknown method and malformed lines answered
-  as errors with the worker still serving, poseidon refused by its ROADMAP
-  item, shutdown; its replies carry the keys the JAX package's worker gives
-  for the same requests;
+  as errors with the worker still serving, a Poseidon prove equal to the
+  committed Poseidon golden and its verify, shutdown; its replies carry the
+  keys the JAX package's worker gives for the same requests;
 * what is refused: an unknown fold route, and `device="cuda"` without a
   card (nothing falls back to the CPU).
 
@@ -183,13 +183,15 @@ def test_worker_matches_the_jax_worker_key_for_key(port_replies, tmp_path):
                 assert g["result"].get(key) == w["result"].get(key)
 
 
-def test_worker_warmup_and_poseidon(compute):
+def test_worker_warmup_and_poseidon(compute, tmp_path):
     files = {"r1cs": R1CS, "wtns": WTNS}
+    proof_json = str(tmp_path / "poseidon.json")
     replies = _drive(serve.serve, [
         {"id": 1, "method": "warmup", "params": {"r1cs": R1CS}},
-        {"id": 2, "method": "prove", "params": {**files, "digest": "poseidon"}},
+        {"id": 2, "method": "prove", "params": {**files, "digest": "poseidon",
+                                                 "inline": True, "proof_json": proof_json}},
         {"id": 3, "method": "verify", "params": {**files, "digest": "poseidon",
-                                                  "proof_json": "unread.json"}},
+                                                  "proof_json": proof_json}},
         {"id": 4, "method": "warmup", "params": {"r1cs": "no/such/file.r1cs"}},
         {"id": 5, "method": "prove", "params": {**files, "inline": True}},
     ], device="cpu")
@@ -197,9 +199,9 @@ def test_worker_warmup_and_poseidon(compute):
     # the keys `stark_tpu/serve.py` answers a warmup with
     assert sorted(by_id[1]["result"]) == ["ok", "seconds", "steps", "warmed"]
     assert by_id[1]["result"]["steps"] == 16 and by_id[1]["result"]["warmed"] > 0
-    assert by_id[2]["error"]["type"] == "NotImplementedError"
-    assert "ROADMAP.md Queue 1, Poseidon digest" in by_id[2]["error"]["message"]
-    assert "error" in by_id[3]
+    with open(os.path.join(FIX, "compute_proof_poseidon_golden.json")) as f:
+        assert by_id[2]["result"]["proof"] == f.read()
+    assert by_id[3]["result"]["verified"] is True
     assert by_id[4]["error"]["type"] == "FileNotFoundError"
     assert by_id[5]["result"]["proof"] == compute[2]  # the default route, after EOF-less errors
 
