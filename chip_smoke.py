@@ -56,9 +56,13 @@ non-zero and no phase's error is swallowed:
    group and product floor (`floor_ms`); their pre-pass,
    `vanishing_coeffs`, at 1,062 and 17 points. The Poseidon pair at the
    l-tree's leaf layer (2^20 leaves) and a fold level of 2^19 pairs, then at
-   2^17, 1 and 3 hashes, with 0, 1, BN254's r - 1 and BLS12-381's p - 1
-   among the inputs (`compare_poseidon`), each level of a 2^20 tree timed
-   alone (`levels`) and `ptxas -v`'s registers and spills of both builds.
+   2^17, 1, 3, 33, 2^10 and 2^13 hashes and on both sides of the wrapper's
+   width constant (`poseidon.LANE_FORM_BELOW`: a group of 4 lanes a hash
+   below it, a thread a hash at it; each case names its form), with 0, 1,
+   BN254's r - 1 and BLS12-381's p - 1 among the inputs
+   (`compare_poseidon`), each level of a 2^20 tree timed alone (`levels`,
+   the narrow ones beside a latency model, `model_ms`) and `ptxas -v`'s
+   registers, stack and spills of its four builds.
    Then, in a record of its own (`prefix_prod`), `prefix_prod` forward and
    reversed and `multi_inv` at 2^17, 2^20 and at lengths 80, 96 and 160:
    each equal (`torch.equal`) to the same function on CPU tensors, with its
@@ -85,7 +89,8 @@ non-zero and no phase's error is swallowed:
    its own record (`real_size_poseidon`), the same under digest="poseidon"
    (the l-tree and FRI's trees on the Poseidon pair, which must launch),
    with the device time of every Poseidon launch of the warm prove
-   (`poseidon_ms`); its verifier walks every branch with the host hash;
+   (`poseidon_ms`, with how many ran the lane form); its verifier walks
+   every branch with the host hash;
 6. serve: the proving worker (`stark_tpu_torch.serve.serve`, the loop behind
    `python -m stark_tpu_torch.cli serve --device cuda --fri-fold lagrange`)
    on the Lagrange fold route, fed the same circuit as files: ping, warmup,
@@ -277,6 +282,12 @@ POSEIDON_PAIR_PRODUCTS, POSEIDON_LEAF_PRODUCTS = (416, 156), (412, 154)
 def poseidon_ops(products: tuple[int, int]) -> int:
     """Integer operations of one hash of (products, squarings)."""
     return products[0] * MONT_MUL_OPS + products[1] * MONT_SQR_OPS
+# The lane form's latency model for a narrow level: about 4 dependent
+# products a round (an S-box's three, then the round's row) over the 63
+# rounds, each at the time of one dependent radix-2^29 squaring on an H100
+# 80GB HBM3 at 700 W (0.444 us, scripts/mpow_kernels_cuda.py, PERF.md row 5)
+POSEIDON_CHAIN = 4 * 63
+DEPENDENT_PRODUCT_US = 0.444
 BLAKE2S_OPS = 960  # 32-bit integer operations of one compression
 SLEEP_CYCLES = 1_000_000  # about 0.5 ms of SM clock: the wait `median_ms` puts first
 
@@ -803,8 +814,9 @@ def compare_mpow(spec, rand) -> dict:
 
 
 def ptxas_of(fragment: str) -> dict:
-    """{kernel: {"registers", "spill_stores"}} of the library's kernels whose
-    mangled name holds `fragment`, from the build's `ptxas -v` log."""
+    """{kernel: {"registers", "spill_stores", "stack_bytes"}} of the
+    library's kernels whose mangled name holds `fragment`, from the build's
+    `ptxas -v` log."""
     from stark_tpu_torch.ops import build
 
     with open(os.path.join(os.path.dirname(build.library_path()), "build.log")) as f:
@@ -815,9 +827,12 @@ def ptxas_of(fragment: str) -> dict:
         if m:
             name = m.group(1) if fragment in m.group(1) else None
             if name:
-                usage[name] = {"registers": None, "spill_stores": None}
+                usage[name] = {"registers": None, "spill_stores": None, "stack_bytes": None}
         if name is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and usage[name]["stack_bytes"] is None:
+            usage[name]["stack_bytes"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and usage[name]["spill_stores"] is None:
             usage[name]["spill_stores"] = int(m.group(1))
@@ -847,34 +862,44 @@ def compare_poseidon(device, sm_hz: float) -> dict:
     """`poseidon_leaves` and `poseidon_pairs` against their plain versions
     (`torch.equal`): the l-tree's leaf layer, 2^20 leaves of BN254 values in a
     (16, 2^20) buffer, and a fold level of 2^19 pairs of BLS12-381 values,
-    then each at 2^17, 1 and 3 hashes; 0, 1, r - 1 and p - 1 among the
-    inputs (`poseidon_words`). The plain versions' times are of their one
-    comparison call (about 10 s at 2^20). Bounds: the products and
-    squarings of a hash in its optimized form (`POSEIDON_*_PRODUCTS`,
-    `poseidon_ops`) over the integer rate; bytes: 32 read for a
-    leaf (its value's rows), 64 for a pair, 32 written. Then, timed alone,
-    the levels of a 2^20 tree as the prover runs them (`levels`: the leaf
-    layer, then one fold a level down to one hash), each with its bound;
-    and `ptxas -v`'s registers and spills of the kernel's two builds."""
+    then each at 2^17, 1 and 3 hashes, on both sides of the wrapper's width
+    constant (`poseidon.LANE_FORM_BELOW`: the lane form below it, a thread
+    a hash at it), at 2^13, 2^10 and 33 (a ragged warp of the lane form);
+    0, 1, r - 1 and p - 1 among the inputs (`poseidon_words`). Each case
+    names its form. The plain versions' times are of their one comparison
+    call (about 10 s at 2^20). Bounds: the products and squarings of a hash
+    in its optimized form (`POSEIDON_*_PRODUCTS`, `poseidon_ops`) over the
+    integer rate; bytes: 32 read for a leaf (its value's rows), 64 for a
+    pair, 32 written. Then, timed alone, the levels of a 2^20 tree as the
+    prover runs them (`levels`: the leaf layer, then one fold a level down
+    to one hash), each with its form and bound, the narrow ones (the lane
+    form) also with the latency model's `model_ms` (`POSEIDON_CHAIN`
+    dependent products at `DEPENDENT_PRODUCT_US`); and `ptxas -v`'s
+    registers, stack and spills of the kernel's four builds."""
     from stark_tpu_torch.fields.field import BLS12_381_FR as bls, BN254_FR as bn
     from stark_tpu_torch.ops import poseidon as pos
 
     rng = np.random.default_rng(SEED + 14)
-    big = 1 << 20
+    big, w = 1 << 20, pos.LANE_FORM_BELOW
+    sizes = (big, big >> 3, 1, 3, w - 1, w, 1 << 13, 1 << 10, 33)
     leaf_ops, pair_ops = (poseidon_ops(POSEIDON_LEAF_PRODUCTS),
                           poseidon_ops(POSEIDON_PAIR_PRODUCTS))
-    leaf_in = {n: poseidon_words(rng, 16, n, bn.p, device) for n in (big, big >> 3, 1, 3)}
-    pair_in = {n: poseidon_words(rng, 8, 2 * n, bls.p, device)
-               for n in (big >> 1, big >> 3, 1, 3)}
+    leaf_in = {n: poseidon_words(rng, 16, n, bn.p, device) for n in sizes}
+    pair_in = {n: poseidon_words(rng, 8, 2 * n, bls.p, device) for n in (big >> 1,) + sizes[1:]}
+
+    def form(n: int) -> str:
+        return "lanes" if pos.lane_form(n) else "thread"
+
     out = {
         "poseidon_leaves": compare(
             "poseidon_leaves", pos.poseidon_leaves, pos.poseidon_leaves_plain,
-            {f"(16,{n}) leaves": ((w,), 64 * n, n * leaf_ops) for n, w in leaf_in.items()},
+            {f"(16,{n}) leaves, {form(n)}": ((x,), 64 * n, n * leaf_ops)
+             for n, x in leaf_in.items()},
             reps=(10, 0)),
         "poseidon_pairs": compare(
             "poseidon_pairs", pos.poseidon_pairs, pos.poseidon_pairs_plain,
-            {f"(8,{2 * n}) {n} pairs": ((w,), 96 * n, n * pair_ops)
-             for n, w in pair_in.items()},
+            {f"(8,{2 * n}) {n} pairs, {form(n)}": ((x,), 96 * n, n * pair_ops)
+             for n, x in pair_in.items()},
             reps=(10, 0)),
     }
     levels = []
@@ -888,8 +913,11 @@ def compare_poseidon(device, sm_hz: float) -> dict:
         h = pos.poseidon_pairs(layer)
     for lv in levels:
         ops = lv["hashes"] * (leaf_ops if lv["kernel"] == "poseidon_leaves" else pair_ops)
+        lv["form"] = form(lv["hashes"])
         lv["bound_ms"] = ops / INT_OPS_PER_S * 1e3
         lv["us_per_hash"] = lv["ms"] * 1e3 / lv["hashes"]
+        if pos.lane_form(lv["hashes"]):
+            lv["model_ms"] = POSEIDON_CHAIN * DEPENDENT_PRODUCT_US * 1e-3
     out["poseidon_pairs"]["levels"] = levels
     out["poseidon_pairs"]["tree_ms"] = sum(lv["ms"] for lv in levels)
     out["poseidon_pairs"]["ptxas"] = ptxas_of("poseidon")
@@ -1339,6 +1367,9 @@ def phase_real(device, r1cs, witness, profile: bool, lde_engine: str = "butterfl
             "bound_ms": (hashes["poseidon_leaves"] * poseidon_ops(POSEIDON_LEAF_PRODUCTS)
                          + hashes["poseidon_pairs"] * poseidon_ops(POSEIDON_PAIR_PRODUCTS))
             / INT_OPS_PER_S * 1e3,
+            "lane_form_launches": sum(
+                pos.lane_form(width if name == "poseidon_leaves" else width // 2)
+                for name, _, width in calls),
             "calls": [{"kernel": name, "input_width": width, "ms": ms}
                       for name, ms, width in calls],
         }

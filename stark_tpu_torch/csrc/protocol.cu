@@ -124,6 +124,12 @@ namespace {
 
 using stark::Field;
 using stark::NW;
+using stark::WIDE;
+using stark::add_shifted;
+using stark::mac_wide;
+using stark::redc_canonical;
+using stark::redc_wide;
+using stark::reduce_below_8p;
 
 constexpr int THREADS = 256;
 constexpr int Q2_THREADS = 192;  // q2_eval's blocks: two slices of three warps
@@ -262,7 +268,6 @@ q3_kernel(const int32_t* __restrict__ a_ev, const int32_t* __restrict__ nmr,
 // --- the linear combination: one lazy sum of eight products ---------------
 
 constexpr int LC_PLANES = 8;
-constexpr int WIDE = 2 * NW + 1;  // words of the lazy sum
 constexpr int XROW = 3 * NW + 3;  // words of a row of x coefficients (odd: a
                                   // warp's rows fall in different banks)
 
@@ -285,110 +290,6 @@ struct LincombTile {
   uint32_t ks[11][NW];
   uint32_t cx[THREADS][XROW];  // 3 x coefficients a row, NW words each
 };
-
-// acc += c*v*2^(32B) over the 17 words, as two PTX carry chains (low halves
-// at words B..B+7, high halves at B+1..B+8). The carry out of word B + 8 is
-// deferred: `pend` (at most 2) is owed at word B + 8 on entry, where this
-// row adds it, and at word B + 9 on exit, where the next row (B + 1) adds it;
-// after row 7 it is owed at word 16. acc + pend*2^(32(B+9)) is the true sum
-// throughout.
-template <int B>
-__device__ __forceinline__ void mac_row(uint32_t (&acc)[WIDE], uint32_t& pend,
-                                        const uint32_t (&c)[NW], uint32_t v) {
-  asm("mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
-      "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
-      "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
-      "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
-      "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
-      "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
-      "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
-      "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
-      "addc.cc.u32 %8, %8, %9;\n\t"
-      "addc.u32 %9, 0, 0;\n\t"
-      "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
-      "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
-      "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
-      "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
-      "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
-      "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
-      "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
-      "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
-      "addc.u32 %9, %9, 0;"
-      : "+r"(acc[B]), "+r"(acc[B + 1]), "+r"(acc[B + 2]), "+r"(acc[B + 3]),
-        "+r"(acc[B + 4]), "+r"(acc[B + 5]), "+r"(acc[B + 6]), "+r"(acc[B + 7]),
-        "+r"(acc[B + 8]), "+r"(pend)
-      : "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(c[4]), "r"(c[5]),
-        "r"(c[6]), "r"(c[7]), "r"(v));
-}
-
-// acc += c*v, the whole 512-bit product; the sum must stay below 2^544.
-__device__ __forceinline__ void mac_wide(uint32_t (&acc)[WIDE],
-                                         const uint32_t (&c)[NW],
-                                         const uint32_t (&v)[NW]) {
-  uint32_t pend = 0;
-  mac_row<0>(acc, pend, c, v[0]);
-  mac_row<1>(acc, pend, c, v[1]);
-  mac_row<2>(acc, pend, c, v[2]);
-  mac_row<3>(acc, pend, c, v[3]);
-  mac_row<4>(acc, pend, c, v[4]);
-  mac_row<5>(acc, pend, c, v[5]);
-  mac_row<6>(acc, pend, c, v[6]);
-  mac_row<7>(acc, pend, c, v[7]);
-  acc[2 * NW] += pend;
-}
-
-// Montgomery reduction of the lazy sum: acc + m*p with m < 2^256 chosen
-// word by word so that words 0..7 vanish; words 8..16 are then
-// T = acc*2^-256 mod p up to multiples of p, T < acc/2^256 + p.
-__device__ __forceinline__ void redc_wide(const Field& f, uint32_t (&acc)[WIDE]) {
-  uint32_t pend = 0;
-  mac_row<0>(acc, pend, f.p, acc[0] * f.np);
-  mac_row<1>(acc, pend, f.p, acc[1] * f.np);
-  mac_row<2>(acc, pend, f.p, acc[2] * f.np);
-  mac_row<3>(acc, pend, f.p, acc[3] * f.np);
-  mac_row<4>(acc, pend, f.p, acc[4] * f.np);
-  mac_row<5>(acc, pend, f.p, acc[5] * f.np);
-  mac_row<6>(acc, pend, f.p, acc[6] * f.np);
-  mac_row<7>(acc, pend, f.p, acc[7] * f.np);
-  acc[2 * NW] += pend;
-}
-
-// t -= m where t >= m, over 9 words
-__device__ __forceinline__ void sub_if_ge9(uint32_t (&t)[NW + 1],
-                                           const uint32_t (&m)[NW + 1]) {
-  uint32_t d[NW + 1], borrow;
-  asm("sub.cc.u32 %0, %10, %19;\n\t"
-      "subc.cc.u32 %1, %11, %20;\n\t"
-      "subc.cc.u32 %2, %12, %21;\n\t"
-      "subc.cc.u32 %3, %13, %22;\n\t"
-      "subc.cc.u32 %4, %14, %23;\n\t"
-      "subc.cc.u32 %5, %15, %24;\n\t"
-      "subc.cc.u32 %6, %16, %25;\n\t"
-      "subc.cc.u32 %7, %17, %26;\n\t"
-      "subc.cc.u32 %8, %18, %27;\n\t"
-      "subc.u32 %9, 0, 0;"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]),
-        "=r"(d[6]), "=r"(d[7]), "=r"(d[8]), "=r"(borrow)
-      : "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]), "r"(t[5]),
-        "r"(t[6]), "r"(t[7]), "r"(t[8]), "r"(m[0]), "r"(m[1]), "r"(m[2]),
-        "r"(m[3]), "r"(m[4]), "r"(m[5]), "r"(m[6]), "r"(m[7]), "r"(m[8]));
-#pragma unroll
-  for (int w = 0; w <= NW; ++w) t[w] = borrow ? t[w] : d[w];
-}
-
-// t < 8p (9 words) -> t mod p: take away 4p, 2p and p where t is not below.
-__device__ __forceinline__ void reduce_below_8p(const Field& f,
-                                                uint32_t (&t)[NW + 1]) {
-#pragma unroll
-  for (int s = 2; s >= 0; --s) {
-    uint32_t m[NW + 1];
-    m[0] = f.p[0] << s;
-#pragma unroll
-    for (int w = 1; w < NW; ++w) m[w] = s ? __funnelshift_l(f.p[w - 1], f.p[w], s) : f.p[w];
-    m[NW] = s ? f.p[NW - 1] >> (32 - s) : 0;
-    sub_if_ge9(t, m);
-  }
-}
 
 // The 16 limb rows of element i of a plane, as loaded; `pack_limbs` makes
 // them the 8 words of `load_elem`.
@@ -590,36 +491,6 @@ shoup_mul_periodic_kernel(const int32_t* __restrict__ w_pat,
 }
 
 // --- horner_eval and vanishing_eval: groups of G terms, summed wide --------
-
-// acc += c*2^256: c's words at words 8..15, the carry into word 16.
-__device__ __forceinline__ void add_shifted(uint32_t (&acc)[WIDE], const uint32_t (&c)[NW]) {
-  asm("add.cc.u32 %0, %0, %9;\n\t"
-      "addc.cc.u32 %1, %1, %10;\n\t"
-      "addc.cc.u32 %2, %2, %11;\n\t"
-      "addc.cc.u32 %3, %3, %12;\n\t"
-      "addc.cc.u32 %4, %4, %13;\n\t"
-      "addc.cc.u32 %5, %5, %14;\n\t"
-      "addc.cc.u32 %6, %6, %15;\n\t"
-      "addc.cc.u32 %7, %7, %16;\n\t"
-      "addc.u32 %8, %8, 0;"
-      : "+r"(acc[8]), "+r"(acc[9]), "+r"(acc[10]), "+r"(acc[11]), "+r"(acc[12]),
-        "+r"(acc[13]), "+r"(acc[14]), "+r"(acc[15]), "+r"(acc[16])
-      : "r"(c[0]), "r"(c[1]), "r"(c[2]), "r"(c[3]), "r"(c[4]), "r"(c[5]),
-        "r"(c[6]), "r"(c[7]));
-}
-
-// r = acc*2^-256 mod p, canonical, for a wide sum whose REDC stays below 8p
-// (the header's bound on G).
-__device__ __forceinline__ void redc_canonical(const Field& f, uint32_t (&acc)[WIDE],
-                                               uint32_t (&r)[NW]) {
-  redc_wide(f, acc);
-  uint32_t t[NW + 1];
-#pragma unroll
-  for (int w = 0; w <= NW; ++w) t[w] = acc[NW + w];
-  reduce_below_8p(f, t);
-#pragma unroll
-  for (int w = 0; w < NW; ++w) r[w] = t[w];
-}
 
 __device__ __forceinline__ void row_words(const uint32_t* row, uint32_t (&v)[NW]) {
 #pragma unroll

@@ -47,8 +47,12 @@ _SIGNATURES = {
         ctypes.c_uint32, _vp,
     ],
     "stark_blake2s_words": [_vp, _vp, _ll, ctypes.c_int, _ll, _vp],
-    "stark_poseidon_leaves": [_vp, _vp, _ll, _ll, _vp, _u32p, ctypes.c_uint32, _vp],
-    "stark_poseidon_pairs": [_vp, _vp, _ll, _ll, _vp, _u32p, ctypes.c_uint32, _vp],
+    "stark_poseidon_leaves": [
+        _vp, _vp, _ll, _ll, _vp, ctypes.c_int, _u32p, ctypes.c_uint32, _vp,
+    ],
+    "stark_poseidon_pairs": [
+        _vp, _vp, _ll, _ll, _vp, ctypes.c_int, _u32p, ctypes.c_uint32, _vp,
+    ],
     "stark_mpow_scalar": [
         _vp, _vp, ctypes.c_int, _u32p, ctypes.c_int, ctypes.c_int, _u32p, ctypes.c_uint32,
         _vp,

@@ -19,14 +19,18 @@ Three implementations share the constants:
   on the plain field product `field_cuda.mmul_plain`;
 * the tree wrappers `poseidon_leaves` and `poseidon_pairs` on packed (8, n)
   int32 digest words, the layout of the blake2s trees. On a CUDA tensor
-  they launch `csrc/poseidon.cu` (one thread a hash), on a CPU tensor they
-  run `poseidon_leaves_plain` / `poseidon_pairs_plain`. The JAX package has
-  no Pallas kernel here: its permutation is an XLA `lax.scan`.
+  they launch `csrc/poseidon.cu`, which runs the permutation's optimized
+  form (`sparse_form`) over `kernel_table`: a thread a hash, or a group of
+  4 lanes a hash for a level of fewer than `LANE_FORM_BELOW` hashes. On a
+  CPU tensor they run `poseidon_leaves_plain` / `poseidon_pairs_plain`. The
+  JAX package has no Pallas kernel here: its permutation is an XLA
+  `lax.scan`.
 """
 
 from __future__ import annotations
 
 import functools
+import types
 
 import torch
 
@@ -219,35 +223,143 @@ def poseidon_pairs_plain(layer: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the kernels
+# the kernels: the permutation's optimized form and its table
 # ---------------------------------------------------------------------------
 
-
-def _words8(x: int) -> list[int]:
-    return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+HALF = FULL_ROUNDS // 2  # 4: the first partial round
+LAST_PARTIAL = HALF + PARTIAL_ROUNDS - 1  # 58
+LAST_ROUND = FULL_ROUNDS + PARTIAL_ROUNDS - 1  # 62
+# Levels of fewer hashes than this run the lane form (LANES lanes a hash,
+# lane i < 3 holding state[i]); wider ones a thread a hash. Both are builds
+# of one source over one table. Set from the two forms' times at each width
+# on an H100 (`scripts/poseidon_kernels_cuda.py`, PERF.md row P).
+LANE_FORM_BELOW = 1 << 14
+LANES = 4
+# The kernels' values are 9 limbs of 29 bits in Montgomery form for
+# R' = 2^261 (`csrc/field.cuh`'s radix-2^29 form); a table entry is its 9
+# limbs and 3 words of padding
+RADIX_BITS, LIMBS, ENTRY_WORDS = 29, 9, 12
+# `kernel_table`'s layout, in entries (`csrc/poseidon.cu` mirrors it)
+E_IN = 0  # c[0][1], c[0][2] (plain): round 0's constants on the input lanes
+E_K0 = 2  # round 0's matrix on lanes 1 and 2: row j at E_K0 + 2j
+E_C0P = 8  # round 0's fixed lanes (the tag) and round 1's constants, a row each
+E_C0L = 11  # the same for a leaf, whose lane 2 (0) is fixed too
+E_MDS = 14  # the full rounds' matrix, row by row
+E_PRE = 23  # round 3's matrix (the pre-matrix)
+E_NXT1 = 32  # the constants rounds 1-3 add for the next round, 3 a round
+E_NXT2 = 41  # the same for rounds 58-61
+E_PART = 53  # partial round r at E_PART + 6 (r - 4): PART_SLOTS
+PART_SLOTS = ("a00", "row0_0", "row0_1", "col0_0", "col0_1", "next0")
+E_OUT = E_PART + len(PART_SLOTS) * PARTIAL_ROUNDS  # the last round's output row
+E_ONE = E_OUT + T  # R' mod p: the lane form's product that keeps a lane
+E_ZERO = E_ONE + 1
+TABLE_ENTRIES = E_ZERO + 1
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_table(spec: FieldSpec = BLS12_381_FR) -> tuple[int, ...]:
-    """The kernel's constants as 8 little-endian uint32 words an element, in
-    Montgomery form (x R mod p): the 189 round constants in consumption
-    order, the 9 MDS entries row by row (entry 3i + j is M[i][j]), R^2 mod p
-    (the factor that takes an input into Montgomery form, as a plain value),
-    then the domain tag."""
-    p, R = spec.p, spec.r_mod_p
+def sparse_form():
+    """The permutation over BLS12-381's Fr in its optimized form (Grassi et
+    al., "Poseidon", USENIX Security 2021, Appendix B) as (c, A, pre,
+    sparse), with x <- A x and A[j][i] = M[i][j]: `c` the round constants
+    with each partial round's constants but state[0]'s moved into the next
+    round's (A applied to them); `sparse[r]` = (a00, row0, col0) of each
+    partial round r, from the last back, whose matrix is factored as S D
+    with S = [[a00, row0], [col0, I]] sparse and D = diag(1, Â), which
+    commutes with the partial S-box and goes into the round before; `pre`,
+    round 3's matrix, takes the last D."""
+    t, p = T, BLS12_381_FR.p
+    rc = round_constants(p=p)
+    c = [list(rc[t * r : t * r + t]) for r in range(LAST_ROUND + 1)]
     mds = mds_matrix(p=p)
-    vals = ([c * R % p for c in round_constants(p=p)]
-            + [mds[i][j] * R % p for i in range(T) for j in range(T)]
-            + [spec.r2_mod_p, DOMAIN_TAG * R % p])
-    return tuple(w for v in vals for w in _words8(v))
+    A = [[mds[i][j] for i in range(t)] for j in range(t)]
+
+    def apply(m, v):
+        return [sum(m[j][i] * v[i] for i in range(t)) % p for j in range(t)]
+
+    def matmul(x, y):
+        return [[sum(x[j][k] * y[k][i] for k in range(t)) % p for i in range(t)]
+                for j in range(t)]
+
+    for r in range(HALF, LAST_PARTIAL + 1):
+        moved = apply(A, [0] + c[r][1:])
+        c[r + 1] = [(a + b) % p for a, b in zip(c[r + 1], moved)]
+        c[r][1:] = [0] * (t - 1)
+    sparse, cur = {}, A
+    for r in range(LAST_PARTIAL, HALF - 1, -1):
+        (a, b), (d, e) = cur[1][1:], cur[2][1:]
+        det_inv = pow((a * e - b * d) % p, -1, p)
+        inv = [[e * det_inv % p, -b * det_inv % p], [-d * det_inv % p, a * det_inv % p]]
+        row0 = [sum(cur[0][1 + k] * inv[k][i] for k in range(2)) % p for i in range(2)]
+        sparse[r] = (cur[0][0], tuple(row0), (cur[1][0], cur[2][0]))
+        cur = matmul([[1, 0, 0], [0, a, b], [0, d, e]], A)
+    return (tuple(map(tuple, c)), tuple(map(tuple, A)), tuple(map(tuple, cur)),
+            types.MappingProxyType(sparse))
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_entries() -> tuple[int, ...]:
+    """The kernel's TABLE_ENTRIES constants (the layout above), each below p.
+
+    A state value is held in Montgomery form for R' = 2^261 (x R' mod p), as
+    is an S-box's output, so a matrix entry is A R': the reduction of the
+    row's sum (a division by R') leaves the next state in that form. The
+    constants of the next round are added to the sum times R' (x R',
+    shifted up 261 bits). Round 0 S-boxes the plain inputs (v + c, whose
+    S-box output is v^5 R'^-4), so its matrix is A R'^6; the tag lane, and a
+    leaf's lane 2 (0), give constants. The last round's output row is A[1]
+    (the reduction leaves the plain digest)."""
+    p = BLS12_381_FR.p
+    R = (1 << LIMBS * RADIX_BITS) % p
+    c, A, pre, sparse = sparse_form()
+
+    def sbox(x: int) -> int:
+        return pow(x % p, 5, p)
+
+    e = [0] * TABLE_ENTRIES
+    e[E_IN], e[E_IN + 1] = c[0][1], c[0][2]
+    tag_box = sbox(DOMAIN_TAG + c[0][0])
+    for j in range(T):
+        for i in (1, 2):
+            e[E_K0 + 2 * j + i - 1] = A[j][i] * pow(R, 6, p) % p
+        fixed = A[j][0] * tag_box + c[1][j]
+        e[E_C0P + j] = fixed * R % p
+        e[E_C0L + j] = (fixed + A[j][2] * sbox(c[0][2])) * R % p
+        for i in range(T):
+            e[E_MDS + T * j + i] = A[j][i] * R % p
+            e[E_PRE + T * j + i] = pre[j][i] * R % p
+        e[E_OUT + j] = A[1][j]
+        for k, r in enumerate((1, 2, 3)):
+            e[E_NXT1 + T * k + j] = c[r + 1][j] * R % p
+        for k, r in enumerate(range(LAST_PARTIAL, LAST_ROUND)):
+            e[E_NXT2 + T * k + j] = c[r + 1][j] * R % p
+    for r in range(HALF, LAST_PARTIAL + 1):
+        a00, row0, col0 = sparse[r]
+        base = E_PART + len(PART_SLOTS) * (r - HALF)
+        e[base : base + len(PART_SLOTS)] = [
+            v * R % p for v in (a00, row0[0], row0[1], col0[0], col0[1], c[r + 1][0])]
+    e[E_ONE], e[E_ZERO] = R, 0
+    return tuple(e)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_table() -> tuple[int, ...]:
+    """`kernel_entries` as ENTRY_WORDS uint32 words an entry: the 9 limbs of
+    29 bits, least significant first, then 3 zero words."""
+    mask = (1 << RADIX_BITS) - 1
+    return tuple((v >> RADIX_BITS * i) & mask if i < LIMBS else 0
+                 for v in kernel_entries() for i in range(ENTRY_WORDS))
 
 
 @functools.lru_cache(maxsize=None)
 def _device_table(device: torch.device) -> torch.Tensor:
-    """`kernel_table` as int32 bit patterns on `device`, made once a device:
-    each launch copies it into the kernel's constant memory on its stream."""
-    words = [w - (1 << 32) if w >= 1 << 31 else w for w in kernel_table()]
-    return torch.tensor(words, dtype=torch.int32, device=device)
+    """`kernel_table` on `device` as int32 (every word below 2^29), made once a
+    device; each block of a launch stages it in shared memory."""
+    return torch.tensor(kernel_table(), dtype=torch.int32, device=device)
+
+
+def lane_form(n: int) -> bool:
+    """Whether a level of n hashes runs the lane form (`LANE_FORM_BELOW`)."""
+    return n < LANE_FORM_BELOW
 
 
 def _check_words(what: str, t: torch.Tensor, rows: int) -> None:
@@ -258,12 +370,13 @@ def _check_words(what: str, t: torch.Tensor, rows: int) -> None:
 
 
 def _launch(entry: str, src: torch.Tensor, n: int) -> torch.Tensor:
-    """(8, n) output words of the kernel entry point `entry` over `src`."""
+    """(8, n) output words of the kernel entry point `entry` over `src`, in
+    the form `lane_form(n)` picks."""
     words, np32, stream = field_cuda.cuda_args(BLS12_381_FR, src)
     out = torch.empty((8, n), dtype=torch.int32, device=src.device)
     rc = getattr(build.load(), entry)(
         src.data_ptr(), out.data_ptr(), n, src.shape[1], _device_table(src.device).data_ptr(),
-        words, np32, stream,
+        int(lane_form(n)), words, np32, stream,
     )
     build.check(rc, entry)
     return out

@@ -124,72 +124,41 @@ def test_branches_round_trip_through_the_host_walk(tree16):
         mt.verify_multi_branch(tree.root, idx, proofs)
 
 
-def _mont(a: int, b: int, p: int) -> int:
-    """The kernel's `mont_mul`: a b 2^-256 mod p."""
-    return a * b * pow(1 << 256, -1, p) % p
-
-
 def test_kernel_table_and_round_order_model_the_host_hash():
-    """`csrc/poseidon.cu` on python ints: the table's entries decoded from
-    its words, the inputs into Montgomery form by R^2, the rounds with the
-    S-box on state[0] alone in the partial ones, out by 1."""
-    p = BLS.p
-    tab = list(pos.kernel_table())
-    assert len(tab) == 8 * (3 * 63 + 9 + 2)
-    entry = [sum(tab[8 * e + k] << (32 * k) for k in range(8)) for e in range(len(tab) // 8)]
-    mds0, r2, tag = 3 * 63, 3 * 63 + 9, 3 * 63 + 10
+    """`csrc/poseidon.cu`'s thread form on python ints
+    (`test_torch_poseidon_plan.thread_digest`): the optimized permutation's
+    table decoded from `kernel_table`'s words, run in the kernel's order for
+    leaves and pairs, against the host hash, the JAX package's host hash and
+    its batched `poseidon_hash_pairs`; its products and squarings are
+    `chip_smoke`'s bound's."""
+    import importlib
+    import os
+    import sys
 
-    def kernel(left: int, right: int) -> int:
-        s = [entry[tag], _mont(left, entry[r2], p), _mont(right, entry[r2], p)]
-        for r in range(63):
-            s = [(s[i] + entry[3 * r + i]) % p for i in range(3)]
-            sbox = lambda x: _mont(_mont(_mont(x, x, p), _mont(x, x, p), p), x, p)  # noqa: E731
-            s = [sbox(s[0])] + s[1:] if 4 <= r < 59 else [sbox(x) for x in s]
-            s = [sum(_mont(s[i], entry[mds0 + 3 * i + j], p) for i in range(3)) % p
-                 for j in range(3)]
-        return _mont(s[1], 1, p)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    chip_smoke = importlib.import_module("chip_smoke")
+    from test_torch_poseidon_plan import Arith, thread_digest
 
-    for left, right in [(0, 0), (1, BLS.p - 1), (BN.p - 1, 0), (123456789, 987654321)]:
-        msg = BLS.to_bytes_le(left) + (BLS.to_bytes_le(right) if right else b"")
-        assert kernel(left, right) == int.from_bytes(pos.poseidon_digest(msg), "little")
-
-
-def _sparse_form(p: int):
-    """The permutation's optimized form (Grassi et al., "Poseidon", USENIX
-    Security 2021, Appendix B), as x <- A x with A[j][i] = M[i][j]: each
-    partial round's constants but state[0]'s moved into the next round's
-    (A applied to them), and, from the last partial round back, each round's
-    matrix factored as S D, S = [[a00, a^T Â^-1], [u, I]] sparse and D =
-    diag(1, Â), which commutes with the partial S-box and goes into the
-    round before; round 3's matrix takes the last D (`pre`)."""
-    t, half = pos.T, pos.FULL_ROUNDS // 2
-    last = half + pos.PARTIAL_ROUNDS - 1
-    rc = pos.round_constants(p=p)
-    c = [list(rc[t * r : t * r + t]) for r in range(pos.FULL_ROUNDS + pos.PARTIAL_ROUNDS)]
-    mds = pos.mds_matrix(p=p)
-    A = [[mds[i][j] for i in range(t)] for j in range(t)]
-
-    def apply(m, v):
-        return [sum(m[j][i] * v[i] for i in range(t)) % p for j in range(t)]
-
-    def matmul(x, y):
-        return [[sum(x[j][k] * y[k][i] for k in range(t)) % p for i in range(t)]
-                for j in range(t)]
-
-    for r in range(half, last + 1):
-        moved = apply(A, [0] + c[r][1:])
-        c[r + 1] = [(a + b) % p for a, b in zip(c[r + 1], moved)]
-        c[r][1:] = [0] * (t - 1)
-    sparse, cur = {}, A
-    for r in range(last, half - 1, -1):
-        (a, b), (d, e) = cur[1][1:], cur[2][1:]
-        det_inv = pow((a * e - b * d) % p, -1, p)
-        inv = [[e * det_inv % p, -b * det_inv % p], [-d * det_inv % p, a * det_inv % p]]
-        row0 = [sum(cur[0][1 + k] * inv[k][i] for k in range(2)) % p for i in range(2)]
-        sparse[r] = (cur[0][0], row0, [cur[1][0], cur[2][0]])
-        D = [[1, 0, 0], [0, a, b], [0, d, e]]
-        cur = matmul(D, A)
-    return c, A, cur, sparse
+    lefts = EDGES + _values(4, 31, BLS.p)
+    rights = EDGES[::-1] + _values(4, 32, BLS.p)
+    ln, rn = jmm.ints_to_limbs_np(lefts, JBLS), jmm.ints_to_limbs_np(rights, JBLS)
+    batched = jmm.limbs_to_ints_np(np.asarray(jpos.poseidon_hash_pairs(JBLS, ln, rn)), JBLS)
+    zeros = jmm.ints_to_limbs_np([0] * len(lefts), JBLS)
+    batched_leaves = jmm.limbs_to_ints_np(
+        np.asarray(jpos.poseidon_hash_pairs(JBLS, ln, zeros)), JBLS)
+    for i, (left, right) in enumerate(zip(lefts, rights)):
+        ar = Arith()
+        got = thread_digest(left, right, False, ar)
+        msg = BLS.to_bytes_le(left) + BLS.to_bytes_le(right)
+        assert got == int.from_bytes(pos.poseidon_digest(msg), "little") == batched[i]
+        assert pos.poseidon_digest(msg) == jpos.poseidon_digest(msg)
+        assert (ar.products, ar.squarings) == chip_smoke.POSEIDON_PAIR_PRODUCTS
+        ar = Arith()
+        got = thread_digest(left, 0, True, ar)
+        leaf = BLS.to_bytes_le(left)
+        assert got == int.from_bytes(pos.poseidon_digest(leaf), "little") == batched_leaves[i]
+        assert pos.poseidon_digest(leaf) == jpos.poseidon_digest(leaf)
+        assert (ar.products, ar.squarings) == chip_smoke.POSEIDON_LEAF_PRODUCTS
 
 
 def _counted_hash(left: int, right: int, leaf: bool, form) -> tuple[int, dict]:
@@ -241,7 +210,7 @@ def test_bound_counts_the_optimized_permutation():
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     chip_smoke = importlib.import_module("chip_smoke")
-    form = _sparse_form(BLS.p)
+    form = pos.sparse_form()
     for leaf, want in ((False, chip_smoke.POSEIDON_PAIR_PRODUCTS),
                        (True, chip_smoke.POSEIDON_LEAF_PRODUCTS)):
         for left, right in [(0, 0), (1, BLS.p - 1), (BN.p - 1, 5), (123456789, 987654321)]:
