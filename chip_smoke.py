@@ -63,7 +63,16 @@ non-zero and no phase's error is swallowed:
    (`compare_poseidon`), each level of a 2^20 tree timed alone (`levels`,
    the narrow ones beside a latency model, `model_ms`) and `ptxas -v`'s
    registers, stack and spills of its four builds.
-   Then, in a record of its own (`prefix_prod`), `prefix_prod` forward and
+   After each kernel's own cases, those of the big-domain phase's shapes
+   (precision 2^23, steps 2^20; `big_domain_cases`, labels "big domain
+   ..."): every `butterfly_pass` of the LDE's two transforms (the 2^23
+   transform's 4 passes, which read the widest tables, and the inverse's
+   3), `butterfly_fused` on both, `scan_prod` at each level of
+   `multi_inv`'s 2^23 scans, and the m-tree's:
+   `from_mont_pack_words` of a column into 8 rows of the (64, 2^23) leaf
+   words, `blake2s_words` over them and over the first node layer above
+   them; each `torch.equal` to its plain version, with its device time
+   and bound. Then, in a record of its own (`prefix_prod`), `prefix_prod` forward and
    reversed and `multi_inv` at 2^17, 2^20 and at lengths 80, 96 and 160:
    each equal (`torch.equal`) to the same function on CPU tensors, with its
    device time and launches;
@@ -115,15 +124,23 @@ non-zero and no phase's error is swallowed:
    with the same bytes. Then the 9-column `lde_many` stage of both engines
    on the same random traces, in turns: equal outputs, synced wall and
    device time of each;
-8. only with `--profile`: for each fold route, for the CRT engine and
+8. only with `--profile` (run inside phases 5 and 7): for each fold route, for the CRT engine and
    under digest="poseidon" (on the default route), `torch.profiler` over
    one more warm prove (device busy share, launches,
-   copies, device time by kernel) and the wall of each stage with a device
-   synchronise after it.
+   copies, device time by kernel) and the wall and peak memory of each
+   stage with a device synchronise after it;
+9. big_domain, after phase 7: `squaring_chain(349525)` (steps 2^20,
+   precision 2^23, `core.MAX_PRECISION`: the largest circuit the protocol
+   proves) on the defaults, proved cold and warm: both proofs
+   byte-identical (`proof_sha256`), the verifier accepting; every kernel of
+   the default route must launch in the cold prove; each prove's wall,
+   launches and peak memory, and the host's seconds (synthesis,
+   arithmetization).
 
 The line before the card's lists the kernels of the three paths as JSON
 (`kernels`; each with the numbers of its first case, the largest shape the
-proving run gives it, named under `case`; `path` names the phase whose run
+proving run gives it, named under `case`; `launches_big_domain` its
+launches in phase 9's cold prove; `path` names the phase whose run
 counted its `launches`: `real_size`, `real_size_poseidon` for the
 Poseidon pair, `serve` for the two fold kernels,
 which the default route does not run, `crt` for the three kernels of
@@ -209,6 +226,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 REAL_CONSTRAINTS = 43690
+# the big-domain phase's circuit: the largest squaring chain at precision 2^23
+# (steps 2^20), the protocol's largest precision
+BIG_CONSTRAINTS = 349525
+BIG_PRECISION = 1 << 23
 SEED = 20261016
 
 _PK = "stark_tpu/protocol/pallas_kernels.py"
@@ -1060,6 +1081,138 @@ def compare_fused(spec, big, small, x_big, x_small) -> dict:
     return result
 
 
+def big_domain_cases(spec, device, sm_hz: float) -> dict:
+    """Cases at the big-domain phase's shapes (precision 2^23, steps 2^20),
+    which no earlier phase gives the kernels: every `butterfly_pass` of the
+    LDE's two transforms (the 2^23 transform's 4 passes of 3 stages, the
+    inverse's 3 at 2^20), `butterfly_fused` on both, `scan_prod` at each
+    level of `multi_inv`'s 2^23 scans, and the m-tree's:
+    `from_mont_pack_words` from a column into 8 rows of the (64, 2^23) leaf
+    words, `blake2s_words` over those words, and over the first layer of
+    nodes above them. Each equal to its plain version (`torch.equal`); the
+    plain version timed by its one call."""
+    from stark_tpu_torch.ops import blake2s as b2
+    from stark_tpu_torch.ops import field_cuda as fc
+    from stark_tpu_torch.ops import modmath as mm
+    from stark_tpu_torch.ops import ntt
+    from stark_tpu_torch.protocol import fused_kernels as fk
+
+    N, steps, MM = BIG_PRECISION, BIG_PRECISION // 8, MONT_MUL_OPS
+    rng = np.random.default_rng(SEED + 23)
+    g2 = spec.root_of_unity(N)
+    big = ntt.NttPlan(spec, g2, N, "dit", device)
+    small = ntt.NttPlan(spec, spec.inv(pow(g2, N // steps, spec.p)), steps, "dif", device)
+    x_big = with_edges(spec, random_planes(rng, spec, N, device))
+    x_small = with_edges(spec, random_planes(rng, spec, steps, device))
+    transforms = (("dit", x_big, big), ("dif", x_small, small))
+    out = {"butterfly_pass": compare(
+        "butterfly_pass",
+        lambda x, tw, l0, r, kind: ntt.butterfly_pass(spec, x, tw, l0, r, kind),
+        lambda x, tw, l0, r, kind: ntt.butterfly_pass_plain(spec, x, tw, l0, r, kind),
+        {f"big domain {kind} n={x.shape[1]} l0={l0} r={r}": (
+            (x, tw, l0, r, kind), 2 * 64 * x.shape[1] + 4 * tw.numel(),
+            r * x.shape[1] // 2 * MM)
+         for kind, x, plan in transforms for l0, r, tw in plan.passes},
+        reps=(5, 0))}
+    out["butterfly_fused"] = compare(
+        "butterfly_fused",
+        lambda x, tw, block, kind: ntt.butterfly_fused(spec, x, tw, block, kind),
+        lambda x, tw, block, kind: ntt.butterfly_fused_plain(spec, x, tw, block, kind),
+        {f"big domain {kind} n={x.shape[1]} block={plan.block}": (
+            (x, plan.fused_tw, plan.block, kind),
+            2 * 64 * x.shape[1] + 4 * plan.fused_tw.numel(),
+            (plan.block.bit_length() - 1) * x.shape[1] // 2 * MM)
+         for kind, x, plan in transforms},
+        reps=(5, 0))
+    del big, small, x_small
+    levels = {f"big domain n={N} level (16,{B},{C})": (B, C) for B, C in mm.scan_levels(N)}
+    out["scan_prod"] = compare(
+        "scan_prod",
+        lambda x: fc.scan_prod(spec, x),
+        lambda x: fc.scan_prod_plain(spec, x),
+        {label: ((with_edges(spec, random_planes(rng, spec, B * C, device)).reshape(16, B, C),),
+                 2 * 64 * B * C, B * C * MM, mm.scan_chain(B, C))
+         for label, (B, C) in levels.items()},
+        reps=(5, 0))
+    for label, (B, C) in levels.items():
+        out["scan_prod"]["cases"][label]["team"] = fc.scan_team(B, C)
+    words = torch.zeros((64, N), dtype=torch.int32, device=device)
+    out["from_mont_pack_words"] = compare(
+        "from_mont_pack_words",
+        lambda c: fk.from_mont_pack_words(spec, c, out=words[8:16]),
+        lambda c: fk.from_mont_pack_words_plain(spec, c),
+        {f"big domain n={N} into rows 8-15 of (64,{N})": (
+            (x_big,), 64 * N + 32 * N, N * MM)},
+        reps=(5, 0))
+    del words, transforms, x_big
+    leaves = random_words(rng, 64, N, device)
+    out["blake2s_words"] = compare(
+        "blake2s_words",
+        b2.blake2s_words,
+        b2.blake2s_words_plain,
+        {f"big domain (64,{N}) 256-byte leaves": (
+            (leaves, 256), 4 * (64 + 8) * N, 4 * N * BLAKE2S_OPS),
+         f"big domain (16,{N // 2}) 64-byte nodes": (
+             (random_words(rng, 16, N // 2, device), 64), 4 * (16 + 8) * (N // 2),
+             N // 2 * BLAKE2S_OPS)},
+        reps=(5, 0))
+    for result in out.values():
+        add_bounds(result, sm_hz)
+    return out
+
+
+def phase_big_domain(device) -> dict:
+    """`squaring_chain(BIG_CONSTRAINTS)` at precision 2^23, the protocol's
+    largest, proved cold (the stage set's build included) and warm, with
+    every launch counter set to 0 before and read after each prove, its wall
+    and `torch.cuda.max_memory_allocated` over each prove
+    (`allocated_before`: what earlier phases still hold). The two proofs
+    must be byte-identical, every kernel of the default route must launch in
+    the cold prove, and the verifier must accept. Host seconds: the
+    circuit's synthesis and its arithmetization."""
+    from stark_tpu_torch.fields.field import BN254_FR as spec
+    from stark_tpu_torch.protocol import runner
+    from stark_tpu_torch.protocol import proof as proof_mod
+    from stark_tpu_torch.r1cs.synth import squaring_chain
+
+    wrap = wrappers()
+    t0 = time.time()
+    r1cs, witness = squaring_chain(BIG_CONSTRAINTS)
+    synthesis_s = time.time() - t0
+    t0 = time.time()
+    runner._static_arith(spec, r1cs)
+    arith_s = time.time() - t0
+    other = OFF_PATH + LAGRANGE_ONLY + CRT_ONLY + BITS_ONLY + POSEIDON_ONLY
+    wanted = [name for name in wrap if name not in other]
+    runs, proofs = {}, []
+    for run in ("cold", "warm"):
+        for fn in wrap.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.time()
+        proofs.append(runner.prove_with_witness(r1cs, witness, device=device))
+        torch.cuda.synchronize()
+        runs[run] = {"wall_s": time.time() - t0,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "allocated_before": before,
+                     "launches": {name: fn.launches for name, fn in wrap.items()}}
+    if proofs[1] != proofs[0]:
+        raise AssertionError("the warm 2^23 proof differs from the cold one")
+    missing = [name for name in wanted if runs["cold"]["launches"][name] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the 2^23 prove: {missing}")
+    t0 = time.time()
+    if not runner.verify_with_witness(r1cs, witness[:2], proofs[0], device=device,
+                                      verify_cache=False):
+        raise AssertionError("the verifier rejected the 2^23 proof")
+    return {"constraints": BIG_CONSTRAINTS, "precision": BIG_PRECISION,
+            "synthesis_s": synthesis_s, "arithmetization_s": arith_s,
+            "verify_s": time.time() - t0, **runs,
+            "proof_sha256": hashlib.sha256(proof_mod.to_json(proofs[0]).encode()).hexdigest()}
+
+
 def phase_crt_kernels(spec, device, steps: int, precision: int) -> dict:
     """The three kernels of the CRT LDE engine against their plain versions,
     on the engine's tables for (steps, precision): `residues_in` and
@@ -1509,8 +1662,9 @@ def profile_warm_prove(r1cs, witness, device, want_proof, fri_fold,
 def stage_walls(r1cs, witness, device, want_proof, fri_fold, lde_engine="butterfly",
                 digest="blake2s", runs: int = 2) -> list[dict]:
     """Wall seconds of each prover stage over `runs` warm proves, every stage
-    ending in a device synchronise; "rest" is host preparation plus the
-    materializing transfer and formatting."""
+    ending in a device synchronise, and the peak memory within each
+    (`peak_bytes`); "rest" is host preparation plus the materializing
+    transfer and formatting."""
     from stark_tpu_torch import device as devmod
     from stark_tpu_torch.fields.field import BN254_FR as spec
     from stark_tpu_torch.fri import fri
@@ -1523,14 +1677,17 @@ def stage_walls(r1cs, witness, device, want_proof, fri_fold, lde_engine="butterf
                                   arith.original_steps, digest, devmod.resolve(device),
                                   lde_engine)
     walls: dict[str, float] = {}
+    peaks: dict[str, int] = {}
 
     def synced(name, fn):
         def run(*args, **kwargs):
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.time()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             walls[name] = walls.get(name, 0.0) + time.time() - t0
+            peaks[name] = max(peaks.get(name, 0), torch.cuda.max_memory_allocated())
             return out
         return run
 
@@ -1544,6 +1701,7 @@ def stage_walls(r1cs, witness, device, want_proof, fri_fold, lde_engine="butterf
         fri.prove_low_degree_pending = synced("fri", saved_fri)
         for _ in range(runs):
             walls.clear()
+            peaks.clear()
             torch.cuda.synchronize()
             t0 = time.time()
             proof = runner.prove_with_witness(r1cs, witness, digest=digest, device=device,
@@ -1551,7 +1709,8 @@ def stage_walls(r1cs, witness, device, want_proof, fri_fold, lde_engine="butterf
             total = time.time() - t0
             if proof != want_proof:
                 raise AssertionError("a stage-timed proof differs from the cold proof")
-            out.append({**walls, "rest": total - sum(walls.values()), "total": total})
+            out.append({**walls, "rest": total - sum(walls.values()), "total": total,
+                        "peak_bytes": dict(peaks)})
     finally:
         stages.update(saved)
         fri.prove_low_degree_pending = saved_fri
@@ -1800,6 +1959,11 @@ def main(argv=None) -> int:
     for result in crt_stats.values():
         add_bounds(result, sm_mhz * 1e6)
     kstats.update(crt_stats)
+    # after each kernel's own cases: the first case stays the one its
+    # `kernels` line entry reports
+    for name, result in big_domain_cases(spec, device, sm_mhz * 1e6).items():
+        kstats[name]["cases"].update(result["cases"])
+        kstats[name]["max_abs_err"] = max(kstats[name]["max_abs_err"], result["max_abs_err"])
     emit({"phase": "kernels", "steps": params.steps, "precision": params.precision,
           "tolerance": "exact (torch.equal)", "results": kstats,
           "crt_tables_build_s": crt_tables_s, "seconds": time.time() - t0})
@@ -1844,6 +2008,10 @@ def main(argv=None) -> int:
     emit({"phase": "crt", "steps": params.steps, "precision": params.precision,
           **crt_run, "seconds": time.time() - t0})
 
+    t0 = time.time()
+    big = phase_big_domain(device)
+    emit({"phase": "big_domain", **big, "seconds": time.time() - t0})
+
     def line_entry(name):
         src, rep = KERNELS[name]
         label, case = next(iter(kstats[name]["cases"].items()))
@@ -1854,6 +2022,7 @@ def main(argv=None) -> int:
                      else ("real_size", real))
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "path": path, "launches": run["launches"][name],
+                "launches_big_domain": big["cold"]["launches"][name],
                 "max_abs_err": kstats[name]["max_abs_err"], "case": label,
                 "ms": case["ms"], "plain_ms": case["plain_ms"],
                 "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],

@@ -92,6 +92,16 @@ class DeviceMerkleTree:
         self.layers = list(layers)  # (8, n_i) int32 digest words
         self._W = int(leaf_words.shape[0])
 
+    def release_device(self) -> None:
+        """Drop the device tensors once every gather against the tree is
+        enqueued (`stark_tpu/merkle/tree.py:160-183`): the gathers' outputs
+        hold what they read, and the allocator frees the rest in the
+        stream's order (at precision 2^23 the m-tree's leaf words alone are
+        2 GiB). `proofs_from_flat` needs only `leaf_bytes` and W, so it
+        keeps working."""
+        self.leaf_words = None
+        self.layers = None
+
     @property
     def root(self) -> bytes:
         return self.layers[-1][:, 0].cpu().numpy().astype("<i4").tobytes()

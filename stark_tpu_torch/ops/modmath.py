@@ -299,34 +299,44 @@ def prefix_prod(spec: FieldSpec, v: torch.Tensor, reverse: bool = False) -> torc
     them (`scan_levels`). Any N >= 1: the JAX package takes N only where its
     block divides it, and asserts on others such as 100 and 1000, where the
     port returns the products. Prefix products are canonical field values,
-    so the chunking does not change a bit of the result."""
+    so the chunking does not change a bit of the result. Each
+    intermediate is dropped after its last read: at a large N the copies
+    around the scan, not the scan, set the memory it takes."""
     if reverse:
         return prefix_prod(spec, v.flip(1)).flip(1)
     L, n = v.shape
+    device = v.device
     B, C = scan_levels(n)[0]
     vb = v.reshape(L, C, B).transpose(1, 2).contiguous()  # chunks on the columns
+    del v
     pref = field_cuda.scan_prod(spec, vb)  # (L, B, C), inclusive per chunk
+    del vb
     if C == 1:
         return pref.reshape(L, n)
     ctot_inc = prefix_prod(spec, pref[:, B - 1, :])  # (L, C)
-    ctot_exc = torch.cat([mont_one(spec, v.device), ctot_inc[:, :-1]], dim=1)
-    return mmul(spec, pref.transpose(1, 2), ctot_exc[:, :, None]).reshape(L, n)
+    ctot_exc = torch.cat([mont_one(spec, device), ctot_inc[:, :-1]], dim=1)
+    pref_t = pref.transpose(1, 2).contiguous()
+    del pref
+    return mmul(spec, pref_t, ctot_exc[:, :, None]).reshape(L, n)
 
 
 def multi_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Batched inversion along axis 1 of (L, N); zeros map to 0. One Fermat
-    inversion of the running total, prefix and suffix products for the rest."""
-    L, n = a.shape
+    inversion of the running total, prefix and suffix products for the
+    rest. The products are canonical, so their order is free: the prefix
+    side is finished and its running products dropped before the suffix
+    scan starts, so that fewer (L, N) intermediates are live at once."""
     one = mont_one(spec, a.device)
     z = (a == 0).all(dim=0)[None]
     v = torch.where(z, one, a)
     pre_inc = prefix_prod(spec, v)
-    suf_inc = prefix_prod(spec, v, reverse=True)
     total_inv = minv(spec, pre_inc[:, -1:])
-    pre_exc = torch.cat([one, pre_inc[:, :-1]], dim=1)
-    suf_exc = torch.cat([suf_inc[:, 1:], one], dim=1)
-    out = mmul(spec, mmul(spec, total_inv, pre_exc), suf_exc)
-    return torch.where(z, torch.zeros_like(a), out)
+    left = mmul(spec, total_inv, torch.cat([one, pre_inc[:, :-1]], dim=1))
+    del pre_inc
+    suf_inc = prefix_prod(spec, v, reverse=True)
+    del v
+    out = mmul(spec, left, torch.cat([suf_inc[:, 1:], one], dim=1))
+    return out.masked_fill_(z, 0)
 
 
 # ---------------------------------------------------------------------------

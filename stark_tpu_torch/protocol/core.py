@@ -1,15 +1,18 @@
 """Prover stages for one (spec, steps, precision, original_steps, device).
 
 Counterpart of `stark_tpu/protocol/core.py:276 build_proof_stages` for one
-device and precision <= 2^22 (the full (L, N) domain tables), on its
-device-arithmetization path. `digest` ("blake2s" or "poseidon") is the tree
+device and precision up to 2^23 (`MAX_PRECISION`), on its
+device-arithmetization path, with the (L, N) Zb3^-1 table held by the stage
+set and the m-tree committed from its (64, N) leaf words. `digest`
+("blake2s" or "poseidon") is the tree
 digest of the l-tree (and so of FRI's first value tree); the m-tree and the
 a-tree are blake2s under either, as in the JAX package (`core.py:288-300`):
 the m-tree's 256-byte leaves exceed Poseidon's 64-byte input, and the
 a-tree's 40-byte leaves straddle its 32-byte chunks. Stages are plain Python
 functions over tensors, collected in a dict; there is no jit. Buffer
-donation (`core.py:513-518`) is dropped: at precision 2^20 the live
-columns take a few GB of an 80 GB card.
+donation (`core.py:513-518`) has no counterpart: a stage drops each column
+it owns after its last read instead. Z^-1 and x^steps travel as (L, skips)
+Shoup pattern pairs.
 """
 
 from __future__ import annotations
@@ -25,9 +28,12 @@ from stark_tpu_torch.protocol import device_transcript as dt
 from stark_tpu_torch.protocol import fused_kernels
 from stark_tpu_torch.protocol import kernels
 
-# Above this the JAX package switches to periodic (L, skips) domain bases
-# and streamed m-tree commits (`core.py:342-361, 589-633`), not ported yet.
-MAX_PRECISION = 1 << 22
+# The largest precision with a proof: r and the spot checks are drawn modulo
+# the precision by the protocol's index sampler (the reference's
+# `get_pseudorandom_indices`, `device_transcript.pseudorandom_indices`),
+# which takes moduli below 2^24. The JAX package has no such check and
+# fails in the sampler, after the stage set's build and the first stages.
+MAX_PRECISION = 1 << 23
 
 TRACE_NAMES = ("k", "f0", "f1", "f2", "s", "p", "idx", "perm")
 COL_NAMES = ("p", "a", "s", "d1", "d2", "d3", "b2", "b3")
@@ -59,9 +65,10 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
     nttm.check_lde_engine(lde_engine)
     mt.check_digest(digest)
     if precision > MAX_PRECISION:
-        raise NotImplementedError(
-            f"precision {precision} > 2^22 needs the big-domain path "
-            "(ROADMAP.md Queue 1, big-domain path)"
+        raise ValueError(
+            f"precision {precision} > 2^23: the protocol's index sampler "
+            "(get_pseudorandom_indices) draws r and the spot checks modulo the "
+            "precision and takes moduli below 2^24"
         )
     dev = torch.device(device)
     p = spec.p
@@ -165,22 +172,28 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
 
     def rest_a(evs, a_ev, r_mont, i2_mont, inv_zb2_table):
         """Quotients and boundaries (`core.py:521-567`) -> the 8 m-tree
-        columns and the divisibility flags."""
-        q1 = kernels.q1_eval(spec, evs["s"], evs["k"], evs["p"], evs["f0"], evs["f1"], skips)
-        q2 = kernels.q2_eval(spec, evs["p"], evs["f2"], kshift)
+        columns and the divisibility flags. `evs` is consumed: each of the
+        six single-use LDE outputs leaves the dict with its last read, and
+        each quotient is dropped once its d is made, so the memory they
+        held is free for what follows."""
+        def quotient(q):
+            bad.append((q[:, ::skips] != 0).any())
+            return kernels.mmul_periodic_const(spec, q, None, iz_pats)
+
+        bad = []
+        d1 = quotient(kernels.q1_eval(spec, evs["s"], evs.pop("k"), evs["p"],
+                                      evs.pop("f0"), evs.pop("f1"), skips))
+        d2 = quotient(kernels.q2_eval(spec, evs["p"], evs.pop("f2"), kshift))
         vn_big, vd_big = kernels.rand_combination(
-            spec, r_mont, evs["idx"], evs["perm"], evs["s"]
+            spec, r_mont, evs.pop("idx"), evs.pop("perm"), evs["s"]
         )
-        q3 = kernels.q3_eval(spec, a_ev, vn_big, vd_big, skips)
-        q_bad = torch.stack(
-            [(q[:, ::skips] != 0).any() for q in (q1, q2, q3)]
-        ).to(torch.int32)
-        d1, d2, d3 = (kernels.mmul_periodic_const(spec, q, None, iz_pats)
-                      for q in (q1, q2, q3))
+        d3 = quotient(kernels.q3_eval(spec, a_ev, vn_big, vd_big, skips))
+        del vn_big, vd_big
+        q_bad = torch.stack(bad).to(torch.int32)
         i2_ev = kernels.horner_eval(spec, i2_mont, xs_full)
-        one_big = mm.mont_one(spec, dev)
         b2_ev = kernels.sub_mul_ev(spec, evs["s"], i2_ev, inv_zb2_table)
-        b3_ev = kernels.sub_mul_ev(spec, a_ev, one_big, inv_zb3)
+        del i2_ev
+        b3_ev = kernels.sub_mul_ev(spec, a_ev, mm.mont_one(spec, dev), inv_zb3)
         cols = {
             "p": evs["p"], "a": a_ev, "s": evs["s"],
             "d1": d1, "d2": d2, "d3": d3, "b2": b2_ev, "b3": b3_ev,
@@ -190,8 +203,10 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
     def columns(traces, r_mont, i2_mont, inv_zb2_table):
         a_mini = acc(traces["idx"], traces["perm"], traces["s"], r_mont)
         outs = lde_many([traces[n] for n in TRACE_NAMES] + [a_mini])
-        evs = dict(zip(TRACE_NAMES, outs[:8]))
-        return rest_a(evs, outs[8], r_mont, i2_mont, inv_zb2_table)
+        a_ev = outs.pop()
+        evs = dict(zip(TRACE_NAMES, outs))
+        del outs  # the dict holds the only references `rest_a` releases
+        return rest_a(evs, a_ev, r_mont, i2_mont, inv_zb2_table)
 
     def commit_chain(cols):
         """m-commit -> k coefficients -> linear combination -> l-commit

@@ -205,12 +205,18 @@ def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
 
     # --- branches at the device-derived spot checks ---
     l_flat, m_flat = stages["pos_gather"](l_root_w, l_words, l_layers, m_words, m_layers)
+    del m_words, m_layers, l_words, l_layers
 
     # --- FRI; the l-tree is round 0's value tree ---
     pending = fri.prove_low_degree_pending(
         spec, l_ev, xs_full, precision // 4, skips, first_tree=l_tree,
         fri_fold=fri_fold, digest=digest,
     )
+    del l_ev
+    # every gather against the two trees is enqueued: their device tensors
+    # go back to the allocator as soon as the stream has run those gathers
+    m_tree.release_device()
+    l_tree.release_device()
     return {
         "pending": pending,
         "device_arrays": [a_root_words, m_root_w, l_root_w, q_bad, l_flat, m_flat]
