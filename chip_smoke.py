@@ -135,12 +135,30 @@ non-zero and no phase's error is swallowed:
    byte-identical (`proof_sha256`), the verifier accepting; every kernel of
    the default route must launch in the cold prove; each prove's wall,
    launches and peak memory, and the host's seconds (synthesis,
-   arithmetization).
+   arithmetization);
+10. mesh: `squaring_chain(43690)` proved on a mesh of d = 2 and then d = 4
+   ranks (`stark_tpu_torch/parallel/`, `runner.prove_with_witness(mesh=)`),
+   each rank an OS process on the one card (`distributed.run_ranks`) over
+   gloo, every collective staged through pinned host buffers: NCCL needs a
+   card a rank (the record says so beside `torch.cuda.device_count()`;
+   where the host has two cards NCCL runs at d = 2 too, else the record
+   says "not run"). Each rank proves cold and warm on the defaults, and at
+   d = 2 once on the Lagrange fold and once under digest="poseidon"
+   (`mesh_rank`). Every rank's proofs must equal phase 5's byte for byte
+   (`real_size_poseidon`'s under Poseidon), every kernel of the mesh path
+   (`mesh_kernels()`: the default route's but the fused quotients, which
+   the mesh computes as the JAX package's mesh form does, rolls and `mmul`
+   products) must launch in every rank's cold prove, and rank 0's proof
+   must pass the single-device verifier. Each rank's walls, peak memory
+   (`max_memory_allocated` in its own process) and its collectives' calls,
+   bytes (of the tensors they return) and synced seconds are recorded;
+   they measure host-staged gloo on one card, not a multi-card scaling.
 
 The line before the card's lists the kernels of the three paths as JSON
 (`kernels`; each with the numbers of its first case, the largest shape the
 proving run gives it, named under `case`; `launches_big_domain` its
-launches in phase 9's cold prove; `path` names the phase whose run
+launches in phase 9's cold prove; `launches_mesh` its launches in each
+rank's cold prove of phase 10, by d; `path` names the phase whose run
 counted its `launches`: `real_size`, `real_size_poseidon` for the
 Poseidon pair, `serve` for the two fold kernels,
 which the default route does not run, `crt` for the three kernels of
@@ -325,6 +343,12 @@ POSEIDON_ONLY = ("poseidon_leaves", "poseidon_pairs")
 # run only for circuits with more public wires than the real-size circuit's
 # two (spans of points): counted in the `bits` golden's first prove
 BITS_ONLY = ("vanishing_coeffs",)
+# the fused quotient kernels: the mesh computes the quotients in the JAX
+# package's mesh form (rolls, then `mmul` products), so its path skips them
+MESH_OFF = ("q1_eval", "q2_eval", "q3_eval")
+# the mesh phase's sizes; NCCL runs d = 2 where the host has two cards
+MESH_SIZES = (2, 4)
+MESH_TIMEOUT_S = 300
 # the wrappers of `protocol/kernels.py` whose device time the goldens phase
 # reads within the `bits` golden's first prove (its 1,062 public wires)
 BITS_TIMED = ("horner_eval", "vanishing_eval")
@@ -1908,6 +1932,105 @@ def worker_on_crt(device, r1cs, witness, want_proof) -> dict:
     return {"seconds": seconds, "prove_s": by_id[2]["result"]["seconds"], "launches": launches}
 
 
+def mesh_kernels() -> list[str]:
+    """The kernels the mesh's default route must launch in every rank."""
+    off = OFF_PATH + LAGRANGE_ONLY + CRT_ONLY + BITS_ONLY + POSEIDON_ONLY + MESH_OFF
+    return [name for name in KERNELS if name not in off]
+
+
+def mesh_rank(mesh, constraints: int, routes) -> dict:
+    """One rank of a mesh prove (a `distributed.run_ranks` child): a fresh
+    `squaring_chain(constraints)` proved cold and warm on the defaults, then
+    once on each (fri_fold, digest) of `routes`. Every launch counter is set
+    to 0 just before the cold prove and the warm one and read just after
+    each. Each prove records its wall (it ends with the proof on the host),
+    the rank's `max_memory_allocated` over it, the collectives' calls, bytes
+    and synced seconds (`mesh.stats`) and the proof's sha256; rank 0 also
+    returns the cold proof's JSON."""
+    from stark_tpu_torch.protocol import proof as proof_mod
+    from stark_tpu_torch.protocol import runner
+    from stark_tpu_torch.r1cs.synth import squaring_chain
+
+    t0 = time.time()
+    r1cs, witness = squaring_chain(constraints)
+    out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+           "staged": mesh.staged, "synthesis_s": time.time() - t0}
+    wrap = wrappers()
+
+    def prove(fri_fold="dft", digest="blake2s"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.reset_stats()
+        t0 = time.time()
+        proof = runner.prove_with_witness(r1cs, witness, mesh=mesh, digest=digest,
+                                          device=mesh.device, fri_fold=fri_fold)
+        wall = time.time() - t0
+        text = proof_mod.to_json(proof)
+        return {"wall_s": wall, "peak_bytes": torch.cuda.max_memory_allocated(),
+                "collectives": mesh.stats,
+                "proof_sha256": hashlib.sha256(text.encode()).hexdigest()}, text
+
+    def counted(**kw):
+        for fn in wrap.values():
+            fn.launches = 0
+        rec, text = prove(**kw)
+        rec["launches"] = {name: fn.launches for name, fn in wrap.items()}
+        return rec, text
+
+    out["cold"], text = counted()
+    out["warm"], _ = counted()
+    for fri_fold, digest in routes:
+        out[f"{fri_fold}, {digest}"], _ = prove(fri_fold, digest)
+    if mesh.rank == 0:
+        out["proof"] = text
+    return out
+
+
+def phase_mesh(want_sha: str, want_poseidon_sha: str, r1cs, witness) -> dict:
+    """d = 2 and 4 ranks, each an OS process on the one card, over gloo
+    staged through pinned host memory (NCCL needs a card a rank); NCCL at
+    d = 2 where the host has two cards. Every rank's proofs must equal phase
+    5's (`real_size_poseidon`'s under Poseidon), every kernel of
+    `mesh_kernels()` must launch in every rank's cold prove, and rank 0's
+    proof must pass the single-device verifier."""
+    from stark_tpu_torch.parallel import distributed
+    from stark_tpu_torch.protocol import proof as proof_mod
+    from stark_tpu_torch.protocol import runner
+
+    cards = torch.cuda.device_count()
+    out = {"cards": cards,
+           "why_gloo": "NCCL needs a card a rank; ranks that share one card take gloo, "
+                       "each collective staged through pinned host buffers",
+           "walls_measure": "host-staged gloo among ranks on one card, not multi-card scaling"}
+    runs = [(f"gloo d={d}", d, "gloo", (("lagrange", "blake2s"), ("dft", "poseidon"))
+             if d == 2 else ()) for d in MESH_SIZES]
+    if cards >= 2:
+        runs.append(("nccl d=2", 2, "nccl", ()))
+    else:
+        out["nccl"] = f"not run: {cards} card"
+    for label, d, backend, routes in runs:
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        ranks = distributed.run_ranks(mesh_rank, d, device="cuda", backend=backend,
+                                      timeout=MESH_TIMEOUT_S, args=(REAL_CONSTRAINTS, routes))
+        for rank in ranks:
+            for key, rec in rank.items():
+                if isinstance(rec, dict) and "proof_sha256" in rec:
+                    want = want_poseidon_sha if "poseidon" in key else want_sha
+                    if rec["proof_sha256"] != want:
+                        raise AssertionError(f"{label} rank {rank['rank']} {key}: the proof "
+                                             "differs from the single-device one")
+            missing = [n for n in mesh_kernels() if rank["cold"]["launches"][n] <= 0]
+            if missing:
+                raise AssertionError(f"{label} rank {rank['rank']}: not launched: {missing}")
+        proof = proof_mod.from_json(ranks[0].pop("proof"))
+        if not runner.verify_with_witness(r1cs, witness[:2], proof, device="cuda",
+                                          verify_cache=False):
+            raise AssertionError(f"{label}: the verifier rejected rank 0's proof")
+        out[label] = {"seconds": time.time() - t0, "ranks": ranks}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every phase record to DIR/chip_smoke.json")
@@ -2012,6 +2135,11 @@ def main(argv=None) -> int:
     big = phase_big_domain(device)
     emit({"phase": "big_domain", **big, "seconds": time.time() - t0})
 
+    t0 = time.time()
+    mesh = phase_mesh(real["proof_sha256"], pos_real["proof_sha256"], r1cs, witness)
+    emit({"phase": "mesh", "steps": params.steps, "precision": params.precision, **mesh,
+          "seconds": time.time() - t0})
+
     def line_entry(name):
         src, rep = KERNELS[name]
         label, case = next(iter(kstats[name]["cases"].items()))
@@ -2023,6 +2151,9 @@ def main(argv=None) -> int:
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "path": path, "launches": run["launches"][name],
                 "launches_big_domain": big["cold"]["launches"][name],
+                "launches_mesh": {str(d): [rank["cold"]["launches"][name]
+                                           for rank in mesh[f"gloo d={d}"]["ranks"]]
+                                  for d in MESH_SIZES},
                 "max_abs_err": kstats[name]["max_abs_err"], "case": label,
                 "ms": case["ms"], "plain_ms": case["plain_ms"],
                 "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],

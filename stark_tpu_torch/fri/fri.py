@@ -113,32 +113,33 @@ def prove_low_degree_pending(spec: FieldSpec, values, xs_full, max_deg_plus_1: i
     """The whole FRI recursion, enqueued without a host sync. `first_tree`
     is the caller's tree over `values` with 32-byte leaves (the prover's
     l-tree, under the same `digest`; the reference recommits identical
-    content); `fri_fold` names the fold's route in every round, `digest`
-    the column trees' digest. Returns the
+    content): round 0 reads its `root_words` and its `gather`, so a
+    mesh's sharded l-tree serves as well as a whole one. `fri_fold` names
+    the fold's route in every round, `digest` the column trees' digest.
+    Returns the
     pending record whose `device_arrays` the caller materializes with the
     rest of the proof: per round (root2, col_flat, val_flat), then the
     direct-check `last` words."""
     check_fold_route(fri_fold)
     rounds = n_rounds(max_deg_plus_1)
-    values, xs = values, xs_full
-    words, layers = first_tree.leaf_words, first_tree.layers
+    values, xs, tree = values, xs_full, first_tree
     outs = []
     for _ in range(rounds):
         quarter = values.shape[1] // 4
-        sx = dt.digest_le_int_mont(spec, layers[-1][:, 0])
+        sx = dt.digest_le_int_mont(spec, tree.root_words)
         column = fold(spec, values, xs, sx, fri_fold)
         c_words = leaves_to_words(spec, [column])
-        c_layers = mt.build_layers_digest(c_words, 32, digest)
-        root2_w = c_layers[-1][:, 0]
+        c_tree = mt.DeviceMerkleTree(c_words, 32, mt.build_layers_digest(c_words, 32, digest))
+        root2_w = c_tree.root_words
         ys = dt.pseudorandom_indices(root2_w, quarter, QUERIES_PER_ROUND,
                                      exclude_multiples_of)
         poly_positions = (
             ys[:, None] + quarter * torch.arange(4, device=ys.device)[None, :]
         ).reshape(-1)
-        val_flat = mt.gather_flat(words, layers[:-1], poly_positions)
-        col_flat = mt.gather_flat(c_words, c_layers[:-1], ys)
+        val_flat = tree.gather(poly_positions)
+        col_flat = c_tree.gather(ys)
         outs.extend([root2_w, col_flat, val_flat])
-        values, words, layers = column, c_words, c_layers
+        values, tree = column, c_tree
         xs = xs[:, ::4].contiguous()
     outs.append(leaves_to_words(spec, [values])[:8])
     return {"device_arrays": outs, "n_rounds": rounds}

@@ -39,17 +39,27 @@ class MerkleProof:
     nodes: list[bytes]
 
 
+def node_layers(h: torch.Tensor, digest: str = "blake2s") -> list[torch.Tensor]:
+    """The layers above the (8, n) node layer h, up to the (8, 1) root: a
+    `blake2s_words` launch a level over the pairs' 64 bytes, or under
+    Poseidon a `poseidon_pairs` launch."""
+    check_digest(digest)
+    layers = []
+    while h.shape[1] > 1:
+        if digest == "poseidon":
+            h = pos.poseidon_pairs(h)
+        else:
+            pair = h.reshape(8, h.shape[1] // 2, 2)
+            msg = torch.cat([pair[:, :, 0], pair[:, :, 1]], dim=0).contiguous()
+            h = b2.blake2s_words(msg, 64)
+        layers.append(h)
+    return layers
+
+
 def build_layers(leaf_words: torch.Tensor, leaf_bytes: int) -> list[torch.Tensor]:
     """(W, N) leaf words -> [(8, N), (8, N/2), ..., (8, 1)] digest layers."""
     h = b2.blake2s_words(leaf_words, leaf_bytes)
-    layers = [h]
-    while h.shape[1] > 1:
-        m = h.shape[1] // 2
-        pair = h.reshape(8, m, 2)
-        msg = torch.cat([pair[:, :, 0], pair[:, :, 1]], dim=0).contiguous()
-        h = b2.blake2s_words(msg, 64)
-        layers.append(h)
-    return layers
+    return [h] + node_layers(h)
 
 
 def build_layers_digest(leaf_words: torch.Tensor, leaf_bytes: int,
@@ -64,11 +74,7 @@ def build_layers_digest(leaf_words: torch.Tensor, leaf_bytes: int,
     if leaf_bytes != 32:
         raise ValueError(f"poseidon trees take 32-byte value leaves, got {leaf_bytes}")
     h = pos.poseidon_leaves(leaf_words)
-    layers = [h]
-    while h.shape[1] > 1:
-        h = pos.poseidon_pairs(h)
-        layers.append(h)
-    return layers
+    return [h] + node_layers(h, "poseidon")
 
 
 def gather_flat(leaf_words, layers, idx: torch.Tensor) -> torch.Tensor:
@@ -103,8 +109,13 @@ class DeviceMerkleTree:
         self.layers = None
 
     @property
+    def root_words(self) -> torch.Tensor:
+        """The root as (8,) int32 words on the device."""
+        return self.layers[-1][:, 0]
+
+    @property
     def root(self) -> bytes:
-        return self.layers[-1][:, 0].cpu().numpy().astype("<i4").tobytes()
+        return self.root_words.cpu().numpy().astype("<i4").tobytes()
 
     def gather(self, indices: torch.Tensor) -> torch.Tensor:
         return gather_flat(self.leaf_words, self.layers[:-1], indices)

@@ -13,6 +13,13 @@ functions over tensors, collected in a dict; there is no jit. Buffer
 donation (`core.py:513-518`) has no counterpart: a stage drops each column
 it owns after its last read instead. Z^-1 and x^steps travel as (L, skips)
 Shoup pattern pairs.
+
+With a mesh of d > 1 ranks (`parallel/distributed.py DomainMesh`) the
+small-domain stages stay as they are, run replicated on every rank, and the
+precision-domain ones come from `parallel/prove_sharded.py sharded_stages`:
+`xs_full` and the inverse tables are the rank's chunks, `columns` is
+`prove_sharded.columns_body`, the trees are sharded. `commit`, `branches`
+and `replicate` are the interface the prover calls on either stage set.
 """
 
 from __future__ import annotations
@@ -39,6 +46,17 @@ TRACE_NAMES = ("k", "f0", "f1", "f2", "s", "p", "idx", "perm")
 COL_NAMES = ("p", "a", "s", "d1", "d2", "d3", "b2", "b3")
 
 
+def spot_positions(l_root_words8, precision: int, skips: int, kshift: int):
+    """The spot checks drawn from the l-root and their 4 companion indices
+    each (`prove.rs:351-359`) -> (pos, aug)."""
+    pos = dt.pseudorandom_indices(
+        l_root_words8, precision, SPOT_CHECK_SECURITY_FACTOR, skips
+    )
+    offs = torch.tensor([0, precision - skips, kshift, 2 * kshift],
+                        dtype=torch.int64, device=pos.device)
+    return pos, ((pos[:, None] + offs[None, :]) % precision).reshape(-1)
+
+
 def leaves_to_words(spec: FieldSpec, columns) -> torch.Tensor:
     """Montgomery columns -> (W, M) int32 words of the concatenated
     canonical little-endian 32-byte encodings, zero-padded to whole blake
@@ -57,11 +75,13 @@ def leaves_to_words(spec: FieldSpec, columns) -> torch.Tensor:
 def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
                        original_steps: int, digest: str, device,
                        block: int = nttm.FUSED_BLOCK,
-                       lde_engine: str = "butterfly") -> dict:
+                       lde_engine: str = "butterfly", mesh=None) -> dict:
     """The prover's device stages, split at the Fiat-Shamir points.
     `lde_engine` names the engine of the 9 LDEs (the verifier's 6):
     "butterfly" or "crt" (`ops/ntt.py make_best_lde`); the columns, and so
-    the proof, are the same on either."""
+    the proof, are the same on either. `mesh` (a `DomainMesh` of d > 1
+    ranks, on `device`) shards the precision domain (see the module
+    docstring); None or a one-rank mesh builds the single-device set."""
     nttm.check_lde_engine(lde_engine)
     mt.check_digest(digest)
     if precision > MAX_PRECISION:
@@ -70,34 +90,17 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
             "(get_pseudorandom_indices) draws r and the spot checks modulo the "
             "precision and takes moduli below 2^24"
         )
+    sharded = mesh is not None and mesh.size > 1
+    if sharded and lde_engine != "butterfly":
+        raise ValueError(  # names its ROADMAP item by title
+            "lde_engine='crt' on a mesh: the CRT engine's sharded LDE "
+            "(lde_mxu_sharded) is not ported (ROADMAP.md Queue 1, Multi-GPU)"
+        )
     dev = torch.device(device)
     p = spec.p
     L = spec.num_limbs
     skips = precision // steps
     kshift = original_steps // 3 * skips
-    g2 = spec.root_of_unity(precision)
-    g1 = pow(g2, skips, p)
-    xs_full = mm.power_table(spec, g2, precision, dev)
-    omega = pow(g2, steps, p)
-    inv_z_scalars = [0] + [
-        pow((pow(omega, t, p) - 1) % p, p - 2, p) for t in range(1, skips)
-    ]
-    pow_scalars = [pow(omega, t, p) for t in range(skips)]
-    x_last_mont = mm.mont_const(spec, pow(g2, precision - skips, p), dev)
-    # Z^-1 and x^steps repeat along the domain with period `skips`: they
-    # travel as (L, skips) Shoup pattern pairs (`core.py:34-47` tiles them to
-    # its kernels' block width; a CUDA thread takes column i mod skips), and
-    # no (L, N) table of either is made.
-    iz_pats = mm.shoup_consts(spec, inv_z_scalars, dev)
-    x2_pats = mm.shoup_consts(spec, pow_scalars, dev)
-    inv_zb3 = mm.multi_inv(spec, mm.msub(spec, xs_full, x_last_mont))
-    # One column at a time on either engine (`stark_tpu/protocol/core.py:
-    # 169-190`): with no traced module to fuse the columns into, the JAX
-    # package's `_MXU_FUSE_MAX_PRECISION` switch has no counterpart here.
-    lde_one = nttm.make_best_lde(spec, g1, g2, steps, precision, dev, lde_engine, block)
-
-    def lde_many(ts):
-        return [lde_one(t) for t in ts]
 
     def flag_idx_perm(f1_u8, f2_u8, perm_lo, perm_hi):
         """Public columns: f0 (ones over the original steps), the flags
@@ -166,6 +169,45 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
         vn, vd = kernels.rand_combination(spec, r_mont, idx_small, perm_small, s_small)
         return kernels.accumulator_mini(spec, vn, vd)
 
+    stages = {
+        "lde_engine": lde_engine,
+        "wit_traces": wit_traces,
+        "v_cols": v_cols,
+        "a_root": a_root,
+        "r": r,
+        "acc": acc,
+    }
+    if sharded:
+        from stark_tpu_torch.parallel import prove_sharded as psh
+
+        stages.update(psh.sharded_stages(spec, mesh, steps, precision, original_steps,
+                                         digest, block))
+        return stages
+
+    g2 = spec.root_of_unity(precision)
+    g1 = pow(g2, skips, p)
+    xs_full = mm.power_table(spec, g2, precision, dev)
+    omega = pow(g2, steps, p)
+    inv_z_scalars = [0] + [
+        pow((pow(omega, t, p) - 1) % p, p - 2, p) for t in range(1, skips)
+    ]
+    pow_scalars = [pow(omega, t, p) for t in range(skips)]
+    x_last_mont = mm.mont_const(spec, pow(g2, precision - skips, p), dev)
+    # Z^-1 and x^steps repeat along the domain with period `skips`: they
+    # travel as (L, skips) Shoup pattern pairs (`core.py:34-47` tiles them to
+    # its kernels' block width; a CUDA thread takes column i mod skips), and
+    # no (L, N) table of either is made.
+    iz_pats = mm.shoup_consts(spec, inv_z_scalars, dev)
+    x2_pats = mm.shoup_consts(spec, pow_scalars, dev)
+    inv_zb3 = mm.multi_inv(spec, mm.msub(spec, xs_full, x_last_mont))
+    # One column at a time on either engine (`stark_tpu/protocol/core.py:
+    # 169-190`): with no traced module to fuse the columns into, the JAX
+    # package's `_MXU_FUSE_MAX_PRECISION` switch has no counterpart here.
+    lde_one = nttm.make_best_lde(spec, g1, g2, steps, precision, dev, lde_engine, block)
+
+    def lde_many(ts):
+        return [lde_one(t) for t in ts]
+
     def inv_zb2(pubx_mont):
         """Zb2^-1 over the public wire positions: circuit-static."""
         return mm.multi_inv(spec, kernels.vanishing_eval(spec, xs_full, pubx_mont))
@@ -223,28 +265,31 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
 
     def pos_gather(l_root_words8, l_words, l_layers, m_words, m_layers):
         """Spot-check positions and both branch gathers."""
-        pos = dt.pseudorandom_indices(
-            l_root_words8, precision, SPOT_CHECK_SECURITY_FACTOR, skips
-        )
-        offs = torch.tensor([0, precision - skips, kshift, 2 * kshift],
-                            dtype=torch.int64, device=dev)
-        aug = ((pos[:, None] + offs[None, :]) % precision).reshape(-1)
+        pos, aug = spot_positions(l_root_words8, precision, skips, kshift)
         l_flat = mt.gather_flat(l_words, l_layers[:-1], pos)
         m_flat = mt.gather_flat(m_words, m_layers[:-1], aug)
         return l_flat, m_flat
 
-    return {
+    def commit(cols):
+        """`commit_chain` -> (m-tree, l-tree, l column)."""
+        m_words, m_layers, _, l_ev, l_words, l_layers = commit_chain(cols)
+        return (mt.DeviceMerkleTree(m_words, 256, m_layers),
+                mt.DeviceMerkleTree(l_words, 32, l_layers), l_ev)
+
+    def branches(l_tree, m_tree):
+        return pos_gather(l_tree.root_words, l_tree.leaf_words, l_tree.layers,
+                          m_tree.leaf_words, m_tree.layers)
+
+    stages.update({
         "xs_full": xs_full,
-        "lde_engine": lde_engine,
         "lde_many": lde_many,
-        "wit_traces": wit_traces,
-        "v_cols": v_cols,
-        "a_root": a_root,
-        "r": r,
-        "acc": acc,
         "inv_zb2": inv_zb2,
         "rest_a": rest_a,
         "columns": columns,
         "commit_chain": commit_chain,
         "pos_gather": pos_gather,
-    }
+        "commit": commit,
+        "branches": branches,
+        "replicate": lambda l_ev: (l_ev, xs_full),
+    })
+    return stages

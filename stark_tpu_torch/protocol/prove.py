@@ -6,11 +6,19 @@ on the device), then one materializing transfer moves it to the host and
 `materialize_r1cs_proof` formats it. Stages: traces (device
 arithmetization), a-tree and r, columns (9 LDEs, accumulator, quotients,
 boundaries), commits (m-tree, k, linear combination, l-tree), branches, FRI.
+
+`mesh=` (a `parallel/distributed.py DomainMesh`, `stark_tpu/protocol/
+prove.py:190-198`) runs the same orchestration on each of d ranks: the
+small-domain stages replicated, the precision domain sharded
+(`core.build_proof_stages`), the branches gathered, FRI replicated after an
+all-gather of the l column and the domain. Every rank returns the same
+proof, byte-identical to the single-device one.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 
 import numpy as np
 import torch
@@ -24,6 +32,7 @@ from stark_tpu_torch.fri import fri
 from stark_tpu_torch.merkle import tree as mt
 from stark_tpu_torch.ops import modmath as mm
 from stark_tpu_torch.ops.ntt import check_lde_engine
+from stark_tpu_torch.parallel.distributed import DomainMesh
 from stark_tpu_torch.protocol.proof import StarkProof
 
 
@@ -92,23 +101,32 @@ def lo_hi_words(perm: np.ndarray, device):
 
 
 @functools.lru_cache(maxsize=4)
-def _stages_cached(spec, steps, precision, original_steps, digest, device, lde_engine):
+def _stages_cached(spec, steps, precision, original_steps, digest, device, lde_engine,
+                   mesh=None):
     """One stage set per (spec, steps, precision, original_steps, digest,
-    device, lde_engine); every caller passes all seven positionally, so one
-    key."""
+    device, lde_engine) and, on a mesh of d > 1 ranks, per rank's mesh
+    (hashed by identity: ranks that share a card or a process each have
+    their own). Every single-device caller passes the first seven
+    positionally, so one key."""
     from stark_tpu_torch.protocol.core import build_proof_stages
 
     return build_proof_stages(spec, steps, precision, original_steps, digest, device,
-                              lde_engine=lde_engine)
+                              lde_engine=lde_engine, mesh=mesh)
 
 
-def _check_scope(mesh, digest: str):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-GPU proving is not ported (ROADMAP.md Queue 1, "
-            "Multi-GPU)"
-        )
+def _check_scope(mesh, digest: str, steps: int):
+    """The digest, and the mesh: a `DomainMesh` of a power-of-two size d
+    with steps >= d^2, the four-step NTT's least (`stark_tpu/protocol/
+    prove.py:190-194`). The sharded stage set refuses the CRT engine."""
     mt.check_digest(digest)
+    if mesh is None:
+        return
+    if not isinstance(mesh, DomainMesh):
+        raise TypeError(f"mesh must be a DomainMesh or None, got {type(mesh).__name__}")
+    if mesh.size & (mesh.size - 1):
+        raise ValueError(f"the mesh's size must be a power of two, got {mesh.size}")
+    if steps < mesh.size ** 2:
+        raise ValueError(f"the four-step NTT needs steps >= d^2 ({steps} < {mesh.size ** 2})")
 
 
 def mk_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires, n_constraints: int,
@@ -136,7 +154,6 @@ def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
     ("butterfly" or "crt"); the proof is the same on either, too. `digest`
     ("blake2s" or "poseidon") commits the l-tree and FRI's trees; the
     m-tree, the a-tree and the transcript are blake2s under either."""
-    _check_scope(mesh, digest)
     fri.check_fold_route(fri_fold)
     check_lde_engine(lde_engine)
     dev = devmod.resolve(device)
@@ -151,9 +168,15 @@ def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
         )
     params = derive_params(spec, original_steps)
     steps, precision, skips = params.steps, params.precision, params.skips
-    stages = _stages_cached(spec, steps, precision, original_steps, digest, dev,
-                            lde_engine)
-    xs_full = stages["xs_full"]
+    _check_scope(mesh, digest, steps)
+    if mesh is not None and mesh.device != dev:
+        raise ValueError(f"the mesh's rank runs on {mesh.device}, not on {dev}")
+    key = (spec, steps, precision, original_steps, digest, dev, lde_engine)
+    if mesh is not None and mesh.size > 1:
+        stages = _stages_cached(*key, mesh)
+    else:
+        mesh = None  # a one-rank mesh proves as one device
+        stages = _stages_cached(*key)
 
     # --- traces: only K, the witness and the circuit-static vectors move ---
     permuted = permuted_column(arith.permuted_indices, original_steps, steps)
@@ -187,32 +210,32 @@ def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
     pub_xs = [pow(params.g2, skips * w, p) for (_, w) in arith.public_first_indices]
     pub_ys = [public_wires[k] for (k, _) in arith.public_first_indices]
     i2_mont = mm.mont_consts(spec, ph.lagrange_interp(spec, pub_xs, pub_ys), dev)
-    # Zb2^-1 is circuit-static: computed once per (circuit, shape, device)
+    # Zb2^-1 is circuit-static: computed once per (circuit, shape, device) and,
+    # on a mesh, per (size, rank): the rank's chunk
+    zb2_key = (steps, str(dev), None if mesh is None else mesh.key)
     zb2c = getattr(arith, "_torch_inv_zb2", None)
-    if zb2c is None or zb2c[0] != (steps, str(dev)):
-        zb2c = ((steps, str(dev)), stages["inv_zb2"](mm.mont_consts(spec, pub_xs, dev)))
+    if zb2c is None or zb2c[0] != zb2_key:
+        zb2c = (zb2_key, stages["inv_zb2"](mm.mont_consts(spec, pub_xs, dev)))
         arith._torch_inv_zb2 = zb2c
     cols, q_bad = stages["columns"](traces, r_mont, i2_mont, zb2c[1])
     del traces
 
     # --- commits: m-tree -> k -> linear combination -> l-tree ---
-    m_words, m_layers, _, l_ev, l_words, l_layers = stages["commit_chain"](cols)
+    m_tree, l_tree, l_ev = stages["commit"](cols)
     del cols
-    m_tree = mt.DeviceMerkleTree(m_words, 256, m_layers)
-    l_tree = mt.DeviceMerkleTree(l_words, 32, l_layers)
-    m_root_w = m_layers[-1][:, 0]
-    l_root_w = l_layers[-1][:, 0]
+    m_root_w = m_tree.root_words
+    l_root_w = l_tree.root_words
 
     # --- branches at the device-derived spot checks ---
-    l_flat, m_flat = stages["pos_gather"](l_root_w, l_words, l_layers, m_words, m_layers)
-    del m_words, m_layers, l_words, l_layers
+    l_flat, m_flat = stages["branches"](l_tree, m_tree)
 
-    # --- FRI; the l-tree is round 0's value tree ---
+    # --- FRI, replicated on a mesh; the l-tree is round 0's value tree ---
+    l_ev, xs_full = stages["replicate"](l_ev)
     pending = fri.prove_low_degree_pending(
         spec, l_ev, xs_full, precision // 4, skips, first_tree=l_tree,
         fri_fold=fri_fold, digest=digest,
     )
-    del l_ev
+    del l_ev, xs_full
     # every gather against the two trees is enqueued: their device tensors
     # go back to the allocator as soon as the stream has run those gathers
     m_tree.release_device()
@@ -223,12 +246,20 @@ def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
         + pending["device_arrays"],
         "l_tree": l_tree,
         "m_tree": m_tree,
+        "mesh": mesh,
     }
 
 
 def materialize_r1cs_proof(spec: FieldSpec, st: dict) -> StarkProof:
-    """One device->host transfer, then host formatting."""
+    """One device->host transfer, then host formatting. On a mesh every
+    array read here is replicated (roots, flags, gathered branches, FRI's
+    outputs), so no gather is needed: the ranks' copies are held equal."""
     mats = fri.materialize_u32(st["device_arrays"])
+    if st["mesh"] is not None:
+        digest = hashlib.sha256(b"".join(m.tobytes() for m in mats)).digest()
+        mine = torch.frombuffer(bytearray(digest), dtype=torch.uint8).to(st["mesh"].device)
+        if not bool((st["mesh"].all_gather_stack(mine) == mine).all()):
+            raise AssertionError("the ranks' proof arrays differ: one is not replicated")
     a_root_np, m_root_np, l_root_np, bad, l_flat_np, m_flat_np = mats[:6]
     for i, what in enumerate(("D1", "D2", "D3")):
         if bad[i]:

@@ -9,7 +9,10 @@ default, or "lagrange": FRI's fold route, the JAX package's
 JAX package's `STARK_TPU_MXU`; the proof is the same on either, and the
 verifying entry points take it too). Every entry point takes `digest=`
 ("blake2s" by default, or "poseidon": the l-tree's and FRI's tree digest,
-the reference's `H: Digest`). `verify_with_witness` keeps the 6
+the reference's `H: Digest`). The proving ones take `mesh=` (a
+`parallel/distributed.py DomainMesh`: the proof on d ranks, each rank's
+call on its mesh's device; `stark_tpu/protocol/runner.py:43-83, 88-162`).
+`verify_with_witness` keeps the 6
 circuit-static public-column LDEs on the parsed circuit for its next verify
 when they fit 512 MiB (`stark_tpu/protocol/runner.py:258-276`);
 `verify_cache=False` keeps nothing. The prover
@@ -125,7 +128,10 @@ def prove_many(r1cs: R1csContents, witness_bytes_list, pipeline: int = 2, mesh=N
     On a card the next witness is uploaded one proof ahead: from pinned
     memory, `non_blocking`, on a side stream, with an event that the proving
     stream waits on before it reads the tensor. On the CPU the same loop
-    runs without streams. Returns the proofs in the witnesses' order.
+    runs without streams. On a mesh (`mesh=`, a `DomainMesh` on `device`)
+    nothing is uploaded ahead (`stark_tpu/protocol/runner.py:144`): each
+    rank hands the prover the host rows, and every rank returns the same
+    proofs. Returns the proofs in the witnesses' order.
     """
     if pipeline < 1:
         raise ValueError(f"pipeline must be at least 1, got {pipeline}")
@@ -133,13 +139,15 @@ def prove_many(r1cs: R1csContents, witness_bytes_list, pipeline: int = 2, mesh=N
     h = r1cs.header
     dev = devmod.resolve(device)
     arith = _static_arith(spec, r1cs)
-    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" and mesh is None else None
 
     def upload(i):
         """Witness i as a tensor on the device and the event that says it has
         arrived (None on the CPU). The pinned source may go out of scope at
         once: PyTorch's host allocator holds a pinned block until the copies
-        that read it are done."""
+        that read it are done. On a mesh: the host rows."""
+        if mesh is not None:
+            return _witness_rows(r1cs, witness_bytes_list[i]), None
         rows = torch.from_numpy(_witness_rows(r1cs, witness_bytes_list[i]))
         if side is None:
             return rows, None

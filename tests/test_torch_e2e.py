@@ -183,5 +183,6 @@ def test_out_of_scope_arguments_raise(compute):
     with pytest.raises(ValueError, match="digest"):
         runner.verify_with_witness(r1cs, pub, proof_mod.from_json(golden), digest="sha256",
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # mesh= takes a DomainMesh (stark_tpu_torch/parallel/distributed.py)
+    with pytest.raises(TypeError, match="DomainMesh"):
         runner.prove_with_witness(r1cs, witness, mesh=object(), device="cpu")

@@ -2,11 +2,11 @@
 gives the proofs that single proves give, in order, at pipeline depths
 below, at and above the number of proofs, on both fold routes; the shared
 arithmetization's witness slot is left empty; and what it refuses (a depth
-of 0, `mesh=`, a witness whose first wire is not 1). The same three
-witnesses go through the JAX package's `runner.prove_many`, built by its own
-`squaring_chain`, and its proofs must be the port's byte for byte. The
-circuit is `squaring_chain(5)` (steps 16, the `compute` scale) with three
-start values. Tolerance: exact (byte-identical JSON).
+of 0, a `mesh=` that is not a `DomainMesh`, a witness whose first wire is
+not 1). The same three witnesses go through the JAX package's
+`runner.prove_many`, built by its own `squaring_chain`, and its proofs must
+be the port's byte for byte. The circuit is `squaring_chain(5)` (steps 16,
+the `compute` scale) with three start values. Tolerance: exact (byte-identical JSON).
 """
 
 import pytest
@@ -60,7 +60,7 @@ def test_prove_many_edges(chain):
     assert runner.prove_many(r1cs, [], device="cpu") == []
     with pytest.raises(ValueError, match="pipeline"):
         runner.prove_many(r1cs, witnesses, pipeline=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, Multi-GPU"):
+    with pytest.raises(TypeError, match="DomainMesh"):
         runner.prove_many(r1cs, witnesses, mesh=object(), device="cpu")
     bad = [b"\x02" + bytes(31)] + witnesses[0][1:]
     with pytest.raises(ValueError, match=r"witness\[0\]"):
