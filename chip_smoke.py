@@ -11,9 +11,10 @@ non-zero and no phase's error is swallowed:
 2. build: the kernel library is built with nvcc from stark_tpu_torch/csrc;
    the record's `ptxas` list holds what `ptxas -v` said of every kernel
    (registers, spills), the ones redesigned for Hopper among them;
-3. kernels: each of the 26 CUDA kernels (the 22 TPU kernels' counterparts,
-   the multi-stage pass, the vanishing product's pre-pass and the Poseidon
-   pair, `poseidon_leaves` and `poseidon_pairs`) against its plain PyTorch
+3. kernels: each of the 28 CUDA kernels (the 22 TPU kernels' counterparts,
+   the multi-stage pass, the Shoup-twiddle forms of the pass and of the
+   fused pass, the vanishing product's pre-pass and the Poseidon pair,
+   `poseidon_leaves` and `poseidon_pairs`) against its plain PyTorch
    version
    on the card, at the prover's shapes for 43,690 constraints (steps 2^17,
    precision 2^20), inputs from a numpy seed; tolerance: exact equality
@@ -34,7 +35,15 @@ non-zero and no phase's error is swallowed:
    build on BLS12-381's scalar field (dit and dif at 2^17 and at one block
    of 2048); beside its bound, which counts a product a butterfly,
    `bound_needed_ms` leaves out the products by a twiddle equal to
-   Montgomery one, which the kernel skips. `mpow_scalar` runs e = p - 2 at
+   Montgomery one, which the kernel skips. The Shoup forms
+   (`compare_shoup`: plain twiddles with their companions, values in
+   [0, 2p), a DIT plan's last stage below p): `butterfly_pass_shoup` at
+   every pass of the 2^20 and 2^17 Shoup plans, their widest and first on
+   `lazy_planes`' 0, 1, Montgomery one, p - 1, p and 2p - 1, and every pass
+   of both directions on BLS12-381's field at 2^17;
+   `butterfly_fused_shoup` dit and dif at 2^20 (block 2048), dif at 2^17,
+   the 2^20 ones on the edge values reducing below p, and BLS12-381's at
+   2^17 and one block. `mpow_scalar` runs e = p - 2 at
    (16, 1) and (16, 8) and on BLS12-381's field, e = 0, 1, 2^256 - 1 on edge
    operands, and e = 2^255, 2^127 for the time of one dependent squaring.
    The three kernels of the CRT LDE engine run on that engine's own tables
@@ -123,7 +132,11 @@ non-zero and no phase's error is swallowed:
    (`serve.serve(..., lde_engine="crt")`) answers a warmup and one prove
    with the same bytes. Then the 9-column `lde_many` stage of both engines
    on the same random traces, in turns: equal outputs, synced wall and
-   device time of each;
+   device time of each. Then, in its own record (`shoup_lde`), the
+   9-column LDE of the same shape on the default plan and on the Shoup plan
+   (`ntt.make_lde_plan(shoup=True)`), in turns: equal outputs
+   (`torch.equal`), each run's device time, and the Shoup kernels'
+   launches, which no entry point runs (their `path`);
 8. only with `--profile` (run inside phases 5 and 7): for each fold route, for the CRT engine and
    under digest="poseidon" (on the default route), `torch.profiler` over
    one more warm prove (device busy share, launches,
@@ -153,16 +166,26 @@ non-zero and no phase's error is swallowed:
    (`max_memory_allocated` in its own process) and its collectives' calls,
    bytes (of the tensors they return) and synced seconds are recorded;
    they measure host-staged gloo on one card, not a multi-card scaling.
+   At d = 2 each rank then builds its local DFTs' CRT plans
+   (`crt_table_build_s`) and proves cold and warm with `lde_engine="crt"`
+   (`crt cold`, `crt warm`): the proofs must equal phase 5's, `residues_in`,
+   `matmul_fold` and `reconstruct` must launch in every rank's cold prove,
+   and the collectives' bytes of each kind must equal the butterfly
+   prove's. At d = 2 and 4, `mxu_ntt.lde_mxu_sharded` of a (16, 2^17)
+   column to 2^20 must equal the rank's chunk of `lde_mxu` on one device
+   (`torch.equal`), its CRT kernels launched (`mesh_lde_case`).
 
 The line before the card's lists the kernels of the three paths as JSON
 (`kernels`; each with the numbers of its first case, the largest shape the
 proving run gives it, named under `case`; `launches_big_domain` its
 launches in phase 9's cold prove; `launches_mesh` its launches in each
-rank's cold prove of phase 10, by d; `path` names the phase whose run
+rank's cold prove of phase 10, by d, and under "2, crt" in each rank's
+crt cold prove; `path` names the phase whose run
 counted its `launches`: `real_size`, `real_size_poseidon` for the
 Poseidon pair, `serve` for the two fold kernels,
 which the default route does not run, `crt` for the three kernels of
-the CRT engine, or `goldens: bits` for `vanishing_coeffs`) and, under
+the CRT engine, `shoup_lde` for the two Shoup forms, or `goldens: bits`
+for `vanishing_coeffs`) and, under
 `off_path`, the two
 ported kernels no path runs: `linear_combination` on the (16, n)
 x^steps table, whose place the stages' Shoup pattern pair takes, and
@@ -268,6 +291,13 @@ KERNELS = {
     "butterfly_fused": (
         "stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_field.py:518",
     ),
+    # the Shoup-twiddle forms of the two (shoup=True: the bodies :427 and :483)
+    "butterfly_pass_shoup": (
+        "stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_field.py:446",
+    ),
+    "butterfly_fused_shoup": (
+        "stark_tpu_torch/csrc/ntt.cu", "stark_tpu/ops/pallas_field.py:518",
+    ),
     "blake2s_words": (
         "stark_tpu_torch/csrc/blake2s.cu", "stark_tpu/ops/pallas_blake2s.py:84",
     ),
@@ -336,6 +366,9 @@ OFF_PATH = ("linear_combination", "butterfly_stage")
 LAGRANGE_ONLY = ("fri_fold_pre", "fri_fold_post")
 # run only on the CRT LDE engine: counted in the crt phase
 CRT_ONLY = ("residues_in", "matmul_fold", "reconstruct")
+# run only by a Shoup-form plan (`ntt.make_lde_plan(shoup=True)`), which no
+# entry point builds: counted in the `shoup_lde` record's run
+SHOUP_ONLY = ("butterfly_pass_shoup", "butterfly_fused_shoup")
 # the butterfly engine's LDE kernels: a verify runs them only for its 6 columns
 LDE_KERNELS = ("butterfly_pass", "butterfly_fused")
 # run only under digest="poseidon": counted in the real-size Poseidon prove
@@ -349,6 +382,9 @@ MESH_OFF = ("q1_eval", "q2_eval", "q3_eval")
 # the mesh phase's sizes; NCCL runs d = 2 where the host has two cards
 MESH_SIZES = (2, 4)
 MESH_TIMEOUT_S = 300
+# `mxu_ntt.lde_mxu_sharded`'s case in the mesh phase: a column of the
+# real-size prove's steps extended to its precision
+MESH_LDE_STEPS, MESH_LDE_PRECISION = 1 << 17, 1 << 20
 # the wrappers of `protocol/kernels.py` whose device time the goldens phase
 # reads within the `bits` golden's first prove (its 1,062 public wires)
 BITS_TIMED = ("horner_eval", "vanishing_eval")
@@ -388,6 +424,8 @@ def wrappers():
         "butterfly_stage": ntt.butterfly_stage,
         "butterfly_pass": ntt.butterfly_pass,
         "butterfly_fused": ntt.butterfly_fused,
+        "butterfly_pass_shoup": ntt.butterfly_pass_shoup,
+        "butterfly_fused_shoup": ntt.butterfly_fused_shoup,
         "blake2s_words": blake2s.blake2s_words,
         "mpow_scalar": field_cuda.mpow_scalar,
         "scan_prod": field_cuda.scan_prod,
@@ -566,6 +604,7 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
     )
     out["butterfly_pass"] = compare_pass(spec, big, small, x_big, x_small)
     out["butterfly_fused"] = compare_fused(spec, big, small, x_big, x_small)
+    out.update(compare_shoup(spec, g2, spec.inv(g1), N, steps, device))
     out["blake2s_words"] = compare(
         "blake2s_words",
         b2.blake2s_words,
@@ -1105,6 +1144,130 @@ def compare_fused(spec, big, small, x_big, x_small) -> dict:
     return result
 
 
+def lazy_planes(rng, spec, n: int, device) -> torch.Tensor:
+    """(16, n) limb planes of values in [0, 2p) (a top limb below 2p's), the
+    first six 0, 1, Montgomery one, p - 1, p and 2p - 1: the Shoup form's
+    inputs."""
+    L = spec.num_limbs
+    top = (2 * spec.p) >> (16 * (L - 1))
+    limbs = rng.integers(0, 1 << 16, size=(L, n), dtype=np.int64)
+    limbs[L - 1] = rng.integers(0, top, size=n)
+    for j, v in enumerate((0, 1, spec.r_mod_p, spec.p - 1, spec.p, 2 * spec.p - 1)):
+        limbs[:, j] = [(v >> (16 * i)) & 0xFFFF for i in range(L)]
+    return torch.from_numpy(limbs.astype(np.int32)).to(device)
+
+
+def compare_shoup(spec, g2: int, inv_g1: int, N: int, steps: int, device) -> dict:
+    """The Shoup forms against their plain versions (`torch.equal`, lazy
+    values in [0, 2p) included): `butterfly_pass_shoup` at every pass of the
+    2^20 DIT plan (the last, which reads the widest table and reduces below
+    p, first) and of the 2^17 DIF plan, as a Shoup plan runs them, then
+    their last and first on `lazy_planes`' edge values, and on BLS12-381's
+    scalar field every pass of both directions at 2^17;
+    `butterfly_fused_shoup` dit and dif at 2^20 (block 2048), dif at 2^17,
+    the 2^20 cases on the edge values and reducing below p, and BLS12-381's
+    dit and dif at 2^17 and at one block. Bytes: the column in and out and
+    the table read (64 bytes an entry); operations: a Shoup product a
+    butterfly (`MONT_MUL_OPS`)."""
+    from stark_tpu_torch.fields.field import BLS12_381_FR as bls
+    from stark_tpu_torch.ops import ntt
+
+    rng = np.random.default_rng(SEED + 12)
+    big = ntt.NttPlan(spec, g2, N, "dit", device, shoup=True)
+    small = ntt.NttPlan(spec, inv_g1, steps, "dif", device, shoup=True)
+    x_big, x_small = (random_planes(rng, spec, n, device) for n in (N, steps))
+    e_big, e_small = (lazy_planes(rng, spec, n, device) for n in (N, steps))
+    passes, fused = {}, {}
+    for kind, n, x, e, plan in (("dit", N, x_big, e_big, big),
+                                ("dif", steps, x_small, e_small, small)):
+        last = len(plan.passes) - 1
+        order = range(last, -1, -1) if kind == "dit" else range(last + 1)
+        for i in order:
+            l0, r, tw = plan.passes[i]
+            canon = kind == "dit" and i == last
+            passes[f"{kind} n={n} l0={l0} r={r}{' canon' if canon else ''}"] = (
+                spec, x, tw, l0, r, kind, canon)
+        if plan.passes:
+            l0, r, tw = plan.passes[order[0]]
+            passes[f"edges {kind} n={n} l0={l0} r={r}"] = (spec, e, tw, l0, r, kind,
+                                                           kind == "dit")
+    for kind, x in (("dit", x_big), ("dif", x_big), ("dif", x_small)):
+        n = x.shape[1]
+        tw = (big if n == N else small).fused_tw  # a fused table serves both directions
+        fused[f"{kind} n={n} block={FUSED_ONE_BLOCK}"] = (spec, x, tw, FUSED_ONE_BLOCK, kind,
+                                                          False)
+        if n == N:
+            fused[f"edges {kind} n={n} block={FUSED_ONE_BLOCK} canon"] = (
+                spec, e_big, tw, FUSED_ONE_BLOCK, kind, True)
+    for n in (steps, FUSED_ONE_BLOCK):
+        x = lazy_planes(rng, bls, n, device)
+        for kind in ("dit", "dif"):
+            plan = ntt.NttPlan(bls, bls.root_of_unity(n), n, kind, device, shoup=True)
+            canon = kind == "dit" and not plan.passes
+            fused[f"{bls.name} {kind} n={n} block={plan.block}"] = (
+                bls, x, plan.fused_tw, plan.block, kind, canon)
+            if n == steps:
+                for i, (l0, r, tw) in enumerate(plan.passes):
+                    canon = kind == "dit" and i == len(plan.passes) - 1
+                    passes[f"{bls.name} {kind} n={n} l0={l0} r={r}"] = (bls, x, tw, l0, r,
+                                                                       kind, canon)
+    out = {}
+    out["butterfly_pass_shoup"] = compare(
+        "butterfly_pass_shoup", ntt.butterfly_pass_shoup, ntt.butterfly_pass_shoup_plain,
+        {label: (args, 2 * 64 * args[1].shape[1] + 4 * args[2].numel(),
+                 args[4] * args[1].shape[1] // 2 * MONT_MUL_OPS)
+         for label, args in passes.items()},
+    )
+    out["butterfly_fused_shoup"] = compare(
+        "butterfly_fused_shoup", ntt.butterfly_fused_shoup, ntt.butterfly_fused_shoup_plain,
+        {label: (args, 2 * 64 * args[1].shape[1] + 4 * args[2].numel(),
+                 (args[3].bit_length() - 1) * args[1].shape[1] // 2 * MONT_MUL_OPS)
+         for label, args in fused.items()},
+    )
+    return out
+
+
+def phase_shoup_lde(spec, device, params) -> dict:
+    """The 9-column LDE of the real-size prove's shape on the default plan
+    and on the Shoup plan (`ntt.make_lde_plan(shoup=True)`), on the same
+    random traces, in turns (default, Shoup, Shoup, default): equal outputs
+    (`torch.equal`), the device time of each run, and the Shoup kernels'
+    launches in the first Shoup run, every counter set to 0 just before."""
+    from stark_tpu_torch.ops import ntt
+
+    rng = np.random.default_rng(SEED + 13)
+    traces = [random_planes(rng, spec, params.steps, device) for _ in range(9)]
+    g2 = spec.root_of_unity(params.precision)
+    g1 = pow(g2, params.precision // params.steps, spec.p)
+    t0 = time.time()
+    plans = {shoup: ntt.make_lde_plan(spec, g1, g2, params.steps, params.precision, device,
+                                      shoup=shoup) for shoup in (False, True)}
+    out = {"columns": len(traces), "plans_s": time.time() - t0, "runs": []}
+    want = None
+    wrap = wrappers()
+    for shoup in (False, True, True, False):
+        if shoup and "launches" not in out:
+            for fn in wrap.values():
+                fn.launches = 0
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        outs = [ntt.lde(spec, t, plans[shoup]) for t in traces]
+        end.record()
+        torch.cuda.synchronize()
+        if shoup and "launches" not in out:
+            out["launches"] = {name: fn.launches for name, fn in wrap.items()}
+        want = want or outs
+        if not all(torch.equal(a, b) for a, b in zip(outs, want)):
+            raise AssertionError(f"the {'Shoup' if shoup else 'default'} LDE differs")
+        out["runs"].append({"shoup": shoup, "device_ms": start.elapsed_time(end)})
+        del outs
+    missing = [name for name in SHOUP_ONLY if out["launches"][name] <= 0]
+    if missing:
+        raise AssertionError(f"the Shoup LDE did not launch {missing}")
+    return out
+
+
 def big_domain_cases(spec, device, sm_hz: float) -> dict:
     """Cases at the big-domain phase's shapes (precision 2^23, steps 2^20),
     which no earlier phase gives the kernels: every `butterfly_pass` of the
@@ -1206,7 +1369,7 @@ def phase_big_domain(device) -> dict:
     t0 = time.time()
     runner._static_arith(spec, r1cs)
     arith_s = time.time() - t0
-    other = OFF_PATH + LAGRANGE_ONLY + CRT_ONLY + BITS_ONLY + POSEIDON_ONLY
+    other = OFF_PATH + LAGRANGE_ONLY + CRT_ONLY + BITS_ONLY + POSEIDON_ONLY + SHOUP_ONLY
     wanted = [name for name in wrap if name not in other]
     runs, proofs = {}, []
     for run in ("cold", "warm"):
@@ -1498,7 +1661,8 @@ def phase_real(device, r1cs, witness, profile: bool, lde_engine: str = "butterfl
     # the butterfly engine's run must launch every kernel but the other
     # routes' (the Poseidon pair only under that digest); the CRT engine's,
     # which finds the circuit's tables made, its three
-    other = OFF_PATH + LAGRANGE_ONLY + CRT_ONLY + BITS_ONLY + (() if poseidon else POSEIDON_ONLY)
+    other = (OFF_PATH + LAGRANGE_ONLY + CRT_ONLY + BITS_ONLY + SHOUP_ONLY
+             + (() if poseidon else POSEIDON_ONLY))
     wanted = CRT_ONLY if crt else [name for name in wrap if name not in other]
     missing = [name for name in wanted if launches[name] <= 0]
     if missing:
@@ -1860,7 +2024,7 @@ def phase_serve(device, r1cs, witness, want_proof, want_poseidon) -> dict:
         raise AssertionError(f"LDE launches of the verifies, the first alone should have "
                              f"some: {lde}")
     missing = [name for name, n in launches.items()
-               if n <= 0 and name not in OFF_PATH + CRT_ONLY + BITS_ONLY]
+               if n <= 0 and name not in OFF_PATH + CRT_ONLY + BITS_ONLY + SHOUP_ONLY]
     if missing:
         raise AssertionError(f"kernels not launched by the worker's run: {missing}")
 
@@ -1934,11 +2098,13 @@ def worker_on_crt(device, r1cs, witness, want_proof) -> dict:
 
 def mesh_kernels() -> list[str]:
     """The kernels the mesh's default route must launch in every rank."""
-    off = OFF_PATH + LAGRANGE_ONLY + CRT_ONLY + BITS_ONLY + POSEIDON_ONLY + MESH_OFF
+    off = (OFF_PATH + LAGRANGE_ONLY + CRT_ONLY + BITS_ONLY + POSEIDON_ONLY + MESH_OFF
+           + SHOUP_ONLY)
     return [name for name in KERNELS if name not in off]
 
 
-def mesh_rank(mesh, constraints: int, routes) -> dict:
+def mesh_rank(mesh, constraints: int, routes, crt: bool = False,
+              lde_case: bool = False) -> dict:
     """One rank of a mesh prove (a `distributed.run_ranks` child): a fresh
     `squaring_chain(constraints)` proved cold and warm on the defaults, then
     once on each (fri_fold, digest) of `routes`. Every launch counter is set
@@ -1946,24 +2112,31 @@ def mesh_rank(mesh, constraints: int, routes) -> dict:
     each. Each prove records its wall (it ends with the proof on the host),
     the rank's `max_memory_allocated` over it, the collectives' calls, bytes
     and synced seconds (`mesh.stats`) and the proof's sha256; rank 0 also
-    returns the cold proof's JSON."""
+    returns the cold proof's JSON. With `crt`, the rank first builds its two
+    local DFTs' CRT plans (`crt_table_build_s`; its cache is `PLAN_CACHE`,
+    which the ranks share), then proves cold and warm with
+    `lde_engine="crt"`, counted the same way, each prove's collectives' bytes
+    equal to the butterfly prove's; with `lde_case`, `mesh_lde_case`."""
+    from stark_tpu_torch.ops import mxu_ntt
     from stark_tpu_torch.protocol import proof as proof_mod
     from stark_tpu_torch.protocol import runner
     from stark_tpu_torch.r1cs.synth import squaring_chain
 
+    mxu_ntt.CACHE_DIR = PLAN_CACHE
     t0 = time.time()
     r1cs, witness = squaring_chain(constraints)
     out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
            "staged": mesh.staged, "synthesis_s": time.time() - t0}
     wrap = wrappers()
 
-    def prove(fri_fold="dft", digest="blake2s"):
+    def prove(fri_fold="dft", digest="blake2s", lde_engine="butterfly"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         mesh.reset_stats()
         t0 = time.time()
         proof = runner.prove_with_witness(r1cs, witness, mesh=mesh, digest=digest,
-                                          device=mesh.device, fri_fold=fri_fold)
+                                          device=mesh.device, fri_fold=fri_fold,
+                                          lde_engine=lde_engine)
         wall = time.time() - t0
         text = proof_mod.to_json(proof)
         return {"wall_s": wall, "peak_bytes": torch.cuda.max_memory_allocated(),
@@ -1981,9 +2154,66 @@ def mesh_rank(mesh, constraints: int, routes) -> dict:
     out["warm"], _ = counted()
     for fri_fold, digest in routes:
         out[f"{fri_fold}, {digest}"], _ = prove(fri_fold, digest)
+    if crt:
+        from stark_tpu_torch.fields.field import BN254_FR as spec
+        from stark_tpu_torch.protocol.params import derive_params
+
+        params = derive_params(spec, 3 * constraints)
+        g2 = spec.root_of_unity(params.precision)
+        g1 = pow(g2, params.precision // params.steps, spec.p)
+        d, p = mesh.size, spec.p
+        t0 = time.time()
+        for root, m in ((pow(spec.inv(g1), d, p), params.steps // d),
+                        (pow(g2, d, p), params.precision // d)):
+            mxu_ntt.make_ntt_plan_cached(spec, root, m, mesh.device)
+        out["crt_table_build_s"] = time.time() - t0
+        for key in ("cold", "warm"):
+            rec, _ = counted(lde_engine="crt")
+            bytes_of = lambda r: {k: v["bytes"] for k, v in r["collectives"].items()}  # noqa: E731
+            if bytes_of(rec) != bytes_of(out[key]):
+                raise AssertionError(f"rank {mesh.rank} crt {key}: collectives' bytes "
+                                     f"{bytes_of(rec)} != the butterfly prove's "
+                                     f"{bytes_of(out[key])}")
+            out[f"crt {key}"] = rec
+    if lde_case:
+        out["lde_mxu_sharded"] = mesh_lde_case(mesh, wrap)
     if mesh.rank == 0:
         out["proof"] = text
     return out
+
+
+def mesh_lde_case(mesh, wrap) -> dict:
+    """`mxu_ntt.lde_mxu_sharded` of a (16, 2^17) column to 2^20
+    (`MESH_LDE_STEPS`, `MESH_LDE_PRECISION`) from the rank's chunk (every rank draws the same column from one seed), against
+    the rank's chunk of `lde_mxu` on one device (`torch.equal`); its wall
+    (synced: the collectives sync), collectives, the CRT kernels' launches,
+    and the single-device LDE's device time beside it."""
+    from stark_tpu_torch.fields.field import BN254_FR as spec
+    from stark_tpu_torch.ops import mxu_ntt
+
+    steps, precision = MESH_LDE_STEPS, MESH_LDE_PRECISION
+    d, r = mesh.size, mesh.rank
+    g2 = spec.root_of_unity(precision)
+    g1 = pow(g2, precision // steps, spec.p)
+    plans = mxu_ntt.make_lde_plans(spec, g1, g2, steps, precision, mesh.device)
+    trace = random_planes(np.random.default_rng(SEED + 14), spec, steps, mesh.device)
+    local = trace[:, r * steps // d : (r + 1) * steps // d].contiguous()
+    mesh.reset_stats()  # a fresh dict: the proves' records keep theirs
+    mxu_ntt.lde_mxu_sharded(mesh, *plans, local)  # warm
+    for fn in wrap.values():
+        fn.launches = 0
+    mesh.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = mxu_ntt.lde_mxu_sharded(mesh, *plans, local)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: wrap[name].launches for name in CRT_ONLY}
+    want = mxu_ntt.lde_mxu(*plans, trace)
+    m = precision // d
+    return {"equal": bool(torch.equal(got, want[:, r * m : (r + 1) * m])), "wall_s": wall,
+            "collectives": mesh.stats, "launches": launches,
+            "single_device_ms": median_ms(lambda: mxu_ntt.lde_mxu(*plans, trace), 3)}
 
 
 def phase_mesh(want_sha: str, want_poseidon_sha: str, r1cs, witness) -> dict:
@@ -1992,7 +2222,9 @@ def phase_mesh(want_sha: str, want_poseidon_sha: str, r1cs, witness) -> dict:
     d = 2 where the host has two cards. Every rank's proofs must equal phase
     5's (`real_size_poseidon`'s under Poseidon), every kernel of
     `mesh_kernels()` must launch in every rank's cold prove, and rank 0's
-    proof must pass the single-device verifier."""
+    proof must pass the single-device verifier. At d = 2 the ranks also
+    prove on the CRT engine, at d = 2 and 4 they run `mesh_lde_case`
+    (`mesh_rank`); the CRT kernels must launch in every rank there too."""
     from stark_tpu_torch.parallel import distributed
     from stark_tpu_torch.protocol import proof as proof_mod
     from stark_tpu_torch.protocol import runner
@@ -2002,17 +2234,19 @@ def phase_mesh(want_sha: str, want_poseidon_sha: str, r1cs, witness) -> dict:
            "why_gloo": "NCCL needs a card a rank; ranks that share one card take gloo, "
                        "each collective staged through pinned host buffers",
            "walls_measure": "host-staged gloo among ranks on one card, not multi-card scaling"}
+    # (label, d, backend, routes, crt proves, the lde_mxu_sharded case)
     runs = [(f"gloo d={d}", d, "gloo", (("lagrange", "blake2s"), ("dft", "poseidon"))
-             if d == 2 else ()) for d in MESH_SIZES]
+             if d == 2 else (), d == 2, True) for d in MESH_SIZES]
     if cards >= 2:
-        runs.append(("nccl d=2", 2, "nccl", ()))
+        runs.append(("nccl d=2", 2, "nccl", (), False, False))
     else:
         out["nccl"] = f"not run: {cards} card"
-    for label, d, backend, routes in runs:
+    for label, d, backend, routes, crt, lde_case in runs:
         torch.cuda.empty_cache()
         t0 = time.time()
         ranks = distributed.run_ranks(mesh_rank, d, device="cuda", backend=backend,
-                                      timeout=MESH_TIMEOUT_S, args=(REAL_CONSTRAINTS, routes))
+                                      timeout=MESH_TIMEOUT_S,
+                                      args=(REAL_CONSTRAINTS, routes, crt, lde_case))
         for rank in ranks:
             for key, rec in rank.items():
                 if isinstance(rec, dict) and "proof_sha256" in rec:
@@ -2021,6 +2255,16 @@ def phase_mesh(want_sha: str, want_poseidon_sha: str, r1cs, witness) -> dict:
                         raise AssertionError(f"{label} rank {rank['rank']} {key}: the proof "
                                              "differs from the single-device one")
             missing = [n for n in mesh_kernels() if rank["cold"]["launches"][n] <= 0]
+            if crt:
+                missing += [f"crt: {n}" for n in CRT_ONLY
+                            if rank["crt cold"]["launches"][n] <= 0]
+            if lde_case:
+                case = rank["lde_mxu_sharded"]
+                if not case["equal"]:
+                    raise AssertionError(f"{label} rank {rank['rank']}: lde_mxu_sharded != "
+                                         "the single-device lde_mxu")
+                missing += [f"lde_mxu_sharded: {n}" for n, k in case["launches"].items()
+                            if k <= 0]
             if missing:
                 raise AssertionError(f"{label} rank {rank['rank']}: not launched: {missing}")
         proof = proof_mod.from_json(ranks[0].pop("proof"))
@@ -2132,6 +2376,11 @@ def main(argv=None) -> int:
           **crt_run, "seconds": time.time() - t0})
 
     t0 = time.time()
+    shoup = phase_shoup_lde(spec, device, params)
+    emit({"phase": "shoup_lde", "steps": params.steps, "precision": params.precision,
+          **shoup, "seconds": time.time() - t0})
+
+    t0 = time.time()
     big = phase_big_domain(device)
     emit({"phase": "big_domain", **big, "seconds": time.time() - t0})
 
@@ -2147,13 +2396,17 @@ def main(argv=None) -> int:
                      else ("crt", crt_run) if name in CRT_ONLY
                      else ("goldens: bits", bits) if name in BITS_ONLY
                      else ("real_size_poseidon", pos_real) if name in POSEIDON_ONLY
+                     else ("shoup_lde", shoup) if name in SHOUP_ONLY
                      else ("real_size", real))
+        launches_mesh = {str(d): [rank["cold"]["launches"][name]
+                                  for rank in mesh[f"gloo d={d}"]["ranks"]]
+                         for d in MESH_SIZES}
+        launches_mesh["2, crt"] = [rank["crt cold"]["launches"][name]
+                                   for rank in mesh["gloo d=2"]["ranks"]]
         return {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "path": path, "launches": run["launches"][name],
                 "launches_big_domain": big["cold"]["launches"][name],
-                "launches_mesh": {str(d): [rank["cold"]["launches"][name]
-                                           for rank in mesh[f"gloo d={d}"]["ranks"]]
-                                  for d in MESH_SIZES},
+                "launches_mesh": launches_mesh,
                 "max_abs_err": kstats[name]["max_abs_err"], "case": label,
                 "ms": case["ms"], "plain_ms": case["plain_ms"],
                 "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],

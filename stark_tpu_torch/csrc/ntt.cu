@@ -109,6 +109,31 @@
 //   gives every thread the same pattern (a thread's two butterflies of l = 2
 //   take k = 0 and k = 1), so all of l = 1 and half of l = 2 skip whole
 //   warps.
+//
+// butterfly_pass_shoup and butterfly_fused_shoup: the Shoup-twiddle forms of
+// the two (stark_tpu/ops/pallas_field.py:427 _single_stage_kernel and :483
+// _fused_kernel with shoup=True, the arithmetic of :407
+// _butterfly_pair_shoup). Twiddles are plain values w with their companions
+// floor(w 2^256 / p), 16 words an entry (64 bytes, twice the Montgomery
+// form's 32); the product is field.cuh's shoup_mul (exact quotient, result
+// below 2p for any operand below 2^256); every value lies in [0, 2p), sums and
+// differences keep their carry out of bit 256 and subtract 2p where they
+// reach it, so any field with 2p < 2^256 takes them (BN254's and BLS12-381's
+// scalar fields); with `canon` the last stage's outputs are reduced below p.
+// - butterfly_pass_shoup is butterfly_pass's tile (same index map, 16 KB of
+//   shared memory, 256 threads), its twiddle four 16-byte loads. Bound: the
+//   column's bytes, as the Montgomery pass, plus the companions' (the pass's
+//   table doubles: 2 x 16 MiB at 2^20 against 2 x 128 MiB of column).
+// - butterfly_fused_shoup is a simple kernel: one CTA a block of up to 2048
+//   elements, held word major in 64 KB of dynamic shared memory, 256 threads,
+//   one __syncthreads a stage, each thread's butterflies strided by 256. The
+//   companions double the Montgomery pass's 32 KB of staged twiddles, and two
+//   CTAs of that design (64 KB of exchange buffers and 64 KB of twiddles
+//   each) no longer fit an SM's 228 KB: here the twiddles are read from
+//   global memory (the (block - 1, 16) table, 128 KB, stays in L2 and L1),
+//   not staged, so three CTAs an SM fit. Bound: the products, as the
+//   Montgomery pass; a Shoup product costs 5.96 SM clocks a thread against a
+//   CIOS product's 7.36-7.42 (PERF.md).
 #include <cooperative_groups.h>
 
 #include "field.cuh"
@@ -709,6 +734,221 @@ butterfly_pass_kernel(const int32_t* __restrict__ a, const uint4* __restrict__ t
   }
 }
 
+// --- the Shoup-twiddle form -------------------------------------------------
+
+// r = a + b over 8 words; returns the carry out of bit 256
+__device__ __forceinline__ uint32_t add_words_carry(const uint32_t (&a)[stark::NW],
+                                                    const uint32_t (&b)[stark::NW],
+                                                    uint32_t (&r)[stark::NW]) {
+  uint32_t s[stark::NW], carry;
+  asm("add.cc.u32 %0, %9, %17;\n\t"
+      "addc.cc.u32 %1, %10, %18;\n\t"
+      "addc.cc.u32 %2, %11, %19;\n\t"
+      "addc.cc.u32 %3, %12, %20;\n\t"
+      "addc.cc.u32 %4, %13, %21;\n\t"
+      "addc.cc.u32 %5, %14, %22;\n\t"
+      "addc.cc.u32 %6, %15, %23;\n\t"
+      "addc.cc.u32 %7, %16, %24;\n\t"
+      "addc.u32 %8, 0, 0;"
+      : "=r"(s[0]), "=r"(s[1]), "=r"(s[2]), "=r"(s[3]), "=r"(s[4]), "=r"(s[5]),
+        "=r"(s[6]), "=r"(s[7]), "=r"(carry)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]),
+        "r"(a[7]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]),
+        "r"(b[6]), "r"(b[7]));
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i) r[i] = s[i];
+  return carry;
+}
+
+// s (with `carry` as bit 256) less 2p where it reaches 2p; s < 4p
+__device__ __forceinline__ void reduce_2p(const uint32_t (&p2)[stark::NW], uint32_t carry,
+                                          uint32_t (&s)[stark::NW]) {
+  uint32_t d[stark::NW];
+  const uint32_t borrow = sub_words(s, p2, d);
+  const bool ge = carry != 0 || borrow == 0;
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i) s[i] = ge ? d[i] : s[i];
+}
+
+// One Shoup butterfly in place, u, v in [0, 2p), w < p plain, wp its
+// companion (_butterfly_pair_shoup): dif: u + v, (u - v) w; dit: t = v w,
+// u + t, u - t; each sum a + b and difference a + 2p - b less 2p where it
+// reaches 2p, each product below 2p; with CANON both outputs below p.
+template <bool DIT>
+__device__ __forceinline__ void shoup_butterfly(const stark::Field& f,
+                                                const uint32_t (&p2)[stark::NW],
+                                                uint32_t (&u)[stark::NW],
+                                                uint32_t (&v)[stark::NW],
+                                                const uint32_t (&w)[stark::NW],
+                                                const uint32_t (&wp)[stark::NW],
+                                                bool canon) {
+  uint32_t t[stark::NW], d[stark::NW];
+  if (DIT) {
+    stark::shoup_mul(f, w, wp, v, t);
+    sub_words(p2, t, d);  // 2p - t > 0
+    reduce_2p(p2, add_words_carry(u, d, v), v);
+    reduce_2p(p2, add_words_carry(u, t, u), u);
+  } else {
+    sub_words(p2, v, d);  // 2p - v > 0
+    reduce_2p(p2, add_words_carry(u, d, t), t);
+    reduce_2p(p2, add_words_carry(u, v, u), u);
+    stark::shoup_mul(f, w, wp, t, v);
+  }
+  if (canon) {
+    sub_if_ge(u, f.p);
+    sub_if_ge(v, f.p);
+  }
+}
+
+__device__ __forceinline__ void load_shoup_tw(const uint4* __restrict__ tw, int64_t e,
+                                              uint32_t (&w)[stark::NW],
+                                              uint32_t (&wp)[stark::NW]) {
+  const uint4 t0 = tw[4 * e], t1 = tw[4 * e + 1], t2 = tw[4 * e + 2], t3 = tw[4 * e + 3];
+  w[0] = t0.x; w[1] = t0.y; w[2] = t0.z; w[3] = t0.w;
+  w[4] = t1.x; w[5] = t1.y; w[6] = t1.z; w[7] = t1.w;
+  wp[0] = t2.x; wp[1] = t2.y; wp[2] = t2.z; wp[3] = t2.w;
+  wp[4] = t3.x; wp[5] = t3.y; wp[6] = t3.z; wp[7] = t3.w;
+}
+
+// butterfly_pass_kernel's tile and index map with Shoup butterflies; tw is
+// the largest stage's table, l0 2^(R-1) entries of 16 words (w, then its
+// companion). With canon, the last stage's outputs are reduced below p.
+template <bool DIT, int R>
+__global__ void __launch_bounds__(PASS_TILE / 2)
+butterfly_pass_shoup_kernel(const int32_t* __restrict__ a, const uint4* __restrict__ tw,
+                            int32_t* __restrict__ out, int64_t n, int log_l0, int log_k,
+                            int canon, stark::Field f) {
+  __shared__ __align__(16) uint32_t xs[stark::NW][PASS_TILE];
+  const int K = 1 << log_k;
+  const int64_t l0 = int64_t(1) << log_l0;
+  const int64_t k0 = (static_cast<int64_t>(blockIdx.x) << log_k) & (l0 - 1);
+  const int64_t g = static_cast<int64_t>(blockIdx.x) >> (log_l0 - log_k);
+  const int64_t base = (g << (log_l0 + R)) + k0;
+  uint32_t p2[stark::NW];  // 2p
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i)
+    p2[i] = (f.p[i] << 1) | (i > 0 ? f.p[i - 1] >> 31 : 0u);
+  const int e = 2 * threadIdx.x;
+  const int64_t col = base + (e >> log_k) * l0 + (e & (K - 1));
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i) {
+    const int2 lo = *reinterpret_cast<const int2*>(a + 2 * i * n + col);
+    const int2 hi = *reinterpret_cast<const int2*>(a + (2 * i + 1) * n + col);
+    *reinterpret_cast<uint2*>(&xs[i][e]) =
+        make_uint2((static_cast<uint32_t>(lo.x) & 0xFFFFu) | (static_cast<uint32_t>(hi.x) << 16),
+                   (static_cast<uint32_t>(lo.y) & 0xFFFFu) | (static_cast<uint32_t>(hi.y) << 16));
+  }
+  __syncthreads();
+  const int c = threadIdx.x & (K - 1), jj = threadIdx.x >> log_k;
+#pragma unroll
+  for (int st = 0; st < R; ++st) {
+    const int s = DIT ? st : R - 1 - st;
+    const int j = ((jj >> s) << (s + 1)) | (jj & ((1 << s) - 1));  // bit s clear
+    const int iu = j * K + c, iv = iu + (K << s);
+    uint32_t u[stark::NW], v[stark::NW], w[stark::NW], wp[stark::NW];
+#pragma unroll
+    for (int q = 0; q < stark::NW; ++q) {
+      u[q] = xs[q][iu];
+      v[q] = xs[q][iv];
+    }
+    load_shoup_tw(tw, (k0 + c + (j & ((1 << s) - 1)) * l0) << (R - 1 - s), w, wp);
+    shoup_butterfly<DIT>(f, p2, u, v, w, wp, canon && st == R - 1);
+#pragma unroll
+    for (int q = 0; q < stark::NW; ++q) {
+      xs[q][iu] = u[q];
+      xs[q][iv] = v[q];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i) {
+    const uint2 x = *reinterpret_cast<const uint2*>(&xs[i][e]);
+    *reinterpret_cast<int2*>(out + 2 * i * n + col) =
+        make_int2(static_cast<int32_t>(x.x & 0xFFFFu), static_cast<int32_t>(x.y & 0xFFFFu));
+    *reinterpret_cast<int2*>(out + (2 * i + 1) * n + col) =
+        make_int2(static_cast<int32_t>(x.x >> 16), static_cast<int32_t>(x.y >> 16));
+  }
+}
+
+constexpr int FS_THREADS = 256;  // threads of a fused Shoup CTA
+
+// The fused run of Shoup stages 2l <= block (l = 1 .. block/2; DIT
+// ascending, DIF descending), one CTA a block: the block's elements word
+// major in shared memory (element i's word q at xs[q * block + i]), each
+// stage's block/2 butterflies strided over the threads, twiddle l - 1 + k of
+// the (block - 1, 16) table read from global memory. With canon the last
+// stage's outputs are reduced below p.
+template <bool DIT>
+__global__ void __launch_bounds__(FS_THREADS)
+butterfly_fused_shoup_kernel(const int32_t* __restrict__ a, const uint4* __restrict__ tw,
+                             int32_t* __restrict__ out, int64_t n, int log_block, int canon,
+                             stark::Field f) {
+  extern __shared__ __align__(16) uint32_t fs[];
+  const int block = 1 << log_block, half = block >> 1;
+  uint32_t p2[stark::NW];  // 2p
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i)
+    p2[i] = (f.p[i] << 1) | (i > 0 ? f.p[i - 1] >> 31 : 0u);
+  for (int64_t blk = blockIdx.x; blk < (n >> log_block); blk += gridDim.x) {
+    const int64_t base = blk << log_block;
+    __syncthreads();  // the last block's stores have read xs
+    for (int i = threadIdx.x; i < block; i += blockDim.x) {
+      uint32_t w[stark::NW];
+      stark::load_elem(a, n, base + i, w);
+#pragma unroll
+      for (int q = 0; q < stark::NW; ++q) fs[q * block + i] = w[q];
+    }
+    __syncthreads();
+    for (int st = 0; st < log_block; ++st) {
+      const int s = DIT ? st : log_block - 1 - st, l = 1 << s;
+      const bool last = canon && st == log_block - 1;
+      for (int j = threadIdx.x; j < half; j += blockDim.x) {
+        const int k = j & (l - 1), i0 = ((j >> s) << (s + 1)) + k, i1 = i0 + l;
+        uint32_t u[stark::NW], v[stark::NW], w[stark::NW], wp[stark::NW];
+#pragma unroll
+        for (int q = 0; q < stark::NW; ++q) {
+          u[q] = fs[q * block + i0];
+          v[q] = fs[q * block + i1];
+        }
+        load_shoup_tw(tw, l - 1 + k, w, wp);
+        shoup_butterfly<DIT>(f, p2, u, v, w, wp, last);
+#pragma unroll
+        for (int q = 0; q < stark::NW; ++q) {
+          fs[q * block + i0] = u[q];
+          fs[q * block + i1] = v[q];
+        }
+      }
+      __syncthreads();
+    }
+    for (int i = threadIdx.x; i < block; i += blockDim.x) {
+      uint32_t w[stark::NW];
+#pragma unroll
+      for (int q = 0; q < stark::NW; ++q) w[q] = fs[q * block + i];
+      stark::store_elem(out, n, base + i, w);
+    }
+  }
+}
+
+template <bool DIT>
+cudaError_t launch_pass_shoup(int stages, const int32_t* a, const uint4* tw, int32_t* out,
+                              int64_t n, int log_l0, int canon, const stark::Field& f,
+                              cudaStream_t st) {
+  int log_k = 0;  // K = min(l0, PASS_TILE / 2^stages), as launch_pass
+  while ((2 << log_k) << stages <= PASS_TILE && log_k < log_l0) ++log_k;
+  const unsigned blocks = static_cast<unsigned>(n >> (stages + log_k));
+  const unsigned threads = (1u << (stages + log_k)) / 2;
+  if (stages == 1)
+    butterfly_pass_shoup_kernel<DIT, 1><<<blocks, threads, 0, st>>>(a, tw, out, n, log_l0,
+                                                                    log_k, canon, f);
+  else if (stages == 2)
+    butterfly_pass_shoup_kernel<DIT, 2><<<blocks, threads, 0, st>>>(a, tw, out, n, log_l0,
+                                                                    log_k, canon, f);
+  else
+    butterfly_pass_shoup_kernel<DIT, 3><<<blocks, threads, 0, st>>>(a, tw, out, n, log_l0,
+                                                                    log_k, canon, f);
+  return cudaGetLastError();
+}
+
 template <bool DIT, bool LAZY>
 cudaError_t launch_pass(int stages, const int32_t* a, const uint4* tw, int32_t* out,
                         int64_t n, int log_l0, const stark::Field& f, cudaStream_t st) {
@@ -820,4 +1060,62 @@ extern "C" int stark_butterfly_pass(const void* a, const void* tw, void* out, lo
            : (dit ? launch_pass<true, false>(stages, ap, tp, op, n, log_l0, f, st)
                   : launch_pass<false, false>(stages, ap, tp, op, n, log_l0, f, st));
   return static_cast<int>(err);
+}
+
+// The Shoup forms (see the header). Both need 2p < 2^256; tw holds 16 words
+// an entry: l0 2^(stages-1) entries for the pass (its largest stage's table),
+// block - 1 for the fused run (stage l's at l - 1 .. 2l - 2). canon: the last
+// stage's outputs below p.
+extern "C" int stark_butterfly_pass_shoup(const void* a, const void* tw, void* out,
+                                          long long n, long long l0, int stages, int dit,
+                                          int canon, const uint32_t* p_words, uint32_t np,
+                                          void* stream) {
+  int log_l0 = 0;
+  while ((1LL << log_l0) < l0) ++log_l0;
+  if (stages < 1 || stages > PASS_MAX_STAGES || (1LL << log_l0) != l0 ||
+      n % (l0 << stages) != 0 || p_words[stark::NW - 1] >= 0x80000000u)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  const stark::Field f = stark::make_field(p_words, np);
+  const int32_t* ap = static_cast<const int32_t*>(a);
+  const uint4* tp = static_cast<const uint4*>(tw);
+  int32_t* op = static_cast<int32_t*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dit ? launch_pass_shoup<true>(stages, ap, tp, op, n, log_l0, canon, f, st)
+                              : launch_pass_shoup<false>(stages, ap, tp, op, n, log_l0, canon, f, st));
+}
+
+extern "C" int stark_butterfly_fused_shoup(const void* a, const void* tw, void* out,
+                                           long long n, int block, int dit, int canon,
+                                           const uint32_t* p_words, uint32_t np, void* stream) {
+  int log_block = 0;
+  while ((1 << log_block) < block) ++log_block;
+  if (block < 2 || (1 << log_block) != block || log_block > FB_MAX_LOG || n % block != 0 ||
+      p_words[stark::NW - 1] >= 0x80000000u)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = n / block;
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = static_cast<size_t>(block) * stark::NW * sizeof(uint32_t);
+  auto kernel = dit ? butterfly_fused_shoup_kernel<true> : butterfly_fused_shoup_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0, sms = 0, dev = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FS_THREADS, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long grid = static_cast<long long>(per_sm) * sms;  // persistent: a CTA walks blocks
+  if (grid < 1 || grid > blocks) grid = blocks;
+  const stark::Field f = stark::make_field(p_words, np);
+  const int32_t* ap = static_cast<const int32_t*>(a);
+  const uint4* tp = static_cast<const uint4*>(tw);
+  int32_t* op = static_cast<int32_t*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned g = static_cast<unsigned>(grid);
+  if (dit)
+    butterfly_fused_shoup_kernel<true><<<g, FS_THREADS, smem, st>>>(ap, tp, op, n, log_block, canon, f);
+  else
+    butterfly_fused_shoup_kernel<false><<<g, FS_THREADS, smem, st>>>(ap, tp, op, n, log_block, canon, f);
+  return static_cast<int>(cudaGetLastError());
 }

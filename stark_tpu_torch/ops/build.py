@@ -46,6 +46,14 @@ _SIGNATURES = {
         _vp, _vp, _vp, _ll, _ll, ctypes.c_int, ctypes.c_int, ctypes.c_int, _u32p,
         ctypes.c_uint32, _vp,
     ],
+    "stark_butterfly_pass_shoup": [
+        _vp, _vp, _vp, _ll, _ll, ctypes.c_int, ctypes.c_int, ctypes.c_int, _u32p,
+        ctypes.c_uint32, _vp,
+    ],
+    "stark_butterfly_fused_shoup": [
+        _vp, _vp, _vp, _ll, ctypes.c_int, ctypes.c_int, ctypes.c_int, _u32p,
+        ctypes.c_uint32, _vp,
+    ],
     "stark_blake2s_words": [_vp, _vp, _ll, ctypes.c_int, _ll, _vp],
     "stark_poseidon_leaves": [
         _vp, _vp, _ll, _ll, _vp, ctypes.c_int, _u32p, ctypes.c_uint32, _vp,

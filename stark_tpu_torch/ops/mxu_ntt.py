@@ -24,7 +24,11 @@ digit planes as int8, the twiddle pre-tables as int16 (every prime is below
 is cached on disk as an `.npz` under `CACHE_DIR`, a module attribute that a
 deployment sets before its first plan; the port never reads a file the JAX
 package wrote.
-`lde_mxu_sharded` waits for the multi-GPU slice.
+
+`lde_mxu_sharded` is the LDE on a mesh (`parallel/distributed.py
+DomainMesh`): each rank runs the matrix products on its share of the batch
+axes, and the (n1, n2) transposes between the two products of a transform
+are the all-to-alls between ranks.
 """
 
 from __future__ import annotations
@@ -293,3 +297,62 @@ def lde_mxu_many(inv_plan: MxuNttPlan, big_plan, traces) -> list:
     """LDE a list of (L, steps) columns, one after the other (there is no
     traced module to share: peak memory is one column's working set)."""
     return [lde_mxu(inv_plan, big_plan, t) for t in traces]
+
+
+def _exchange(mesh, x: torch.Tensor) -> torch.Tensor:
+    """(L, d, A, C): block q of axis 1 goes to rank q -> (L, d, A, C) whose
+    block s came from rank s (`DomainMesh.all_to_all`)."""
+    L, d, A, C = x.shape
+    return mesh.all_to_all(x.reshape(L, d, A * C)).reshape(L, d, A, C)
+
+
+def _ntt_mxu_cols(plan: MxuNttPlan, x: torch.Tensor, mesh) -> torch.Tensor:
+    """`ntt_mxu`'s two products on a mesh: x (L, nz1, n2/d) is every row of
+    the rank's chunk of n2 columns. Step A on it, the transpose as an
+    all-to-all (the rank gets every j2 of its chunk of n1/d k1), step B with
+    that chunk of the twiddle pre-table. -> (L, n2, n1/d): X[k2, k1] for the
+    rank's k1."""
+    L, d, r = x.shape[0], mesh.size, mesh.rank
+    c1, c2 = plan.n1 // d, plan.n2 // d
+    a1 = crt.crt_matmul(plan.basis_a, plan.plan_a, x.contiguous())  # (L, n1, n2/d)
+    a1 = a1.transpose(1, 2).reshape(L, c2, d, c1).transpose(1, 2)  # (L, d, n2/d, n1/d)
+    b = _exchange(mesh, a1).reshape(L, plan.n2, c1)
+    pre = plan.twiddle[:, :, r * c1 : (r + 1) * c1].contiguous()
+    return crt.crt_matmul(plan.basis_b, plan.plan_b, b, pre=pre)
+
+
+def lde_mxu_sharded(mesh, inv_plan: MxuNttPlan, big_plan, trace_local: torch.Tensor):
+    """The rank's contiguous chunk of `lde_mxu(inv_plan, big_plan, trace)`
+    from its contiguous (L, steps/d) chunk of the trace
+    (`stark_tpu/ops/mxu_ntt.py:387-410`, where GSPMD shards the batch axes).
+    Both transforms run their products on the rank's share of the batch
+    axes: an all-to-all gives each rank every row of its columns, one more
+    is the transpose between the products. The steps-domain coefficients
+    are all-gathered, as `parallel/prove_sharded.py lde_local` does, and each
+    rank takes its columns of the zero-padded (nz1, n2) view; a last
+    all-to-all restores the natural contiguous chunks. No rank holds more
+    of a precision-domain column than its chunk's worth. Every collective
+    is counted in `mesh.stats`. Two-level plans only, with every n1 and n2
+    a multiple of d."""
+    d, r = mesh.size, mesh.rank
+    if not isinstance(big_plan, MxuNttPlan):
+        raise ValueError("lde_mxu_sharded takes the two-level plan (precision <= 2^20)")
+    if any(k % d for k in (inv_plan.n1, inv_plan.n2, big_plan.n1, big_plan.n2)):
+        raise ValueError(
+            f"lde_mxu_sharded needs the plans' n1 and n2 to be multiples of d = {d}: "
+            f"({inv_plan.n1}, {inv_plan.n2}) and ({big_plan.n1}, {big_plan.n2})")
+    L, m = trace_local.shape
+    steps, n1i, n2i = m * d, inv_plan.n1, inv_plan.n2
+    if steps != inv_plan.n or big_plan.nz1 * big_plan.n2 != steps:
+        raise ValueError(f"a trace chunk of {m} columns does not fit the plans over {d} ranks")
+    # the iNTT: every j1 of the rank's j2 chunk
+    x = trace_local.reshape(L, n1i // d, d, n2i // d).transpose(1, 2)
+    x = _exchange(mesh, x).reshape(L, n1i, n2i // d)
+    coeff = _ntt_mxu_cols(inv_plan, x, mesh)  # (L, n2i, n1i/d): c = k1 + n1i k2
+    coeffs = mesh.all_gather_stack(coeff).permute(1, 2, 0, 3).reshape(L, steps)
+    # the forward transform on the rank's n2 chunk of the (nz1, n2) view
+    c2 = big_plan.n2 // d
+    x = coeffs.reshape(L, big_plan.nz1, big_plan.n2)[:, :, r * c2 : (r + 1) * c2]
+    out = _ntt_mxu_cols(big_plan, x, mesh)  # (L, n2, n1/d)
+    out = _exchange(mesh, out.reshape(L, d, c2, big_plan.n1 // d))
+    return out.transpose(1, 2).reshape(L, big_plan.n // d)

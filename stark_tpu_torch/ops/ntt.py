@@ -15,13 +15,30 @@ and as the multi-stage pass, and `:518 butterfly_fused`) and run their
 plain PyTorch versions on a CPU tensor.
 `make_best_lde` picks the LDE engine by name: these butterflies, or the CRT
 matrix-product engine of `ops/mxu_ntt.py`.
+
+A plan built with `shoup=True` is the JAX package's Shoup-twiddle form
+(`NttPlan.shoup`, which its `STARK_TPU_SHOUP` turns on; `_shoup_stage_tables
+:74-103`, `_run_pallas :304-330`): plain twiddles w with their companions
+floor(w 2^256 / p) (`shoup_stage_tables`), values lazy in [0, 2p) between
+stages (`_butterfly_pair_shoup`, `pallas_field.py:407`), and a DIT plan's
+last stage canonical. Its passes run `butterfly_pass_shoup` and
+`butterfly_fused_shoup`, the Shoup forms of the TPU's `butterfly_stage`
+and `butterfly_fused` bodies (`pallas_field.py:427 _single_stage_kernel`,
+`:483 _fused_kernel` with `shoup=True`). The product's quotient is exact
+(`csrc/field.cuh shoup_mul`), where the TPU's drops the partial product's
+low columns and may come out one short, which its extra subtraction of 2p
+absorbs; and a lazy sum keeps its carry out of bit 256, which the TPU's
+drops. So every canonical value is the JAX package's, a lazy value may
+differ from it by p, and the form needs only 2p < 2^256 (BLS12-381's scalar
+field too, where the TPU's lazy sums overflow). Nothing above this module
+builds a Shoup plan: the prover's default is the JAX package's.
 """
 
 from __future__ import annotations
 
 import torch
 
-from stark_tpu_torch.fields.field import FieldSpec
+from stark_tpu_torch.fields.field import FieldSpec, int_to_limbs
 from stark_tpu_torch.ops import build
 from stark_tpu_torch.ops import field_cuda as fc
 from stark_tpu_torch.ops import modmath as mm
@@ -216,29 +233,227 @@ butterfly_pass.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the Shoup-twiddle form: plain versions and kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _less_2p(spec: FieldSpec, limbs, top):
+    """value = top 2^256 + limbs (int64 16-bit limbs, value < 4p) -> value
+    - 2p where value >= 2p, else value."""
+    d, borrow = fc.normalize(limbs - fc._col(int_to_limbs(2 * spec.p, spec.num_limbs), limbs))
+    return torch.where(((borrow == 0) | (top != 0))[None], d, limbs)
+
+
+def _add_lazy(spec: FieldSpec, a, b):
+    """a + b for a, b < 2p, less 2p where the sum reaches it: [0, 2p)
+    (`_add_rows_lazy`, with the carry out of bit 256 kept)."""
+    return _less_2p(spec, *fc.normalize(a + b))
+
+
+def _sub_lazy(spec: FieldSpec, a, b):
+    """a - b + 2p for a, b < 2p, less 2p where it reaches it: [0, 2p)
+    (`_sub_rows_lazy`, with the carry kept)."""
+    two_p = fc._col(int_to_limbs(2 * spec.p, spec.num_limbs), a)
+    return _less_2p(spec, *fc.normalize(a + two_p - b))
+
+
+def _shoup_mul(spec: FieldSpec, w, wp, x):
+    """w x mod p up to one p, in [0, 2p), for a plain w < p with its
+    companion wp = floor(w 2^256 / p) and any x < 2^256: q = floor(wp x /
+    2^256) exactly, r = w x - q p (`csrc/field.cuh shoup_mul`). int64 limb
+    planes of one shape (L, k)."""
+    L = spec.num_limbs
+    t, _ = fc.normalize(fc.mul_cols(wp, x, 2 * L))
+    wx, _ = fc.normalize(fc.mul_cols(w, x, L))
+    qp, _ = fc.normalize(fc.mul_cols(t[L:], fc._col(spec.p_limbs, x), L))
+    r, _ = fc.normalize(wx - qp)
+    return r
+
+
+def butterfly_stage_shoup_plain(spec: FieldSpec, a, tw2, m: int, l: int, kind: str,
+                                canon: bool = False):
+    """One Shoup stage on flat (L, n) `a` viewed as (L, m, 2, l), values in
+    [0, 2p); tw2: (2L, l), the plain twiddles' limbs over their companions'
+    (`shoup_stage_tables`). `_butterfly_pair_shoup`: dif: y0 = u + v,
+    y1 = (u - v) w; dit: t = v w, y0 = u + t, y1 = u - t; every value in
+    [0, 2p), and canonical with `canon`."""
+    L, n = a.shape
+    v4 = a.reshape(L, m, 2, l).to(torch.int64)
+    u, v = v4[:, :, 0].reshape(L, -1), v4[:, :, 1].reshape(L, -1)
+    w = tw2[:L].to(torch.int64).reshape(L, 1, l).expand(L, m, l).reshape(L, -1)
+    wp = tw2[L:].to(torch.int64).reshape(L, 1, l).expand(L, m, l).reshape(L, -1)
+    if kind == "dif":
+        y0 = _add_lazy(spec, u, v)
+        y1 = _shoup_mul(spec, w, wp, _sub_lazy(spec, u, v))
+    else:
+        t = _shoup_mul(spec, w, wp, v)
+        y0 = _add_lazy(spec, u, t)
+        y1 = _sub_lazy(spec, u, t)
+    if canon:
+        y0, y1 = (fc.cond_sub_p(spec, y, torch.zeros_like(y[0])) for y in (y0, y1))
+    out = torch.stack([y0.reshape(L, m, l), y1.reshape(L, m, l)], dim=2)
+    return out.reshape(L, n).to(torch.int32)
+
+
+def pack_shoup_words(tw2):
+    """(2L, k) Shoup planes -> (k, 16) words: an element's 8 packed words of
+    w, then 8 of its companion (`pack_words` of each half): the layout the
+    Shoup kernels read a twiddle in, 64 bytes."""
+    L = tw2.shape[0] // 2
+    return torch.cat([pack_words(tw2[:L]), pack_words(tw2[L:])], dim=1).contiguous()
+
+
+def unpack_shoup_words(words):
+    """Inverse of `pack_shoup_words`: (k, 16) -> (2L, k)."""
+    return torch.cat([unpack_words(words[:, :8].contiguous()),
+                      unpack_words(words[:, 8:].contiguous())], dim=0)
+
+
+def butterfly_pass_shoup_plain(spec: FieldSpec, a, tw_words, l0: int, r: int, kind: str,
+                               canon: bool = False):
+    """r consecutive Shoup stages, l = l0 .. l0 2^(r-1) (dit ascending, dif
+    descending), each a whole-array `butterfly_stage_shoup_plain`, the last
+    canonical with `canon`. tw_words: (l0 2^(r-1), 16), the largest stage's
+    table as `pack_shoup_words`."""
+    n = a.shape[1]
+    tw = unpack_shoup_words(tw_words)
+    top = l0 << (r - 1)
+    ls = pass_ls(l0, r, kind)
+    for i, l in enumerate(ls):
+        a = butterfly_stage_shoup_plain(spec, a, tw[:, :: top // l].contiguous(),
+                                        n // (2 * l), l, kind, canon and i == len(ls) - 1)
+    return a
+
+
+def butterfly_fused_shoup_plain(spec: FieldSpec, a, tw_words, block: int, kind: str,
+                                canon: bool = False):
+    """Every Shoup stage with 2l <= block, in order (dit: l ascending, dif:
+    l descending), the last canonical with `canon`. tw_words: (block - 1,
+    16), stage l's table at rows l-1 .. 2l-2 (`pack_shoup_words`)."""
+    n = a.shape[1]
+    tw = unpack_shoup_words(tw_words)
+    ls = fused_ls(block, kind)
+    for i, l in enumerate(ls):
+        a = butterfly_stage_shoup_plain(spec, a, tw[:, l - 1 : 2 * l - 1].contiguous(),
+                                        n // (2 * l), l, kind, canon and i == len(ls) - 1)
+    return a
+
+
+def _check_shoup_words(a, tw_words, rows: int):
+    if (tw_words.shape != (rows, 16) or tw_words.dtype != torch.int32
+            or not tw_words.is_contiguous() or tw_words.device != a.device):
+        raise ValueError(
+            f"Shoup twiddles: ({rows}, 16) contiguous int32 words on {a.device}, got "
+            f"{tuple(tw_words.shape)} {tw_words.dtype} on {tw_words.device}"
+        )
+
+
+def butterfly_pass_shoup(spec: FieldSpec, a, tw_words, l0: int, r: int, kind: str,
+                         canon: bool = False):
+    """A pass of r <= `PASS_STAGES` outer Shoup stages (see
+    `butterfly_pass_shoup_plain`) on a (16, n) plane of values in [0, 2p).
+    On a CUDA tensor each group of 2^r elements (stride l0) is read once,
+    its r stages run in shared memory and it is written once."""
+    _check_kind(kind)
+    fc.check_planes(spec, a)
+    n = a.shape[1]
+    if not 1 <= r <= PASS_STAGES or l0 < 1 or l0 & (l0 - 1) or n % (l0 << r):
+        raise ValueError(f"pass shapes: a {tuple(a.shape)}, l0={l0}, r={r}")
+    _check_shoup_words(a, tw_words, l0 << (r - 1))
+    if a.device.type == "cpu":
+        return butterfly_pass_shoup_plain(spec, a, tw_words, l0, r, kind, canon)
+    words, np32, stream = fc.cuda_args(spec, a)
+    out = torch.empty_like(a)
+    rc = build.load().stark_butterfly_pass_shoup(
+        a.data_ptr(), tw_words.data_ptr(), out.data_ptr(), n, l0, r,
+        int(kind == "dit"), int(canon), words, np32, stream,
+    )
+    build.check(rc, "butterfly_pass_shoup")
+    butterfly_pass_shoup.launches += 1
+    return out
+
+
+butterfly_pass_shoup.launches = 0
+
+
+def butterfly_fused_shoup(spec: FieldSpec, a, tw_words, block: int, kind: str,
+                          canon: bool = False):
+    """The fused run of small Shoup stages (see `butterfly_fused_shoup_plain`)
+    on a (16, n) plane of values in [0, 2p). On a CUDA tensor block is at
+    most `FUSED_BLOCK`."""
+    _check_kind(kind)
+    fc.check_planes(spec, a)
+    n = a.shape[1]
+    if block < 2 or block & (block - 1) or n % block:
+        raise ValueError(f"fused shapes: a {tuple(a.shape)}, block={block}")
+    _check_shoup_words(a, tw_words, block - 1)
+    if a.device.type == "cpu":
+        return butterfly_fused_shoup_plain(spec, a, tw_words, block, kind, canon)
+    words, np32, stream = fc.cuda_args(spec, a)
+    out = torch.empty_like(a)
+    rc = build.load().stark_butterfly_fused_shoup(
+        a.data_ptr(), tw_words.data_ptr(), out.data_ptr(), n, block,
+        int(kind == "dit"), int(canon), words, np32, stream,
+    )
+    build.check(rc, "butterfly_fused_shoup")
+    butterfly_fused_shoup.launches += 1
+    return out
+
+
+butterfly_fused_shoup.launches = 0
+
+
+def shoup_stage_tables(spec: FieldSpec, root: int, n: int, device="cpu") -> list:
+    """The Shoup form's stage tables (`stark_tpu/ops/ntt.py:74-103
+    _shoup_stage_tables`): for each stage, l ascending (1, 2, .., n/2), a
+    (2L, l) int32 plane of the plain twiddles root^(k n / 2l), k < l, over
+    their companions floor(w 2^256 / p), as 16-bit limbs. Every stage's
+    table is a stride of the largest's."""
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"NTT size must be a power of two >= 2, got {n}")
+    p = spec.p
+    tws, v = [], 1
+    for _ in range(n // 2):
+        tws.append(v)
+        v = v * root % p
+    top = torch.cat(mm.shoup_consts(spec, tws, device), dim=0)
+    return [top[:, :: (n // 2) // l].contiguous() for l in
+            (1 << s for s in range(n.bit_length() - 1))]
+
+
+# ---------------------------------------------------------------------------
 # plans
 # ---------------------------------------------------------------------------
 
 
 class NttPlan:
     """Twiddle tables for one (root, n, direction): "dif" natural ->
-    bit-reversed, "dit" bit-reversed -> natural."""
+    bit-reversed, "dit" bit-reversed -> natural. With `shoup` the tables are
+    the Shoup form's (`shoup_stage_tables`: each stage's (2L, l) plane; the
+    fused run's and each pass's as `pack_shoup_words`), which a 16-limb
+    field takes (the JAX package's `NttPlan.shoup`)."""
 
     def __init__(self, spec: FieldSpec, root: int, n: int, direction: str,
-                 device, block: int = FUSED_BLOCK):
+                 device, block: int = FUSED_BLOCK, shoup: bool = False):
         _check_kind(direction)
         if n < 1 or n & (n - 1):
             raise ValueError(f"NTT size must be a power of two, got {n}")
+        if shoup and (spec.num_limbs != 16 or n < 2):
+            raise ValueError(
+                f"the Shoup form takes 16-limb fields and n >= 2, not {spec.name} at n={n}")
         self.n = n
         self.direction = direction
         self.block = min(n, block)
-        w_half = mm.power_table(spec, root, max(n // 2, 1), device)
-        stages = []  # (m, l, tw), l ascending
-        l, m = 1, n // 2
-        while m >= 1 and l < n:
-            stages.append((m, l, w_half[:, ::m][:, :l].contiguous()))
-            l *= 2
-            m //= 2
+        self.shoup = shoup
+        if shoup:
+            tws = shoup_stage_tables(spec, root, n, device)
+        else:
+            w_half = mm.power_table(spec, root, max(n // 2, 1), device)
+            tws = [w_half[:, :: n // (2 << s)][:, : 1 << s].contiguous()
+                   for s in range(n.bit_length() - 1)]
+        # (m, l, tw), l ascending
+        stages = [(n // (2 << s), 1 << s, tw) for s, tw in enumerate(tws)]
+        pack = pack_shoup_words if shoup else pack_words
         fused = [s for s in stages if 2 * s[1] <= self.block]
         self.singles = [s for s in stages if 2 * s[1] > self.block]
         if direction == "dif":  # dif runs l descending
@@ -246,10 +461,12 @@ class NttPlan:
         self.fused_tw = (
             torch.cat([tw for (_, _, tw) in fused], dim=1) if fused else None
         )
+        if shoup and self.fused_tw is not None:
+            self.fused_tw = pack(self.fused_tw)
         # (l0, r, the table of width l0 2^(r-1) as packed words, which the
         # pass reads)
         tables = {l: tw for (_, l, tw) in stages}
-        self.passes = [(l0, r, pack_words(tables[l0 << (r - 1)]))
+        self.passes = [(l0, r, pack(tables[l0 << (r - 1)]))
                        for l0, r in pass_plan(n, self.block, direction)]
 
 
@@ -270,38 +487,52 @@ def pass_plan(n: int, block: int, kind: str) -> list[tuple[int, int]]:
 
 
 def run(spec: FieldSpec, a, plan: NttPlan):
-    """Execute a plan: the passes and the fused run in direction order."""
+    """Execute a plan: the passes and the fused run in direction order. A
+    Shoup plan (`_run_pallas`) leaves values in [0, 2p), but for a DIT
+    plan's last stage, which is canonical (`_dit_fast` asks for it, and
+    `_dif_fast` does not: the LDE's n^-1 product takes lazy coefficients)."""
+    kind = plan.direction
 
-    def fused(a):
+    def fused(a, canon):
         if plan.fused_tw is None:
             return a
-        return butterfly_fused(spec, a, plan.fused_tw, plan.block, plan.direction)
+        if plan.shoup:
+            return butterfly_fused_shoup(spec, a, plan.fused_tw, plan.block, kind, canon)
+        return butterfly_fused(spec, a, plan.fused_tw, plan.block, kind)
 
-    if plan.direction == "dif":
-        for l0, r, tw in plan.passes:
-            a = butterfly_pass(spec, a, tw, l0, r, "dif")
-        return fused(a)
-    a = fused(a)
-    for l0, r, tw in plan.passes:
-        a = butterfly_pass(spec, a, tw, l0, r, "dit")
-    return a
+    def passes(a, canon):
+        for i, (l0, r, tw) in enumerate(plan.passes):
+            if plan.shoup:
+                a = butterfly_pass_shoup(spec, a, tw, l0, r, kind,
+                                         canon and i == len(plan.passes) - 1)
+            else:
+                a = butterfly_pass(spec, a, tw, l0, r, kind)
+        return a
+
+    if kind == "dif":
+        return fused(passes(a, False), False)
+    canon = plan.shoup  # the DIT plan's last stage
+    return passes(fused(a, canon and not plan.passes), canon)
 
 
 class LdePlan:
-    """Plans for one (g1, g2, steps, precision) LDE shape."""
+    """Plans for one (g1, g2, steps, precision) LDE shape; `shoup` builds
+    both in the Shoup form."""
 
     def __init__(self, spec: FieldSpec, g1: int, g2: int, steps: int,
-                 precision: int, device, block: int = FUSED_BLOCK):
+                 precision: int, device, block: int = FUSED_BLOCK, shoup: bool = False):
         self.steps = steps
         self.precision = precision
-        self.small_dif = NttPlan(spec, spec.inv(g1), steps, "dif", device, block)
-        self.big_dit = NttPlan(spec, g2, precision, "dit", device, block)
+        self.small_dif = NttPlan(spec, spec.inv(g1), steps, "dif", device, block, shoup)
+        self.big_dit = NttPlan(spec, g2, precision, "dit", device, block, shoup)
         self.n_inv = mm.mont_const(spec, spec.inv(steps), device)
 
 
 def make_lde_plan(spec: FieldSpec, g1: int, g2: int, steps: int, precision: int,
-                  device, block: int = FUSED_BLOCK) -> LdePlan:
-    return LdePlan(spec, g1, g2, steps, precision, device, block)
+                  device, block: int = FUSED_BLOCK, shoup: bool = False) -> LdePlan:
+    """The LDE's plans; shoup=False is the JAX package's default (its
+    `STARK_TPU_SHOUP` turns the Shoup form on)."""
+    return LdePlan(spec, g1, g2, steps, precision, device, block, shoup)
 
 
 def lde(spec: FieldSpec, trace, plan: LdePlan):

@@ -9,11 +9,17 @@ contiguously over the d ranks and the transform decomposes as
 
 with the n1-axis DFT made local by an all-to-all, the twiddle product and
 the M-point DFT local, and a last all-to-all restoring the natural
-contiguous sharding. The products run on the `mmul` kernel, the local
-M-point DFT on the port's butterfly kernels (`ops/ntt.py run`: a DIF plan
-at root w_N^d, natural in, bit-reversed out) followed by the bit reversal
-that `_ntt_core` applies (`stark_tpu/ops/ntt.py:169-174`): the next
-all-to-all needs natural order. M must be a multiple of d (N >= d^2).
+contiguous sharding. The products run on the `mmul` kernel. The local
+M-point DFT (step 5) runs on either LDE engine (`make_tables`'
+`lde_engine`): on the port's butterfly kernels (`ops/ntt.py run`: a DIF
+plan at root w_N^d, natural in, bit-reversed out) followed by the bit
+reversal that `_ntt_core` applies (`stark_tpu/ops/ntt.py:169-174`), since
+the next all-to-all needs natural order; or, as the JAX body's `m_plan`
+routes it (`ntt4.py:80-84`), on the CRT matrix-product engine
+(`ops/mxu_ntt.py ntt_mxu`: the `residues_in`, `matmul_fold` and
+`reconstruct` kernels), which is natural in and out. The collectives and
+the layout are the same on either, so are the bytes between ranks. M must
+be a multiple of d (N >= d^2).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from stark_tpu_torch.fields.field import FieldSpec
 from stark_tpu_torch.ops import modmath as mm
+from stark_tpu_torch.ops import mxu_ntt
 from stark_tpu_torch.ops import ntt as nttm
 
 
@@ -31,13 +38,15 @@ from stark_tpu_torch.ops import ntt as nttm
 class Ntt4Tables:
     """One rank's tables for an order-n sharded transform at `root`
     (`make_tables`): the d-point DFT's roots, this rank's twiddles and the
-    plan of the local M-point DFT."""
+    local M-point DFT's: a butterfly plan and the bit reversal, or a CRT
+    plan (`m_plan`, the JAX body's)."""
 
     w_d_half: torch.Tensor  # (L, max(d/2, 1)): powers of w_N^M, the order-d root
     w_m: int  # w_N^d, the order-M root of the local DFT
     tw: torch.Tensor  # (L, d, M/d): w_N^(n2*k1) for this rank's n2 chunk
-    plan: nttm.NttPlan  # DIF plan of the local M-point DFT at w_m
-    bitrev: torch.Tensor  # (M,) int64: the bit-reversal permutation
+    plan: nttm.NttPlan | None  # DIF plan of the local M-point DFT at w_m
+    bitrev: torch.Tensor | None  # (M,) int64: the bit-reversal permutation
+    m_plan: mxu_ntt.MxuNttPlan | None = None  # CRT plan of that DFT, natural in and out
 
 
 def bitrev_perm(n: int, device) -> torch.Tensor:
@@ -52,12 +61,16 @@ def bitrev_perm(n: int, device) -> torch.Tensor:
 
 def make_tables(spec: FieldSpec, root: int, n: int, d: int, rank: int,
                 inverse: bool = False, device="cuda",
-                block: int = nttm.FUSED_BLOCK) -> Ntt4Tables:
+                block: int = nttm.FUSED_BLOCK, lde_engine: str = "butterfly") -> Ntt4Tables:
     """Rank `rank`'s tables for an order-n sharded (i)NTT over d ranks
     (`stark_tpu/parallel/ntt4.py:97-116`, which builds every rank's twiddles
     on the host; here each rank makes its own chunk on its device). For the
     inverse pass inverse=True: tables of root^-1 (the caller multiplies by
-    n^-1)."""
+    n^-1). `lde_engine` names the engine of the local M-point DFT:
+    "butterfly", or "crt", whose plan is `mxu_ntt.make_ntt_plan_cached` at
+    w_N^d, natural order in and out, no scale (the JAX package's
+    `prove_sharded.py:173-182`)."""
+    nttm.check_lde_engine(lde_engine)
     p = spec.p
     m = n // d
     if m % d or n % d:
@@ -70,12 +83,14 @@ def make_tables(spec: FieldSpec, root: int, n: int, d: int, rank: int,
     rows = [mm.mmul(spec, mm.power_table(spec, pow(r, k1, p), m // d, device),
                     mm.mont_const(spec, pow(r, k1 * n2_0, p), device))
             for k1 in range(d)]
+    crt = lde_engine == "crt"
     return Ntt4Tables(
         w_d_half=mm.power_table(spec, w_d, max(d // 2, 1), device),
         w_m=w_m,
         tw=torch.stack(rows, dim=1),
-        plan=nttm.NttPlan(spec, w_m, m, "dif", device, block),
-        bitrev=bitrev_perm(m, device),
+        plan=None if crt else nttm.NttPlan(spec, w_m, m, "dif", device, block),
+        bitrev=None if crt else bitrev_perm(m, device),
+        m_plan=mxu_ntt.make_ntt_plan_cached(spec, w_m, m, device) if crt else None,
     )
 
 
@@ -121,7 +136,10 @@ def ntt_sharded_local(spec: FieldSpec, x_local: torch.Tensor, mesh, tables: Ntt4
     # becomes the source rank q, and n2 = q*(M/d) + j)
     a = mesh.all_to_all(a).reshape(L, M)
     # 5: M-point DFT over n2 -> k2, natural order
-    a = nttm.run(spec, a, tables.plan)[:, tables.bitrev]
+    if tables.m_plan is not None:
+        a = mxu_ntt.ntt_mxu(tables.m_plan, a)
+    else:
+        a = nttm.run(spec, a, tables.plan)[:, tables.bitrev]
     # 6: restore the natural contiguous sharding of X[k1 + d*k2]: axis 1 is
     # the source k1, axis 2 the k2 offset j; the local index is j*d + k1
     a = mesh.all_to_all(a.reshape(L, d, M // d))

@@ -22,9 +22,17 @@ apart, which cross chunks). Small-domain work (the traces, the a-tree, r,
 the accumulator's mini column) runs replicated, as the JAX accumulator does
 (`prove_sharded.py:222-231`).
 
-The JAX package's CRT engine on a mesh (`_use_mesh_mxu`,
-`mxu_ntt.lde_mxu_sharded`) is not ported (ROADMAP.md Queue 1, Multi-GPU):
-the local M-point DFTs run on the butterfly kernels.
+The local M-point DFTs of the four-step transforms run on the stage set's
+LDE engine: the butterfly kernels, or under `lde_engine="crt"` the CRT
+matrix-product engine, as the JAX package's `_use_mesh_mxu` routes them
+(`prove_sharded.py:143-197`: each rank's plans of the inverse on the steps
+domain and the forward transform on the precision domain). JAX's gate
+(local precision/d <= 2^20, the two-level CRT plan's largest; steps/d >= 4;
+16 limbs) is a preference there, under which it runs butterflies; here the
+engine is the caller's request, so outside the gate `make_domain` raises a
+`ValueError` that names the limit. The proof is the same on either engine,
+and so are the collectives' bytes. `mxu_ntt.lde_mxu_sharded` is the CRT
+engine's own sharded LDE.
 """
 
 from __future__ import annotations
@@ -78,12 +86,31 @@ def lde_local(spec: FieldSpec, trace_local, mesh, steps_tabs, prec_tabs, n_inv_m
     return ntt4.ntt_sharded_local(spec, chunk, mesh, prec_tabs)
 
 
+def check_mesh_crt(spec: FieldSpec, steps: int, precision: int, d: int) -> None:
+    """The CRT engine's local DFTs on a mesh of d ranks need JAX's gate
+    (`_use_mesh_mxu`, `prove_sharded.py:143-160`); raise where it fails."""
+    if precision // d > 1 << 20:
+        raise ValueError(
+            f"lde_engine='crt' on a mesh needs a local precision/d <= 2^20 (the "
+            f"two-level CRT plan's largest): precision {precision}, d = {d}")
+    if steps // d < 4:
+        raise ValueError(
+            f"lde_engine='crt' on a mesh needs steps/d >= 4: steps {steps}, d = {d}")
+    if spec.num_limbs != 16:
+        raise ValueError(f"lde_engine='crt' on a mesh needs a 16-limb field, not {spec.name}")
+
+
 def make_domain(spec: FieldSpec, mesh, steps: int, precision: int, original_steps: int,
-                block: int = nttm.FUSED_BLOCK) -> dict:
+                block: int = nttm.FUSED_BLOCK, lde_engine: str = "butterfly") -> dict:
     """One rank's domain constants and chunks (`prove_sharded.py:162-197`):
-    the two transforms' tables, the rank's xs chunk and its Zb3^-1 (once a
-    stage set), the Shoup patterns of Z^-1 and x^steps."""
+    the two transforms' tables on `lde_engine` (under "crt", each local
+    DFT's CRT plan: the inverse's at (g1^-1)^d, M = steps/d, the forward's
+    at g2^d, M = precision/d; `check_mesh_crt` first), the rank's xs chunk
+    and its Zb3^-1 (once a stage set), the Shoup patterns of Z^-1 and
+    x^steps."""
     d, dev, p = mesh.size, mesh.device, spec.p
+    if nttm.check_lde_engine(lde_engine) == "crt":
+        check_mesh_crt(spec, steps, precision, d)
     skips = precision // steps
     mp = precision // d
     # a chunk starts at a multiple of skips, so the (L, skips) patterns of
@@ -100,8 +127,10 @@ def make_domain(spec: FieldSpec, mesh, steps: int, precision: int, original_step
         "mesh": mesh,
         "skips": skips,
         "kshift": original_steps // 3 * skips,
-        "steps_tabs_inv": ntt4.make_tables(spec, g1, steps, d, mesh.rank, True, dev, block),
-        "prec_tabs": ntt4.make_tables(spec, g2, precision, d, mesh.rank, False, dev, block),
+        "steps_tabs_inv": ntt4.make_tables(spec, g1, steps, d, mesh.rank, True, dev, block,
+                                           lde_engine),
+        "prec_tabs": ntt4.make_tables(spec, g2, precision, d, mesh.rank, False, dev, block,
+                                      lde_engine),
         "n_inv": mm.mont_const(spec, spec.inv(steps), dev),
         "xs_local": xs_local,
         "inv_zb3": mm.multi_inv(spec, mm.msub(spec, xs_local, x_last)),
@@ -237,12 +266,14 @@ def sharded_prover_core(spec: FieldSpec, dom: dict, traces: dict, r_mont, k_mont
 
 
 def sharded_stages(spec: FieldSpec, mesh, steps: int, precision: int, original_steps: int,
-                   digest: str, block: int = nttm.FUSED_BLOCK) -> dict:
+                   digest: str, block: int = nttm.FUSED_BLOCK,
+                   lde_engine: str = "butterfly") -> dict:
     """The precision-domain stages of `core.build_proof_stages` on a mesh
     of d > 1 ranks, under the names the prover calls (`protocol/prove.py`):
     `xs_full` and Zb2^-1 are the rank's chunks, the trees sharded, the
-    branches and FRI's inputs replicated."""
-    dom = make_domain(spec, mesh, steps, precision, original_steps, block)
+    branches and FRI's inputs replicated; the LDEs' local DFTs on
+    `lde_engine`."""
+    dom = make_domain(spec, mesh, steps, precision, original_steps, block, lde_engine)
 
     def branches(l_tree, m_tree):
         pos, aug = spot_positions(l_tree.root_words, precision, dom["skips"], dom["kshift"])

@@ -81,7 +81,10 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
     "butterfly" or "crt" (`ops/ntt.py make_best_lde`); the columns, and so
     the proof, are the same on either. `mesh` (a `DomainMesh` of d > 1
     ranks, on `device`) shards the precision domain (see the module
-    docstring); None or a one-rank mesh builds the single-device set."""
+    docstring), its local DFTs on `lde_engine` too
+    (`parallel/prove_sharded.py make_domain`, which refuses "crt" outside
+    the JAX package's gate); None or a one-rank mesh builds the
+    single-device set."""
     nttm.check_lde_engine(lde_engine)
     mt.check_digest(digest)
     if precision > MAX_PRECISION:
@@ -91,11 +94,6 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
             "precision and takes moduli below 2^24"
         )
     sharded = mesh is not None and mesh.size > 1
-    if sharded and lde_engine != "butterfly":
-        raise ValueError(  # names its ROADMAP item by title
-            "lde_engine='crt' on a mesh: the CRT engine's sharded LDE "
-            "(lde_mxu_sharded) is not ported (ROADMAP.md Queue 1, Multi-GPU)"
-        )
     dev = torch.device(device)
     p = spec.p
     L = spec.num_limbs
@@ -181,7 +179,7 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
         from stark_tpu_torch.parallel import prove_sharded as psh
 
         stages.update(psh.sharded_stages(spec, mesh, steps, precision, original_steps,
-                                         digest, block))
+                                         digest, block, lde_engine))
         return stages
 
     g2 = spec.root_of_unity(precision)

@@ -117,7 +117,8 @@ def _stages_cached(spec, steps, precision, original_steps, digest, device, lde_e
 def _check_scope(mesh, digest: str, steps: int):
     """The digest, and the mesh: a `DomainMesh` of a power-of-two size d
     with steps >= d^2, the four-step NTT's least (`stark_tpu/protocol/
-    prove.py:190-194`). The sharded stage set refuses the CRT engine."""
+    prove.py:190-194`). The sharded stage set refuses the CRT engine
+    outside the JAX package's gate (`prove_sharded.check_mesh_crt`)."""
     mt.check_digest(digest)
     if mesh is None:
         return

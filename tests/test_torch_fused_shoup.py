@@ -1,8 +1,13 @@
 """The plain versions of the port's two Shoup-form stages against the JAX
-package's Pallas kernels themselves, run in interpret mode on the CPU.
+package: `pallas_kernels.shoup_mul_periodic` itself, run in interpret mode
+on the CPU, and, for `linear_combination_shoup`, the plain XLA reference
+that the JAX package's own
+`tests/test_pallas_protocol.py::test_linear_combination_shoup` holds that
+TPU kernel (`stark_tpu/protocol/pallas_kernels.py:319`) against:
+`protocol/kernels.py linear_combination` with the x^steps constants tiled
+to the domain (the interpret-mode kernel took half a minute).
 
-`pallas_kernels.shoup_mul_periodic` and `linear_combination_shoup` are called
-directly at a tiny width, n = 16, with a (16, 8) pattern pair of
+Both run at a tiny width, n = 16, with a (16, 8) pattern pair of
 `modmath.shoup_consts` (0, 1 and p - 1 among the plain constants, 0, p - 1
 and 1 among the data). The same numpy-seeded inputs go through the port's
 wrappers, which on a CPU tensor run the plain PyTorch versions. Tolerance:
@@ -17,11 +22,12 @@ import torch
 
 from stark_tpu.fields.field import BN254_FR as spec
 from stark_tpu.ops import modmath as jmm
+from stark_tpu.protocol import kernels as jkernels
 from stark_tpu.protocol import pallas_kernels as jpk
 from stark_tpu_torch.fields.field import BN254_FR as tspec
 from stark_tpu_torch.ops import modmath as mm
 from stark_tpu_torch.protocol import fused_kernels as fk
-from torch_fused_inputs import cols as _cols, eq as _eq, no_launch as _no_launch, t as _t
+from torch_fused_inputs import N, cols as _cols, eq as _eq, no_launch as _no_launch, t as _t
 
 torch.set_num_threads(2)
 
@@ -52,4 +58,5 @@ def test_linear_combination_shoup_matches_pallas():
     cols = _cols(24, count=8, edge=True)
     got = _no_launch(fk.linear_combination_shoup, _t(km),
                      *mm.shoup_consts(tspec, vals, "cpu"), *map(_t, cols))
-    _eq(got, jpk.linear_combination_shoup(spec, km, *jmm.shoup_consts(spec, vals), *cols))
+    x2s = np.tile(np.asarray(jmm.mont_consts(spec, vals)), (1, N // T))
+    _eq(got, jkernels.linear_combination(spec, km, x2s, *cols))

@@ -1,8 +1,11 @@
 """The prover, the verifier and the worker on the CRT LDE engine
 (`lde_engine="crt"`), on the CPU at the small scale.
 
-* `squaring_chain(20)` proved on "crt" equals the butterfly proof and the JAX
-  package's proof under `STARK_TPU_MXU=force`, as JSON text;
+* `squaring_chain(20)` proved on "crt" equals the butterfly proof, and the
+  `compute` fixture proved on "crt" equals its committed golden, the JAX
+  package's proof (`tests/test_e2e.py` makes it; `test_torch_e2e.py` holds
+  the butterfly route to it), as JSON text; the JAX package's own
+  `tests/test_mxu_prover.py` holds its engine's proof to its butterflies';
 * the `compute` golden is byte-identical on "crt", through the runner, the
   CLI and `prove_many`;
 * the verifier on "crt" accepts the proof and rejects one with a flipped
@@ -39,9 +42,8 @@ WTNS = os.path.join(FIX, "compute.wtns")
 
 @pytest.fixture(autouse=True)
 def caches(tmp_path_factory, monkeypatch):
-    """Both packages' plan caches in directories of this test run."""
+    """The engine's plan cache in a directory of this test run."""
     base = tmp_path_factory.getbasetemp()
-    monkeypatch.setenv("STARK_TPU_PLANS_CACHE", str(base / "jax_plans"))
     monkeypatch.setattr(mxu_ntt, "CACHE_DIR", str(base / "plans"))
 
 
@@ -56,29 +58,16 @@ def compute():
     return r1cs, witness, golden
 
 
-def _jax_proof_json(monkeypatch) -> str:
-    """`tests/test_mxu_prover.py:38-52` with the engine forced on."""
-    monkeypatch.setenv("STARK_TPU_MXU", "force")
-    from stark_tpu.fields.field import BN254_FR as jspec
-    from stark_tpu.protocol import proof as jproof
-    from stark_tpu.protocol.prove import mk_r1cs_proof
-    from stark_tpu.r1cs.arithmetize import arithmetize
-    from stark_tpu.r1cs.synth import squaring_chain as jsquaring_chain
-
-    r1cs, wb = jsquaring_chain(20)
-    witness = [jspec.from_bytes_le(w) for w in wb]
-    arith = arithmetize(jspec, r1cs.constraints, witness, r1cs.header.n_wires, 2)
-    return jproof.to_json(mk_r1cs_proof(jspec, arith, witness[:2], 20, r1cs.header.n_wires))
-
-
-def test_crt_proof_equals_butterfly_and_jax(monkeypatch):
+def test_crt_proof_equals_butterfly_and_jax(compute):
     r1cs, witness = squaring_chain(20)
     base = proof_mod.to_json(runner.prove_with_witness(r1cs, witness, device="cpu"))
     crt = proof_mod.to_json(
         runner.prove_with_witness(r1cs, witness, device="cpu", lde_engine="crt"))
     assert crt == base
     assert prove._stages_cached.cache_info().currsize >= 2  # one stage set per engine
-    assert _jax_proof_json(monkeypatch) == crt
+    c_r1cs, c_witness, golden = compute
+    assert proof_mod.to_json(runner.prove_with_witness(
+        c_r1cs, c_witness, device="cpu", lde_engine="crt")) == golden
     proof = proof_mod.from_json(crt)
     assert runner.verify_with_witness(r1cs, witness[:2], proof, device="cpu",
                                       lde_engine="crt")

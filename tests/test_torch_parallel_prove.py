@@ -35,5 +35,5 @@ def single():
 @pytest.mark.parametrize("d", [2, 4])
 def test_mesh_proof_equals_the_single_device_proof(single, d):
     jobs = [(44, 3, "blake2s", "dft"), (44, 3, "blake2s", "lagrange")]
-    for proofs in torch_mesh.run_procs(torch_mesh.chain_proofs_body, d, jobs):
+    for proofs in torch_mesh.run_procs(torch_mesh.chain_proofs_body, d, jobs, bodies=len(jobs)):
         assert proofs == [single, single]

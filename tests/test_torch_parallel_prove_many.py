@@ -23,5 +23,6 @@ def test_prove_many_on_a_mesh_equals_single_proves():
     singles = [proof_mod.to_json(runner.prove_with_witness(*squaring_chain(5, x0=x0),
                                                            device="cpu")) for x0 in X0S]
     assert len(set(singles)) == 3
-    for proofs in torch_mesh.run_procs(torch_mesh.prove_many_body, 2, 5, X0S, 2):
+    for proofs in torch_mesh.run_procs(torch_mesh.prove_many_body, 2, 5, X0S, 2,
+                                       bodies=len(X0S)):
         assert proofs == singles

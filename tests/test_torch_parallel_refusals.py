@@ -6,7 +6,10 @@
 * a mesh whose size is not a power of two, and steps < d^2 (the
   four-step NTT's least size, `stark_tpu/protocol/prove.py:190-194`):
   ValueError;
-* `lde_engine="crt"` on a mesh: ValueError naming its ROADMAP item;
+* `lde_engine="crt"` on a mesh outside the JAX package's gate
+  (`stark_tpu/parallel/prove_sharded.py:143-160 _use_mesh_mxu`, where it
+  runs butterflies instead): a local precision/d above 2^20 or steps/d
+  below 4, ValueError naming the limit, before any work;
 * a mesh on another device than the prove's `device`: ValueError;
 * "nccl" with more ranks than cards, or a rank not on its own card
   (cuda:rank), refused by `initialize` before any group is made (with a
@@ -62,9 +65,17 @@ def test_mesh_sizes_the_prover_refuses(compute, size, match):
         runner.prove_with_witness(*compute, mesh=_mesh(size), device="cpu")
 
 
-def test_crt_on_a_mesh_names_its_roadmap_item(compute):
-    with pytest.raises(ValueError, match=r"ROADMAP.md Queue 1, Multi-GPU"):
-        runner.prove_with_witness(*compute, mesh=_mesh(2), device="cpu", lde_engine="crt")
+@pytest.mark.parametrize("steps,precision,match", [
+    (1 << 19, 1 << 22, r"precision/d <= 2\^20"),
+    (4, 32, r"steps/d >= 4"),
+])
+def test_crt_on_a_mesh_outside_the_gate_names_the_limit(steps, precision, match):
+    from stark_tpu_torch.fields.field import BN254_FR
+    from stark_tpu_torch.protocol.core import build_proof_stages
+
+    with pytest.raises(ValueError, match=match):
+        build_proof_stages(BN254_FR, steps, precision, steps - 1, "blake2s", "cpu",
+                           lde_engine="crt", mesh=_mesh(2))
 
 
 def test_the_mesh_device_must_be_the_prove_device(compute, monkeypatch):

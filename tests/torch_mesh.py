@@ -18,6 +18,7 @@ from stark_tpu_torch.fields.field import BN254_FR as tspec
 from stark_tpu_torch.interop import planes_from_numpy, planes_to_numpy
 from stark_tpu_torch.merkle import tree as mt
 from stark_tpu_torch.ops import modmath as mm
+from stark_tpu_torch.ops import mxu_ntt
 from stark_tpu_torch.parallel import distributed, ntt4
 from stark_tpu_torch.parallel import prove_sharded as psh
 from stark_tpu_torch.protocol import proof as proof_mod
@@ -34,10 +35,12 @@ def one_thread(mesh, fn, *args):
     return fn(mesh, *args)
 
 
-def run_procs(fn, d: int, *args) -> list:
-    """fn(mesh, *args) on d CPU ranks; their results in rank order."""
+def run_procs(fn, d: int, *args, bodies: int = 1) -> list:
+    """fn(mesh, *args) on d CPU ranks; their results in rank order. The run
+    and each of its collectives may take `TIMEOUT_S` for each of the
+    `bodies` it runs (the proofs of a run, say)."""
     return distributed.run_ranks(one_thread, d, device="cpu", backend="gloo",
-                                 timeout=TIMEOUT_S, args=(fn,) + args)
+                                 timeout=TIMEOUT_S * bodies, args=(fn,) + args)
 
 
 def _np(t):
@@ -107,6 +110,37 @@ def core_body(mesh, shape, traces: dict, r_mont, k_mont, i2_mont, pubx_mont):
             _np(dom["inv_zb3"]))
 
 
+def crt_body(mesh, cache_dir: str, vals: np.ndarray, root: int, trace: np.ndarray,
+             precision: int):
+    """The CRT engine on the mesh, its plans cached in `cache_dir`: the
+    four-step NTT of `vals` at `root` with the local DFT on CRT plans
+    (`make_tables(lde_engine="crt")`), forward and back, and
+    `mxu_ntt.lde_mxu_sharded` of `trace` to `precision`, on the rank's
+    chunks."""
+    mxu_ntt.CACHE_DIR = cache_dir
+    n = vals.shape[1]
+    x = distributed.shard_cols(planes_from_numpy(vals, "cpu"), mesh)
+    fwd = ntt4.make_tables(tspec, root, n, mesh.size, mesh.rank, device="cpu",
+                           lde_engine="crt")
+    inv = ntt4.make_tables(tspec, root, n, mesh.size, mesh.rank, True, "cpu",
+                           lde_engine="crt")
+    y = ntt4.ntt_sharded_local(tspec, x, mesh, fwd)
+    back = ntt4.ntt_sharded_local(tspec, y, mesh, inv, mm.mont_const(tspec, tspec.inv(n), "cpu"))
+    steps = trace.shape[1]
+    g2 = tspec.root_of_unity(precision)
+    g1 = pow(g2, precision // steps, tspec.p)
+    plans = mxu_ntt.make_lde_plans(tspec, g1, g2, steps, precision, "cpu")
+    mesh.reset_stats()
+    lde = mxu_ntt.lde_mxu_sharded(mesh, *plans, distributed.shard_cols(
+        planes_from_numpy(trace, "cpu"), mesh))
+    return {"fwd": _np(y), "back": _np(back), "lde": _np(lde), "stats": mesh.stats}
+
+
+def core_and_crt_body(mesh, core_args, crt_args):
+    """`core_body` and `crt_body` in one run of the ranks."""
+    return core_body(mesh, *core_args), crt_body(mesh, *crt_args)
+
+
 def chain_proofs_body(mesh, jobs):
     """Proofs of squaring chains on the mesh: jobs of (constraints, x0,
     digest, fri_fold), each a fresh circuit object; -> the proofs' JSON."""
@@ -115,6 +149,31 @@ def chain_proofs_body(mesh, jobs):
         r1cs, witness = squaring_chain(n, x0=x0)
         out.append(proof_mod.to_json(runner.prove_with_witness(
             r1cs, witness, mesh=mesh, digest=digest, device="cpu", fri_fold=fri_fold)))
+    return out
+
+
+def golden_proofs_body(mesh, r1cs_path: str, wtns_path: str, jobs, cache_dir: str):
+    """Proofs of one circuit's files on the mesh: jobs of (digest, fri_fold,
+    lde_engine), the butterfly ones through `prove_full.prove_files_sharded`,
+    the others through `runner.prove_with_witness(mesh=, lde_engine=)`
+    (CRT plans cached in `cache_dir`); -> the proofs' JSON."""
+    from stark_tpu_torch.parallel import prove_full
+    from stark_tpu_torch.r1cs.reader import read_r1cs, read_witness
+
+    mxu_ntt.CACHE_DIR = cache_dir
+    out = []
+    for digest, fri_fold, lde_engine in jobs:
+        if lde_engine == "butterfly":
+            out.append(prove_full.prove_files_sharded(mesh, r1cs_path, wtns_path, digest,
+                                                      fri_fold))
+            continue
+        with open(r1cs_path, "rb") as f:
+            r1cs = read_r1cs(f.read())
+        with open(wtns_path, "rb") as f:
+            witness = read_witness(f.read())
+        out.append(proof_mod.to_json(runner.prove_with_witness(
+            r1cs, witness, mesh=mesh, digest=digest, device="cpu", fri_fold=fri_fold,
+            lde_engine=lde_engine)))
     return out
 
 
