@@ -41,9 +41,11 @@ non-zero and no phase's error is swallowed:
    every pass of the 2^20 and 2^17 Shoup plans, their widest and first on
    `lazy_planes`' 0, 1, Montgomery one, p - 1, p and 2p - 1, and every pass
    of both directions on BLS12-381's field at 2^17;
-   `butterfly_fused_shoup` dit and dif at 2^20 (block 2048), dif at 2^17,
-   the 2^20 ones on the edge values reducing below p, and BLS12-381's at
-   2^17 and one block. `mpow_scalar` runs e = p - 2 at
+   `butterfly_fused_shoup` dit and dif at 2^20 (block 2048), dif and dit at
+   2^17, the 2^20 ones on the edge values reducing below p, BLS12-381's at
+   2^17 and one block, and both fields' dit (reducing below p) and dif at
+   2^15 in blocks of 2 (one CTA a block), 4 (the smallest cluster), 16 and
+   1024. `mpow_scalar` runs e = p - 2 at
    (16, 1) and (16, 8) and on BLS12-381's field, e = 0, 1, 2^256 - 1 on edge
    operands, and e = 2^255, 2^127 for the time of one dependent squaring.
    The three kernels of the CRT LDE engine run on that engine's own tables
@@ -404,6 +406,10 @@ GOLDENS = (("compute", "compute_proof_golden.json", BUTTERFLY_ROUTES + (("dft", 
 # the `compute` proof under digest="poseidon", proved on BUTTERFLY_ROUTES
 POSEIDON_GOLDEN = "compute_proof_poseidon_golden.json"
 FUSED_ONE_BLOCK = 2048  # a `butterfly_fused` case of a single block
+# `butterfly_fused_shoup`'s small blocks: one CTA a block (2), the smallest
+# cluster (4), and two more, on a column of FUSED_SHOUP_SMALL elements
+FUSED_SHOUP_BLOCKS = (2, 4, 16, 1024)
+FUSED_SHOUP_SMALL = 1 << 15
 CHAIN_STEPS = 48  # dependent 64-bit multiply-adds on one CIOS product's critical path
 CYCLES_PER_STEP = 8  # two dependent integer instructions of 4 cycles
 
@@ -1164,11 +1170,13 @@ def compare_shoup(spec, g2: int, inv_g1: int, N: int, steps: int, device) -> dic
     p, first) and of the 2^17 DIF plan, as a Shoup plan runs them, then
     their last and first on `lazy_planes`' edge values, and on BLS12-381's
     scalar field every pass of both directions at 2^17;
-    `butterfly_fused_shoup` dit and dif at 2^20 (block 2048), dif at 2^17,
-    the 2^20 cases on the edge values and reducing below p, and BLS12-381's
-    dit and dif at 2^17 and at one block. Bytes: the column in and out and
-    the table read (64 bytes an entry); operations: a Shoup product a
-    butterfly (`MONT_MUL_OPS`)."""
+    `butterfly_fused_shoup` dit and dif at 2^20 (block 2048), dif and dit at
+    2^17, the 2^20 cases on the edge values and reducing below p,
+    BLS12-381's dit and dif at 2^17 and at one block, and on both fields
+    dit (reducing below p) and dif at `FUSED_SHOUP_SMALL` in the blocks of
+    `FUSED_SHOUP_BLOCKS`, each on its plan's table. Bytes: the column in
+    and out and the table read (64 bytes an entry); operations: a Shoup
+    product a butterfly (`MONT_MUL_OPS`)."""
     from stark_tpu_torch.fields.field import BLS12_381_FR as bls
     from stark_tpu_torch.ops import ntt
 
@@ -1199,6 +1207,17 @@ def compare_shoup(spec, g2: int, inv_g1: int, N: int, steps: int, device) -> dic
         if n == N:
             fused[f"edges {kind} n={n} block={FUSED_ONE_BLOCK} canon"] = (
                 spec, e_big, tw, FUSED_ONE_BLOCK, kind, True)
+    fused[f"dit n={steps} block={FUSED_ONE_BLOCK}"] = (spec, x_small, small.fused_tw,
+                                                      FUSED_ONE_BLOCK, "dit", False)
+    n = FUSED_SHOUP_SMALL
+    for field in (spec, bls):
+        x = lazy_planes(rng, field, n, device)
+        for block in FUSED_SHOUP_BLOCKS:
+            tw = ntt.NttPlan(field, field.root_of_unity(n), n, "dit", device, block,
+                             shoup=True).fused_tw
+            for kind in ("dit", "dif"):
+                fused[f"{field.name} {kind} n={n} block={block}"] = (field, x, tw, block, kind,
+                                                                     kind == "dit")
     for n in (steps, FUSED_ONE_BLOCK):
         x = lazy_planes(rng, bls, n, device)
         for kind in ("dit", "dif"):

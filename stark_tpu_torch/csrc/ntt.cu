@@ -115,25 +115,59 @@
 // _fused_kernel with shoup=True, the arithmetic of :407
 // _butterfly_pair_shoup). Twiddles are plain values w with their companions
 // floor(w 2^256 / p), 16 words an entry (64 bytes, twice the Montgomery
-// form's 32); the product is field.cuh's shoup_mul (exact quotient, result
-// below 2p for any operand below 2^256); every value lies in [0, 2p), sums and
-// differences keep their carry out of bit 256 and subtract 2p where they
-// reach it, so any field with 2p < 2^256 takes them (BN254's and BLS12-381's
-// scalar fields); with `canon` the last stage's outputs are reduced below p.
+// form's 32); every product has field.cuh's shoup_mul's value (exact
+// quotient, result below 2p for any operand below 2^256); every value lies
+// in [0, 2p), sums and differences keep their carry out of bit 256 and
+// subtract 2p where they reach it, so any field with 2p < 2^256 takes them
+// (BN254's and BLS12-381's scalar fields); with `canon` the last stage's
+// outputs are reduced below p.
 // - butterfly_pass_shoup is butterfly_pass's tile (same index map, 16 KB of
-//   shared memory, 256 threads), its twiddle four 16-byte loads. Bound: the
-//   column's bytes, as the Montgomery pass, plus the companions' (the pass's
-//   table doubles: 2 x 16 MiB at 2^20 against 2 x 128 MiB of column).
-// - butterfly_fused_shoup is a simple kernel: one CTA a block of up to 2048
-//   elements, held word major in 64 KB of dynamic shared memory, 256 threads,
-//   one __syncthreads a stage, each thread's butterflies strided by 256. The
-//   companions double the Montgomery pass's 32 KB of staged twiddles, and two
-//   CTAs of that design (64 KB of exchange buffers and 64 KB of twiddles
-//   each) no longer fit an SM's 228 KB: here the twiddles are read from
-//   global memory (the (block - 1, 16) table, 128 KB, stays in L2 and L1),
-//   not staged, so three CTAs an SM fit. Bound: the products, as the
-//   Montgomery pass; a Shoup product costs 5.96 SM clocks a thread against a
-//   CIOS product's 7.36-7.42 (PERF.md).
+//   shared memory, 256 threads), its twiddle four 16-byte loads, its product
+//   field.cuh's shoup_mul. Bound: the column's bytes, as the Montgomery
+//   pass, plus the companions' (2 x 16 MiB of tables at 2^20 against 2 x
+//   128 MiB of column).
+// - butterfly_fused_shoup runs butterfly_fused's design with Shoup
+//   butterflies. What bounds it: the integer instruction stream and its
+//   dependences, as row 3 (11 x n/2 butterflies, the array moved once in and
+//   once out). The design:
+//   - Row 3's schedule: a cluster of two CTAs of 256 threads a block, each
+//     holding half of it in two XOR-swizzled exchange buffers (64 KB), 4
+//     elements a thread, two stages a round (6 barriers a block of 2048,
+//     where the first build synced a CTA a stage, 11), the stage of stride
+//     1024 through distributed shared memory with its twiddles from L2,
+//     persistent clusters (cudaOccupancyMaxActiveClusters); a block of 2 on
+//     one CTA of 512 threads.
+//   - 40 KB of staged twiddles: only the table of stage ls = block / 4, the
+//     largest below the stride-h stage (rows ls - 1 .. 2 ls - 2 of the
+//     table), since every smaller stage's is a stride of it (tw_l[k] =
+//     tw_ls[k ls / l], as a plan builds them); 512 entries at block 2048,
+//     staged once a CTA in five planes of 16-byte vectors at tw_pos, which
+//     keeps every stage's loads free of bank conflicts. 104 KB a CTA, two
+//     CTAs an SM (228 KB); the full 1,023-entry table would not fit twice.
+//   - The product in the radix-2^29 form (shoup_mul29, the staged entries
+//     already in 29-bit limbs): column sums of limb products, one IMAD.WIDE
+//     each with a 64-bit addend, no carry chains; q from the full product's
+//     normalised limbs, r from the 9 low columns of w x + q (2^261 - p):
+//     381 SASS instructions a butterfly, where the word form's PTX carry
+//     chains take 570 and row 3's Montgomery butterfly 607.
+//   - The twiddle 1 (w = 1 with its companion, tested by value) takes no
+//     product: x - p where x >= c1 = ceil(2^256 / wp1), else x, the exact
+//     value for x < 2p (`shoup_one`, on the host). Only in the round of
+//     l = 1, 2, where a warp's lanes share each twiddle (all of l = 1, half
+//     of l = 2: 14% of the products); elsewhere the branch would keep the
+//     compiler from overlapping a thread's two butterflies.
+//   - 116-122 registers, no spills (ptxas), under the 128 of two CTAs of
+//     256 threads an SM.
+//   On one H100 80GB HBM3 at 700 W (scripts/ntt_kernels_cuda.py, in one
+//   call): 2^20 dit 0.2021-0.2027 ms, row 3 0.2176-0.2177, the first build
+//   0.2716-0.2718; dif 0.2101-0.2110, row 3 0.2086-0.2098; 2^17 0.0339-0.0341
+//   against row 3's 0.0366-0.0373. Tried and dropped (the probe keeps them):
+//   the word form's carry chains 0.2112-0.2118 at dit (the first build of
+//   this design took 0.2269-0.2277 with them, row 3 0.2173-0.2174 in that
+//   call), field.cuh's C product 0.2098-0.2099, the twiddle 1 tested in
+//   every round 0.2079-0.2083 (dif 0.2181-0.2189); in an earlier call, where
+//   that build took 0.2192-0.2202, one accumulator for the chains' low
+//   halves 0.2328-0.2333 and no product by 1 skipped 0.2296-0.2299.
 #include <cooperative_groups.h>
 
 #include "field.cuh"
@@ -770,21 +804,34 @@ __device__ __forceinline__ void reduce_2p(const uint32_t (&p2)[stark::NW], uint3
   for (int i = 0; i < stark::NW; ++i) s[i] = ge ? d[i] : s[i];
 }
 
-// One Shoup butterfly in place, u, v in [0, 2p), w < p plain, wp its
-// companion (_butterfly_pair_shoup): dif: u + v, (u - v) w; dit: t = v w,
-// u + t, u - t; each sum a + b and difference a + 2p - b less 2p where it
-// reaches 2p, each product below 2p; with CANON both outputs below p.
-template <bool DIT>
-__device__ __forceinline__ void shoup_butterfly(const stark::Field& f,
+// A Shoup twiddle as 8 words of w and 8 of its companion wp
+struct TwWords {
+  uint32_t w[stark::NW], wp[stark::NW];
+};
+
+// field.cuh's shoup_mul as a butterfly's product
+struct ShoupMul {
+  const stark::Field& f;
+  __device__ __forceinline__ void operator()(const TwWords& t, const uint32_t (&x)[stark::NW],
+                                             uint32_t (&r)[stark::NW]) const {
+    stark::shoup_mul(f, t.w, t.wp, x, r);
+  }
+};
+
+// One Shoup butterfly in place, u, v in [0, 2p), tw a plain twiddle w < p
+// with its companion wp (_butterfly_pair_shoup): dif: u + v, (u - v) w;
+// dit: t = v w, u + t, u - t; each sum a + b and difference a + 2p - b less
+// 2p where it reaches 2p, each product mul(tw, x) below 2p; with CANON both
+// outputs below p.
+template <bool DIT, class Mul, class Tw>
+__device__ __forceinline__ void shoup_butterfly(const stark::Field& f, const Mul& mul,
                                                 const uint32_t (&p2)[stark::NW],
                                                 uint32_t (&u)[stark::NW],
-                                                uint32_t (&v)[stark::NW],
-                                                const uint32_t (&w)[stark::NW],
-                                                const uint32_t (&wp)[stark::NW],
+                                                uint32_t (&v)[stark::NW], const Tw& tw,
                                                 bool canon) {
   uint32_t t[stark::NW], d[stark::NW];
   if (DIT) {
-    stark::shoup_mul(f, w, wp, v, t);
+    mul(tw, v, t);
     sub_words(p2, t, d);  // 2p - t > 0
     reduce_2p(p2, add_words_carry(u, d, v), v);
     reduce_2p(p2, add_words_carry(u, t, u), u);
@@ -792,7 +839,7 @@ __device__ __forceinline__ void shoup_butterfly(const stark::Field& f,
     sub_words(p2, v, d);  // 2p - v > 0
     reduce_2p(p2, add_words_carry(u, d, t), t);
     reduce_2p(p2, add_words_carry(u, v, u), u);
-    stark::shoup_mul(f, w, wp, t, v);
+    mul(tw, t, v);
   }
   if (canon) {
     sub_if_ge(u, f.p);
@@ -845,14 +892,15 @@ butterfly_pass_shoup_kernel(const int32_t* __restrict__ a, const uint4* __restri
     const int s = DIT ? st : R - 1 - st;
     const int j = ((jj >> s) << (s + 1)) | (jj & ((1 << s) - 1));  // bit s clear
     const int iu = j * K + c, iv = iu + (K << s);
-    uint32_t u[stark::NW], v[stark::NW], w[stark::NW], wp[stark::NW];
+    uint32_t u[stark::NW], v[stark::NW];
+    TwWords t;
 #pragma unroll
     for (int q = 0; q < stark::NW; ++q) {
       u[q] = xs[q][iu];
       v[q] = xs[q][iv];
     }
-    load_shoup_tw(tw, (k0 + c + (j & ((1 << s) - 1)) * l0) << (R - 1 - s), w, wp);
-    shoup_butterfly<DIT>(f, p2, u, v, w, wp, canon && st == R - 1);
+    load_shoup_tw(tw, (k0 + c + (j & ((1 << s) - 1)) * l0) << (R - 1 - s), t.w, t.wp);
+    shoup_butterfly<DIT>(f, ShoupMul{f}, p2, u, v, t, canon && st == R - 1);
 #pragma unroll
     for (int q = 0; q < stark::NW; ++q) {
       xs[q][iu] = u[q];
@@ -870,63 +918,493 @@ butterfly_pass_shoup_kernel(const int32_t* __restrict__ a, const uint4* __restri
   }
 }
 
-constexpr int FS_THREADS = 256;  // threads of a fused Shoup CTA
+// --- the fused Shoup run in row 3's design --------------------------------
 
-// The fused run of Shoup stages 2l <= block (l = 1 .. block/2; DIT
-// ascending, DIF descending), one CTA a block: the block's elements word
-// major in shared memory (element i's word q at xs[q * block + i]), each
-// stage's block/2 butterflies strided over the threads, twiddle l - 1 + k of
-// the (block - 1, 16) table read from global memory. With canon the last
-// stage's outputs are reduced below p.
-template <bool DIT>
-__global__ void __launch_bounds__(FS_THREADS)
+// The radix-2^29 form of a Shoup twiddle: w and wp as 9 limbs of 29 bits
+struct Tw29 {
+  uint32_t w[stark::NL29], wp[stark::NL29];
+};
+
+// The twiddle 1's constants and p's, computed on the host (`shoup_one`):
+// the companion of 1, wp1 = floor(2^256 / p), in words and in 29-bit limbs;
+// c1 = ceil(2^256 / wp1): for x < 2p the quotient floor(wp1 x / 2^256) is 1
+// where x >= c1 and 0 below, so the product by 1 is x - p or x; and
+// 2^261 - p in 29-bit limbs.
+struct ShoupOne {
+  uint32_t wp[stark::NW];
+  uint32_t c1[stark::NW];
+  uint32_t wp29[stark::NL29];
+  uint32_t pn29[stark::NL29];
+};
+
+// Whether a twiddle is 1 with its companion (by value)
+__device__ __forceinline__ bool is_shoup_one(const ShoupOne& one, const Tw29& t) {
+  bool eq = t.w[0] == 1u && t.wp[0] == one.wp29[0];
+#pragma unroll
+  for (int i = 1; i < stark::NL29; ++i) eq &= t.w[i] == 0u && t.wp[i] == one.wp29[i];
+  return eq;
+}
+
+// The Shoup product by 1 for x < 2p, the exact value without a product
+__device__ __forceinline__ void shoup_mul_one(const stark::Field& f, const ShoupOne& one,
+                                              const uint32_t (&x)[stark::NW],
+                                              uint32_t (&r)[stark::NW]) {
+  uint32_t c[stark::NW], d[stark::NW];
+  const uint32_t below = sub_words(x, one.c1, c);
+  sub_words(x, f.p, d);
+#pragma unroll
+  for (int i = 0; i < stark::NW; ++i) r[i] = below ? x[i] : d[i];
+}
+
+// field.cuh's shoup_mul in the radix-2^29 form, the same value: the 17
+// columns of wp x (one IMAD.WIDE a limb product, each column below 9 2^58)
+// normalised into limbs L, q = floor(wp x / 2^256) their bits from 256
+// (q_m = L[8+m] >> 24 | L[9+m] << 5, 29 bits), then the 9 low columns of
+// w x + q (2^261 - p) (each below 18 2^58) normalised: that is
+// w x - q p mod 2^261, and w x - q p < 2p < 2^256.
+__device__ __forceinline__ void shoup_mul29(const ShoupOne& one, const Tw29& t,
+                                            const uint32_t (&x)[stark::NW],
+                                            uint32_t (&r)[stark::NW]) {
+  uint32_t xl[stark::NL29], q[stark::NL29], rl[stark::NL29], L[stark::COLS29 + 1];
+  stark::to_limbs29(x, xl);
+  uint64_t c[stark::COLS29];
+  stark::clear29(c);
+  stark::mac29(c, t.wp, xl);
+  uint64_t carry = 0;
+#pragma unroll
+  for (int k = 0; k < stark::COLS29 - 1; ++k) {
+    const uint64_t v = c[k] + carry;
+    L[k] = static_cast<uint32_t>(v) & stark::MASK29;
+    carry = v >> 29;
+  }
+  L[stark::COLS29 - 1] = static_cast<uint32_t>(carry);  // below 2^19
+  L[stark::COLS29] = 0;
+#pragma unroll
+  for (int m = 0; m < stark::NL29; ++m)
+    q[m] = ((L[8 + m] >> 24) | (L[9 + m] << 5)) & stark::MASK29;
+  uint64_t d[stark::NL29];
+#pragma unroll
+  for (int k = 0; k < stark::NL29; ++k) d[k] = 0;
+#pragma unroll
+  for (int i = 0; i < stark::NL29; ++i)
+#pragma unroll
+    for (int j = 0; i + j < stark::NL29; ++j)
+      d[i + j] += static_cast<uint64_t>(t.w[i]) * xl[j] +
+                  static_cast<uint64_t>(q[i]) * one.pn29[j];
+  carry = 0;
+#pragma unroll
+  for (int k = 0; k < stark::NL29; ++k) {
+    const uint64_t v = d[k] + carry;
+    rl[k] = static_cast<uint32_t>(v) & stark::MASK29;
+    carry = v >> 29;
+  }
+  stark::from_limbs29(rl, r);
+}
+
+// How a product takes its twiddles (the kernel's Mul::Layout): a table row
+// is w's 8 words then wp's (4 vectors of 16 bytes); `stage` turns it into
+// the VECS vectors a staged entry holds, `unpack` those into the product's
+// twiddle. The radix-2^29 layout: w's and wp's 9 limbs, 2 words of padding.
+struct Limbs29Layout {
+  using Tw = Tw29;
+  static constexpr int VECS = 5;
+  __device__ static void stage(const uint4* __restrict__ row, uint4 (&v)[VECS]) {
+    uint32_t t[2 * stark::NW], s[4 * VECS];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint4 r = row[c];
+      t[4 * c] = r.x; t[4 * c + 1] = r.y; t[4 * c + 2] = r.z; t[4 * c + 3] = r.w;
+    }
+    stark::to_limbs29(t, s);
+    stark::to_limbs29(t + stark::NW, s + stark::NL29);
+    s[2 * stark::NL29] = s[2 * stark::NL29 + 1] = 0;
+#pragma unroll
+    for (int c = 0; c < VECS; ++c)
+      v[c] = make_uint4(s[4 * c], s[4 * c + 1], s[4 * c + 2], s[4 * c + 3]);
+  }
+  __device__ static Tw unpack(const uint4 (&v)[VECS]) {
+    Tw t;
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(v);
+#pragma unroll
+    for (int i = 0; i < stark::NL29; ++i) {
+      t.w[i] = s[i];
+      t.wp[i] = s[stark::NL29 + i];
+    }
+    return t;
+  }
+};
+
+// The fused run's product (the kernel's Mul): the radix-2^29 form
+// (scripts/ntt_kernels_cuda.py builds the kernel with the word form's
+// products in its place)
+struct ShoupMul29 {
+  using Layout = Limbs29Layout;
+  const stark::Field& f;
+  const ShoupOne& one;
+  __device__ __forceinline__ void operator()(const Tw29& t, const uint32_t (&x)[stark::NW],
+                                             uint32_t (&r)[stark::NW]) const {
+    shoup_mul29(one, t, x, r);
+  }
+};
+
+// A product that takes the twiddle 1 (tested by value) without a product,
+// `shoup_mul_one`. The kernel uses it in the round of l = 1, 2 alone, where
+// every lane of a warp reads the same twiddles, so a warp skips whole
+// products (all of l = 1, half of l = 2): elsewhere a lane or none would
+// skip, and the branch would keep the compiler from overlapping a thread's
+// two butterflies.
+template <class Mul>
+struct SkipOne {
+  using Layout = typename Mul::Layout;
+  const Mul& mul;
+  __device__ __forceinline__ void operator()(const typename Layout::Tw& t,
+                                             const uint32_t (&x)[stark::NW],
+                                             uint32_t (&r)[stark::NW]) const {
+    if (is_shoup_one(mul.one, t))
+      shoup_mul_one(mul.f, mul.one, x, r);
+    else
+      mul(t, x, r);
+  }
+};
+
+// Entry e of the staged table: VECS planes of 16-byte vectors, vector c of
+// entry e at c ls + tw_pos(e). tw_pos XORs bits 3-5 and 6-8 of e into its
+// low three, so that 8 entries e = k s (8 consecutive k from a multiple of
+// 8, s = 2^a) lie in 8 distinct 16-byte bank groups: each quarter-warp's
+// loads of a stage are free of conflicts.
+__device__ __forceinline__ int tw_pos(int e) { return e ^ (((e >> 3) ^ (e >> 6)) & 7); }
+
+template <class Layout>
+__device__ __forceinline__ typename Layout::Tw load_staged(const uint4* __restrict__ tws, int ls,
+                                                           int e) {
+  const int pos = tw_pos(e);
+  uint4 v[Layout::VECS];
+#pragma unroll
+  for (int c = 0; c < Layout::VECS; ++c) v[c] = tws[c * ls + pos];
+  return Layout::unpack(v);
+}
+
+// fused_round with Shoup butterflies: the same sets of elements, exchange
+// buffers and columns. Stage l = 2^s reads tw_l[k] = tw_ls[k ls / l], entry
+// k 2^(log_ls - s) of the staged table of stage ls = 2^log_ls. With canon
+// the round's last stage reduces its outputs below p; the round that writes
+// the planes stores its values as they are.
+template <bool DIT, int R, class Mul>
+__device__ __forceinline__ void shoup_round(
+    const stark::Field& f, const Mul& mul, const uint32_t (&p2)[stark::NW],
+    uint32_t (&x)[FB_EPT][stark::NW], const uint4* __restrict__ tws, int log_ls,
+    const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
+    const int32_t* __restrict__ a, int32_t* __restrict__ out, int64_t n, int64_t lbase,
+    int h, int s0, bool from_global, bool to_global, bool canon) {
+  constexpr int E = 1 << R, Q = FB_EPT / E;
+  const int L = 1 << s0, pairs = h >> R, nt = blockDim.x;
+  int idx[Q][E];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int p = threadIdx.x + nt * q;
+    const int lo = p & (L - 1), hi = p >> s0;
+#pragma unroll
+    for (int j = 0; j < E; ++j) idx[q][j] = (hi << (s0 + R)) + j * L + lo;
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    if (threadIdx.x + nt * q >= pairs) continue;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      if (from_global) {
+        stark::load_elem(a, n, lbase + idx[q][j], x[q * E + j]);
+      } else {
+        const int c = fb_col(idx[q][j]);
+#pragma unroll
+        for (int w = 0; w < stark::NW; ++w) x[q * E + j][w] = src[w * h + c];
+      }
+    }
+  }
+#pragma unroll
+  for (int st = 0; st < R; ++st) {
+    const int r = DIT ? st : R - 1 - st;  // DIT: l ascending; DIF: descending
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int p = threadIdx.x + nt * q;
+      if (p >= pairs) continue;
+      const int lo = p & (L - 1);
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        if (j & (1 << r)) continue;
+        const int k = (j & ((1 << r) - 1)) * L + lo;
+        const auto t = load_staged<typename Mul::Layout>(tws, 1 << log_ls,
+                                                         k << (log_ls - s0 - r));
+        shoup_butterfly<DIT>(f, mul, p2, x[q * E + j], x[q * E + j + (1 << r)], t,
+                             canon && st == R - 1);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    if (threadIdx.x + nt * q >= pairs) continue;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      if (to_global) {
+        stark::store_elem(out, n, lbase + idx[q][j], x[q * E + j]);
+      } else {
+        const int c = fb_col(idx[q][j]);
+#pragma unroll
+        for (int w = 0; w < stark::NW; ++w) dst[w * h + c] = x[q * E + j][w];
+      }
+    }
+  }
+}
+
+// cross_round with Shoup butterflies: the stage of stride h across the pair
+// of CTAs, its twiddles tw_h[k] read from rows h - 1 + k of the table (in
+// L2); with canon its outputs below p.
+template <bool DIT, class Mul>
+__device__ __forceinline__ void shoup_cross_round(
+    const stark::Field& f, const Mul& mul, const uint32_t (&p2)[stark::NW],
+    uint32_t (&x)[FB_EPT][stark::NW], const uint4* __restrict__ tw,
+    uint32_t* const (&bufs)[2], const int32_t* __restrict__ a, int32_t* __restrict__ out,
+    int64_t n, int64_t base, int h, int rank, bool canon) {
+  constexpr int Q = FB_EPT / 2;
+  const int nt = blockDim.x, pairs = h >> 1;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int p = threadIdx.x + nt * q;
+    if (p >= pairs) continue;
+    const int k = rank * pairs + p, c = fb_col(k);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (DIT) {
+#pragma unroll
+        for (int w = 0; w < stark::NW; ++w) x[2 * q + j][w] = bufs[j][w * h + c];
+      } else {
+        stark::load_elem(a, n, base + j * h + k, x[2 * q + j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int p = threadIdx.x + nt * q;
+    if (p >= pairs) continue;
+    using Layout = typename Mul::Layout;
+    uint4 v[Layout::VECS];
+    Layout::stage(tw + 4 * (h - 1 + rank * pairs + p), v);
+    shoup_butterfly<DIT>(f, mul, p2, x[2 * q], x[2 * q + 1], Layout::unpack(v), canon);
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int p = threadIdx.x + nt * q;
+    if (p >= pairs) continue;
+    const int k = rank * pairs + p, c = fb_col(k);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (DIT) {
+        stark::store_elem(out, n, base + j * h + k, x[2 * q + j]);
+      } else {
+#pragma unroll
+        for (int w = 0; w < stark::NW; ++w) bufs[j][w * h + c] = x[2 * q + j][w];
+      }
+    }
+  }
+}
+
+// butterfly_fused_kernel's schedule with Shoup butterflies (see the
+// header): persistent clusters of two CTAs a block (one CTA for a block of
+// 2), each CTA's h = block / cs elements in two exchange buffers, and the
+// table of stage ls = h / 2, the largest below stride h (rows ls - 1 ..
+// 2 ls - 2 of the (block - 1, 16) table), staged once, every smaller stage
+// a stride of it. With canon the last stage in execution order reduces
+// below p (DIT's stride-h round, or DIF's round of l = 1, 2).
+template <bool DIT, class Mul>
+__global__ void __launch_bounds__(FB_THREADS, 1)
 butterfly_fused_shoup_kernel(const int32_t* __restrict__ a, const uint4* __restrict__ tw,
-                             int32_t* __restrict__ out, int64_t n, int log_block, int canon,
-                             stark::Field f) {
-  extern __shared__ __align__(16) uint32_t fs[];
-  const int block = 1 << log_block, half = block >> 1;
+                             int32_t* __restrict__ out, int64_t n, int log_block, int cs,
+                             int canon, stark::Field f, ShoupOne one) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int block = 1 << log_block, h = block / cs, ls = h / 2, nt = blockDim.x;
+  const int log_h = log_block - (cs > 1), log_ls = log_h - 1;
+  const int rank = cs > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const Mul mul{f, one};
   uint32_t p2[stark::NW];  // 2p
 #pragma unroll
   for (int i = 0; i < stark::NW; ++i)
     p2[i] = (f.p[i] << 1) | (i > 0 ? f.p[i - 1] >> 31 : 0u);
-  for (int64_t blk = blockIdx.x; blk < (n >> log_block); blk += gridDim.x) {
-    const int64_t base = blk << log_block;
-    __syncthreads();  // the last block's stores have read xs
-    for (int i = threadIdx.x; i < block; i += blockDim.x) {
-      uint32_t w[stark::NW];
-      stark::load_elem(a, n, base + i, w);
+  uint32_t* const xs = sm;  // two exchange buffers of [NW][h] words
+  using Layout = typename Mul::Layout;
+  uint4* const tws = reinterpret_cast<uint4*>(sm + 2 * stark::NW * h);  // [VECS][ls]
+  for (int e = threadIdx.x; e < ls; e += nt) {
+    uint4 v[Layout::VECS];
+    Layout::stage(tw + 4 * (ls - 1 + e), v);
+    const int pos = tw_pos(e);
 #pragma unroll
-      for (int q = 0; q < stark::NW; ++q) fs[q * block + i] = w[q];
-    }
-    __syncthreads();
-    for (int st = 0; st < log_block; ++st) {
-      const int s = DIT ? st : log_block - 1 - st, l = 1 << s;
-      const bool last = canon && st == log_block - 1;
-      for (int j = threadIdx.x; j < half; j += blockDim.x) {
-        const int k = j & (l - 1), i0 = ((j >> s) << (s + 1)) + k, i1 = i0 + l;
-        uint32_t u[stark::NW], v[stark::NW], w[stark::NW], wp[stark::NW];
+    for (int c = 0; c < Layout::VECS; ++c) tws[c * ls + pos] = v[c];
+  }
+  // rounds in l-ascending order, as butterfly_fused_kernel's
+  const int nl = (log_h + 1) / 2, nr = nl + (cs > 1);
+  const int64_t nblocks = n >> log_block;
+  for (int64_t blk = blockIdx.x / cs; blk < nblocks; blk += gridDim.x / cs) {
+    const int64_t base = blk << log_block, lbase = base + static_cast<int64_t>(rank) * h;
+    uint32_t x[FB_EPT][stark::NW];
+    block_sync(cs);  // the table is staged; the last block's buffers are free
+    int cur = 0;
+    if (DIT) {
+      for (int i = threadIdx.x; i < h; i += nt) {
+        uint32_t w[stark::NW];
+        stark::load_elem(a, n, lbase + i, w);
+        const int c = fb_col(i);
 #pragma unroll
-        for (int q = 0; q < stark::NW; ++q) {
-          u[q] = fs[q * block + i0];
-          v[q] = fs[q * block + i1];
-        }
-        load_shoup_tw(tw, l - 1 + k, w, wp);
-        shoup_butterfly<DIT>(f, p2, u, v, w, wp, last);
-#pragma unroll
-        for (int q = 0; q < stark::NW; ++q) {
-          fs[q * block + i0] = u[q];
-          fs[q * block + i1] = v[q];
-        }
+        for (int q = 0; q < stark::NW; ++q) xs[q * h + c] = w[q];
       }
       __syncthreads();
     }
-    for (int i = threadIdx.x; i < block; i += blockDim.x) {
-      uint32_t w[stark::NW];
+    for (int rr = 0; rr < nr; ++rr) {
+      const int ri = DIT ? rr : nr - 1 - rr;  // index in l-ascending order
+      const bool last = canon && rr == nr - 1;
+      if (ri == nl) {  // the pair's stage of stride h
+        cg::cluster_group cluster = cg::this_cluster();
+        const int buf = DIT ? cur : cur ^ 1;
+        uint32_t* const bufs[2] = {
+            cluster.map_shared_rank(xs + buf * stark::NW * h, 0),
+            cluster.map_shared_rank(xs + buf * stark::NW * h, 1)};
+        if (DIT) block_sync(cs);  // the partner's half is in its buffer
+        shoup_cross_round<DIT>(f, mul, p2, x, tw, bufs, a, out, n, base, h, rank, last);
+        if (!DIT) {
+          block_sync(cs);
+          cur ^= 1;
+        }
+        continue;
+      }
+      const int R = ri == nl - 1 && (log_h & 1) ? 1 : 2, s0 = 2 * ri;
+      const bool from_global = !DIT && rr == 0, to_global = DIT && rr == nr - 1;
+      const uint32_t* src = xs + cur * stark::NW * h;
+      uint32_t* dst = xs + (cur ^ 1) * stark::NW * h;
+      if (R == 2 && s0 == 0)
+        shoup_round<DIT, 2>(f, SkipOne<Mul>{mul}, p2, x, tws, log_ls, src, dst, a, out, n,
+                            lbase, h, s0, from_global, to_global, last);
+      else if (R == 2)
+        shoup_round<DIT, 2>(f, mul, p2, x, tws, log_ls, src, dst, a, out, n, lbase, h, s0,
+                            from_global, to_global, last);
+      else
+        shoup_round<DIT, 1>(f, mul, p2, x, tws, log_ls, src, dst, a, out, n, lbase, h, s0,
+                            from_global, to_global, last);
+      if (!to_global) {
+        __syncthreads();
+        cur ^= 1;
+      }
+    }
+    if (!DIT) {
+      for (int i = threadIdx.x; i < h; i += nt) {
+        uint32_t w[stark::NW];
+        const int c = fb_col(i);
 #pragma unroll
-      for (int q = 0; q < stark::NW; ++q) w[q] = fs[q * block + i];
-      stark::store_elem(out, n, base + i, w);
+        for (int q = 0; q < stark::NW; ++q) w[q] = xs[cur * stark::NW * h + q * h + c];
+        stark::store_elem(out, n, lbase + i, w);
+      }
     }
   }
+  block_sync(cs);  // no CTA leaves while its partner may read its buffers
+}
+
+// floor(2^256 / d) for 2 <= d < 2^256, bit by bit (host); returns whether
+// the division left a remainder
+inline bool div_pow2_256(const uint32_t (&d)[stark::NW], uint32_t (&q)[stark::NW]) {
+  uint64_t r[stark::NW + 1] = {};  // the remainder, below 2d < 2^257, 32 bits a word
+  for (int i = 0; i < stark::NW; ++i) q[i] = 0;
+  for (int b = 256; b >= 0; --b) {
+    uint64_t c = b == 256;  // r = 2r + bit b of 2^256
+    for (int i = 0; i <= stark::NW; ++i) {
+      const uint64_t v = ((r[i] << 1) | c) & 0xFFFFFFFFu;
+      c = r[i] >> 31;
+      r[i] = v;
+    }
+    bool ge = r[stark::NW] != 0;  // r >= d
+    if (!ge) {
+      ge = true;
+      for (int i = stark::NW - 1; i >= 0; --i) {
+        if (r[i] != d[i]) {
+          ge = r[i] > d[i];
+          break;
+        }
+      }
+    }
+    if (!ge) continue;
+    uint64_t borrow = 0;
+    for (int i = 0; i <= stark::NW; ++i) {
+      const uint64_t s = r[i] - (i < stark::NW ? d[i] : 0) - borrow;
+      r[i] = s & 0xFFFFFFFFu;
+      borrow = (s >> 32) & 1u;
+    }
+    q[b / 32] |= 1u << (b % 32);  // b < 256: d >= 2
+  }
+  for (int i = 0; i <= stark::NW; ++i)
+    if (r[i]) return true;
+  return false;
+}
+
+// ShoupOne of p: wp1 = floor(2^256 / p), c1 = ceil(2^256 / wp1)
+inline ShoupOne shoup_one(const uint32_t* p_words) {
+  uint32_t p[stark::NW];
+  for (int i = 0; i < stark::NW; ++i) p[i] = p_words[i];
+  ShoupOne one;
+  div_pow2_256(p, one.wp);
+  if (div_pow2_256(one.wp, one.c1)) {
+    for (int i = 0; i < stark::NW && ++one.c1[i] == 0; ++i) {
+    }
+  }
+  uint32_t pn[stark::NW + 1];  // 2^261 - p, 9 words
+  uint64_t borrow = 0;
+  for (int i = 0; i <= stark::NW; ++i) {
+    const uint64_t s = (i == stark::NW ? 1ull << 5 : 0ull) - (i < stark::NW ? p[i] : 0u) - borrow;
+    pn[i] = static_cast<uint32_t>(s);
+    borrow = (s >> 32) & 1u;
+  }
+  for (int i = 0; i < stark::NL29; ++i) {  // both in 29-bit limbs
+    const int bit = 29 * i, word = bit / 32, sh = bit % 32;
+    const uint64_t v = pn[word] | (static_cast<uint64_t>(pn[word + 1]) << 32);
+    const uint64_t u = one.wp[word] |
+                       (word + 1 < stark::NW ? static_cast<uint64_t>(one.wp[word + 1]) << 32 : 0);
+    one.pn29[i] = static_cast<uint32_t>(v >> sh) & stark::MASK29;
+    one.wp29[i] = static_cast<uint32_t>(u >> sh) & stark::MASK29;
+  }
+  return one;
+}
+
+// A fused Shoup run of blocks of 2^log_block (4 .. 2048: a cluster of two
+// CTAs a block, 256 threads each, two CTAs an SM; 2: one CTA of 512), 104 KB
+// of shared memory a CTA at block 2048 with Mul = ShoupMul29; a persistent
+// grid of as many clusters as the card holds at once.
+template <class Mul>
+cudaError_t launch_fused_shoup(const int32_t* a, const uint4* tw, int32_t* out, int64_t n,
+                               int log_block, int dit, int canon, const uint32_t* p_words,
+                               uint32_t np, cudaStream_t stream) {
+  const long long blocks = n >> log_block;
+  const int cs = log_block >= 2 ? 2 : 1, h = (1 << log_block) / cs;
+  const size_t smem = (2 * static_cast<size_t>(h) * stark::NW * sizeof(uint32_t) +
+                       static_cast<size_t>(h / 2) * Mul::Layout::VECS * sizeof(uint4));
+  auto kernel = dit ? butterfly_fused_shoup_kernel<true, Mul>
+                    : butterfly_fused_shoup_kernel<false, Mul>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = cs;
+  cluster.val.clusterDim.y = cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3(static_cast<unsigned>(cs * blocks));
+  cfg.blockDim = dim3(FB_THREADS / cs);
+  cfg.dynamicSmemBytes = smem;
+  int clusters = 0;  // clusters the card holds at once: the persistent grid
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters > 0 && clusters < blocks) cfg.gridDim = dim3(static_cast<unsigned>(cs * clusters));
+  const stark::Field f = stark::make_field(p_words, np);
+  err = cudaLaunchKernelEx(&cfg, kernel, a, tw, out, n, log_block, cs, canon, f,
+                           shoup_one(p_words));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <bool DIT>
@@ -1093,29 +1571,8 @@ extern "C" int stark_butterfly_fused_shoup(const void* a, const void* tw, void* 
   if (block < 2 || (1 << log_block) != block || log_block > FB_MAX_LOG || n % block != 0 ||
       p_words[stark::NW - 1] >= 0x80000000u)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = n / block;
-  if (blocks == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = static_cast<size_t>(block) * stark::NW * sizeof(uint32_t);
-  auto kernel = dit ? butterfly_fused_shoup_kernel<true> : butterfly_fused_shoup_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0, sms = 0, dev = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FS_THREADS, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  long long grid = static_cast<long long>(per_sm) * sms;  // persistent: a CTA walks blocks
-  if (grid < 1 || grid > blocks) grid = blocks;
-  const stark::Field f = stark::make_field(p_words, np);
-  const int32_t* ap = static_cast<const int32_t*>(a);
-  const uint4* tp = static_cast<const uint4*>(tw);
-  int32_t* op = static_cast<int32_t*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned g = static_cast<unsigned>(grid);
-  if (dit)
-    butterfly_fused_shoup_kernel<true><<<g, FS_THREADS, smem, st>>>(ap, tp, op, n, log_block, canon, f);
-  else
-    butterfly_fused_shoup_kernel<false><<<g, FS_THREADS, smem, st>>>(ap, tp, op, n, log_block, canon, f);
-  return static_cast<int>(cudaGetLastError());
+  if (n < block) return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_fused_shoup<ShoupMul29>(
+      static_cast<const int32_t*>(a), static_cast<const uint4*>(tw), static_cast<int32_t*>(out),
+      n, log_block, dit, canon, p_words, np, static_cast<cudaStream_t>(stream)));
 }

@@ -380,7 +380,9 @@ def butterfly_fused_shoup(spec: FieldSpec, a, tw_words, block: int, kind: str,
                           canon: bool = False):
     """The fused run of small Shoup stages (see `butterfly_fused_shoup_plain`)
     on a (16, n) plane of values in [0, 2p). On a CUDA tensor block is at
-    most `FUSED_BLOCK`."""
+    most `FUSED_BLOCK`, and the table is a plan's (`shoup_stage_tables`):
+    the kernel reads each stage below block / 4 as a stride of that stage's
+    table (tw_l[k] = tw_2l[2k]), as `butterfly_pass_shoup` does."""
     _check_kind(kind)
     fc.check_planes(spec, a)
     n = a.shape[1]
