@@ -111,6 +111,18 @@ non-zero and no phase's error is swallowed:
    with the device time of every Poseidon launch of the warm prove
    (`poseidon_ms`, with how many ran the lane form); its verifier walks
    every branch with the host hash;
+5b. file_route: the native file route (`protocol/runner.py`: the C++
+   readers of the host library, which must have built, hand the prover the
+   flat circuit and the witness rows). The same circuit written as files
+   (`synth.write_circuit_files`) is proved by the CLI's `prove`, with every
+   launch counter set to 0 just before and read just after (every kernel of
+   the default route must launch), and verified by its `verify`; its `run`
+   proves and verifies again. Then both routes stage by stage (native,
+   and the Python readers the route took before), in turns: each stage's
+   host wall (parse of each file, the witness rows, the static
+   arithmetization, the prove, the JSON write). Then, each in a fresh
+   process, `python -m stark_tpu_torch.cli warmup` and `... prove`, with
+   their walls. Every proof must equal phase 5's byte for byte;
 6. serve: the proving worker (`stark_tpu_torch.serve.serve`, the loop behind
    `python -m stark_tpu_torch.cli serve --device cuda --fri-fold lagrange`)
    on the Lagrange fold route, fed the same circuit as files: ping, warmup,
@@ -251,13 +263,13 @@ the products only, without the recombination and the fold.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import io
 import json
 import os
 import re
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
@@ -1924,31 +1936,125 @@ def stage_walls(r1cs, witness, device, want_proof, fri_fold, lde_engine="butterf
     return out
 
 
-def write_circuit_files(r1cs, witness, r1cs_path: str, wtns_path: str) -> None:
-    """A parsed circuit and its witness as iden3 `.r1cs` and circom `.wtns`
-    files, the inverse of `stark_tpu_torch/r1cs/reader.py`."""
-    h = r1cs.header
-    header = struct.pack("<I", h.field_size) + h.prime_number + struct.pack(
-        "<IIIIQI", h.n_wires, h.n_public_outputs, h.n_public_inputs,
-        h.n_private_inputs, h.n_labels, h.n_constraints)
-    body = bytearray()
-    for constraint in r1cs.constraints:
-        for factor in constraint.factors:
-            body += struct.pack("<I", len(factor.coefficients))
-            for c in factor.coefficients:
-                body += struct.pack("<I", c.wire_id) + c.value.ljust(32, b"\0")
-    with open(r1cs_path, "wb") as f:
-        f.write(b"r1cs" + struct.pack("<II", r1cs.version, 3))
-        for kind, section in ((1, header), (2, bytes(body)), (3, b"")):
-            f.write(struct.pack("<IQ", kind, len(section)) + section)
-    with open(wtns_path, "wb") as f:
-        # version 2, two sections: the header (id 1), then the values (id 2)
-        f.write(b"wtns" + struct.pack("<IIIQ", 2, 2, 1, 8 + h.field_size))
-        f.write(struct.pack("<I", h.field_size) + h.prime_number)
-        f.write(struct.pack("<I", len(witness)))
-        f.write(struct.pack("<IQ", 2, len(witness) * h.field_size))
-        for w in witness:
-            f.write(w.ljust(h.field_size, b"\0"))
+def file_route_stages(r1cs_path: str, wtns_path: str, proof_path: str, device,
+                      route: str) -> tuple[dict, str]:
+    """One prove of a circuit's files through the runner's pieces, stage by
+    stage, each stage's host wall: on the native route (`runner.read_circuit`
+    and `runner.read_witness_rows`, the C++ readers, whose witness parse
+    gives the rows) or on the Python route (`read_r1cs`, `read_witness`,
+    `runner._witness_rows`: the file route before the C++ readers took it),
+    then the static arithmetization of the parsed circuit, the prove from
+    the rows and the JSON write. Returns the walls and the JSON."""
+    from stark_tpu_torch import native
+    from stark_tpu_torch.protocol import runner
+    from stark_tpu_torch.r1cs.reader import read_r1cs, read_witness
+
+    walls = {"route": route}
+
+    def stage(name, fn):
+        t0 = time.time()
+        value = fn()
+        walls[f"{name}_s"] = time.time() - t0
+        return value
+
+    if route == "native":
+        circuit = stage("parse_r1cs", lambda: runner.read_circuit(r1cs_path))
+        if not isinstance(circuit, native.FlatR1cs):
+            raise AssertionError("the runner did not read the circuit on the native route")
+        rows = stage("parse_wtns", lambda: runner.read_witness_rows(wtns_path, circuit))
+        walls["witness_rows_s"] = 0.0  # the C++ reader's output is the rows
+    else:
+        circuit = stage("parse_r1cs", lambda: read_r1cs(runner._read(r1cs_path)))
+        witness = stage("parse_wtns", lambda: read_witness(runner._read(wtns_path)))
+        rows = stage("witness_rows", lambda: runner._witness_rows(circuit, witness))
+    stage("arithmetize", lambda: runner._static_arith(runner._spec_for(circuit), circuit))
+    proof = stage("prove", lambda: runner.prove_with_rows(circuit, rows, device=device))
+    text = stage("json_write", lambda: runner.write_proof(proof, proof_path))
+    walls["host_s"] = sum(v for k, v in walls.items() if k.endswith("_s") and k != "prove_s")
+    return walls, text
+
+
+def phase_file_route(device, r1cs, witness, want_proof) -> dict:
+    """The file-path entry points on the native route (see the module
+    docstring, phase 5b)."""
+    from stark_tpu_torch import cli, native
+    from stark_tpu_torch.protocol import proof as proof_mod
+    from stark_tpu_torch.r1cs.synth import write_circuit_files
+
+    # on the card's machine the route must run: no quiet fall back to the
+    # Python readers where g++ is missing
+    if not native.available():
+        raise AssertionError("the host library did not build: no native file route")
+    wrap = wrappers()
+    want_json = proof_mod.to_json(want_proof)
+    out = {}
+
+    def cli_main(*argv):
+        printed = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main([*argv, "--device", device])
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"cli {argv[0]} returned {rc}")
+        return {"wall_s": time.time() - t0, "printed": printed.getvalue().splitlines()}
+
+    def read(path):
+        with open(path) as f:
+            return f.read()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {name: os.path.join(tmp, name)
+                 for name in ("chain.r1cs", "chain.wtns", "cli.json", "run.json",
+                              "stages.json", "child.json")}
+        t0 = time.time()
+        write_circuit_files(r1cs, witness, paths["chain.r1cs"], paths["chain.wtns"])
+        out["write_files_s"] = time.time() - t0
+        out["file_bytes"] = {name: os.path.getsize(paths[name])
+                             for name in ("chain.r1cs", "chain.wtns")}
+        files = (paths["chain.r1cs"], paths["chain.wtns"])
+
+        # the CLI's prove, every launch counter from 0
+        for fn in wrap.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        out["cli prove"] = cli_main("prove", *files, paths["cli.json"])
+        launches = {name: fn.launches for name, fn in wrap.items()}
+        if read(paths["cli.json"]) != want_json:
+            raise AssertionError("the native file route's proof differs from the real-size one")
+        other = (OFF_PATH + LAGRANGE_ONLY + CRT_ONLY + BITS_ONLY + SHOUP_ONLY + POSEIDON_ONLY)
+        missing = [name for name in wrap if name not in other and launches[name] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by the file route's prove: {missing}")
+        out["launches"] = launches
+        out["cli verify"] = cli_main("verify", *files, paths["cli.json"])
+        out["cli run"] = cli_main("run", *files, paths["run.json"])
+        if read(paths["run.json"]) != want_json:
+            raise AssertionError("the CLI's run wrote another proof")
+
+        # stage by stage, both routes, in turns
+        out["stages"] = []
+        for route in ("python", "native", "native", "python"):
+            walls, text = file_route_stages(*files, paths["stages.json"], device, route)
+            if text != want_json:
+                raise AssertionError(f"the {route} route's proof differs from the real-size one")
+            out["stages"].append(walls)
+
+        # fresh processes: the CLI's warmup, then its prove
+        out["fresh"] = {}
+        for name, argv in (("warmup", ["warmup", files[0]]),
+                           ("prove", ["prove", *files, paths["child.json"]])):
+            t0 = time.time()
+            done = subprocess.run([sys.executable, "-m", "stark_tpu_torch.cli", *argv,
+                                   "--device", device], cwd=ROOT, capture_output=True,
+                                  text=True, timeout=300)
+            if done.returncode != 0:
+                raise AssertionError(f"cli {name} in a fresh process: {done.stderr[-2000:]}")
+            out["fresh"][name] = {"wall_s": time.time() - t0,
+                                  "printed": done.stdout.splitlines()}
+        if read(paths["child.json"]) != want_json:
+            raise AssertionError("the fresh process's proof differs from the real-size one")
+    return out
 
 
 def phase_serve(device, r1cs, witness, want_proof, want_poseidon) -> dict:
@@ -1957,7 +2063,7 @@ def phase_serve(device, r1cs, witness, want_proof, want_poseidon) -> dict:
     from stark_tpu_torch import serve
     from stark_tpu_torch.protocol import proof as proof_mod
     from stark_tpu_torch.protocol import runner
-    from stark_tpu_torch.r1cs.synth import squaring_chain
+    from stark_tpu_torch.r1cs.synth import squaring_chain, write_circuit_files
 
     wrap = wrappers()
     want_json = proof_mod.to_json(want_proof)
@@ -2084,6 +2190,7 @@ def worker_on_crt(device, r1cs, witness, want_proof) -> dict:
     launch the engine's three kernels, then shutdown."""
     from stark_tpu_torch import serve
     from stark_tpu_torch.protocol import proof as proof_mod
+    from stark_tpu_torch.r1cs.synth import write_circuit_files
 
     wrap = wrappers()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2372,6 +2479,11 @@ def main(argv=None) -> int:
     real, proof = phase_real(device, r1cs, witness, args.profile)
     emit({"phase": "real_size", "steps": params.steps, "precision": params.precision,
           **real, "seconds": time.time() - t0})
+
+    t0 = time.time()
+    file_route = phase_file_route(device, r1cs, witness, proof)
+    emit({"phase": "file_route", "steps": params.steps, "precision": params.precision,
+          **file_route, "seconds": time.time() - t0})
 
     # a circuit object of its own, so that its cold prove is the circuit's
     # first (Zb2^-1, which `vanishing_eval` makes, is kept on the circuit)

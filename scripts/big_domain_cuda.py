@@ -2,7 +2,7 @@
 """Prove and verify, on one NVIDIA GPU, the largest `squaring_chain` that a
 precision admits, with the PyTorch/CUDA port:
 
-    python3 scripts/big_domain_cuda.py --log-precision 23 [--stages] [--out DIR]
+    python3 scripts/big_domain_cuda.py --log-precision 23 [--stages] [--file-route] [--out DIR]
 
 `--log-precision` k (21-23) sets the domain: steps 2^(k-3) and the circuit
 of floor(2^(k-3) / 3) constraints (87,381 at 2^21, 174,762 at 2^22,
@@ -17,7 +17,13 @@ cold prove (the stage set's build included), a warm prove and a verify,
 each with its wall and `torch.cuda.max_memory_allocated` over it, and the
 proof's sha256; with `--stages`, one more prove with a device synchronise
 after each stage and each stage's wall and peak memory
-(`chip_smoke.stage_walls`). The last line is a
+(`chip_smoke.stage_walls`). With `--file-route`, the circuit is written as
+`.r1cs` and `.wtns` files (`synth.write_circuit_files`) and proved from
+them: stage by stage on both routes in turns (`chip_smoke.file_route_stages`:
+the native route's C++ readers, and the Python readers the file route took
+before them; each stage's host wall), then the CLI's `prove`, `verify` and
+`run` on each route, each command's wall; every proof must equal the cold
+prove's byte for byte. The last line is a
 summary. Exits 1 without a card or where the verifier rejects, 4 where the
 card runs out of memory (the record names the bytes asked for, and those
 allocated and reserved at that point). `--out DIR` also writes the records
@@ -27,12 +33,15 @@ to DIR/big_domain_<k>.json. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
+import io
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -64,11 +73,63 @@ def timed(fn):
     return out, time.time() - t0, torch.cuda.max_memory_allocated()
 
 
+def file_route(r1cs, witness, want_json: str) -> None:
+    """The `--file-route` records (module docstring)."""
+    import chip_smoke
+    from stark_tpu_torch import cli
+    from stark_tpu_torch.protocol import runner
+    from stark_tpu_torch.r1cs.reader import read_r1cs, read_witness
+    from stark_tpu_torch.r1cs.synth import write_circuit_files
+
+    native_route = {name: getattr(runner, name)
+                    for name in ("read_circuit", "read_witness_rows")}
+    python_route = {
+        "read_circuit": lambda path: read_r1cs(runner._read(path)),
+        "read_witness_rows": lambda path, circuit: runner._witness_rows(
+            circuit, read_witness(runner._read(path))),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        files = (os.path.join(tmp, "chain.r1cs"), os.path.join(tmp, "chain.wtns"))
+        proof_path = os.path.join(tmp, "proof.json")
+        t0 = time.time()
+        write_circuit_files(r1cs, witness, *files)
+        emit({"phase": "files", "write_s": time.time() - t0,
+              "bytes": [os.path.getsize(path) for path in files]})
+        for route in ("python", "native", "native", "python"):
+            walls, text = chip_smoke.file_route_stages(*files, proof_path, "cuda", route)
+            if text != want_json:
+                raise AssertionError(f"the {route} route's proof differs")
+            emit({"phase": "file_route_stages", **walls})
+        for route, pieces in (("native", native_route), ("python", python_route),
+                              ("python", python_route), ("native", native_route)):
+            for name, fn in pieces.items():
+                setattr(runner, name, fn)
+            for cmd in ("prove", "verify", "run"):
+                printed = io.StringIO()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                with contextlib.redirect_stdout(printed):
+                    rc = cli.main([cmd, *files, proof_path, "--device", "cuda"])
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                with open(proof_path) as f:
+                    same = f.read() == want_json
+                if rc != 0 or not same:
+                    raise AssertionError(f"cli {cmd} on the {route} route: rc {rc}, "
+                                         f"proof equal {same}")
+                emit({"phase": "file_route_cli", "route": route, "command": cmd,
+                      "wall_s": wall, "printed": printed.getvalue().splitlines()})
+        for name, fn in native_route.items():
+            setattr(runner, name, fn)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log-precision", type=int, required=True, choices=range(21, 24))
     ap.add_argument("--stages", action="store_true",
                     help="also prove once with a synchronise after each stage")
+    ap.add_argument("--file-route", action="store_true",
+                    help="also prove from the circuit's files on both routes")
     ap.add_argument("--out", help="also write the records to DIR/big_domain_<k>.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -124,6 +185,9 @@ def main(argv=None) -> int:
             r1cs, witness[:n_pub], proof, device="cuda", verify_cache=False))
         emit({"phase": "verify", "accepted": bool(ok), "wall_s": wall,
               "peak_bytes": peak, "proof_sha256": sha})
+        if args.file_route:
+            phase = "file_route"
+            file_route(r1cs, witness, proof_mod.to_json(proof))
         if args.stages:
             phase = "stages"
             walls = chip_smoke.stage_walls(r1cs, witness, "cuda", proof, "dft", runs=1)[0]

@@ -3,11 +3,19 @@
     python -m stark_tpu_torch.cli run c.r1cs w.wtns proof.json --device cuda
     python -m stark_tpu_torch.cli serve --device cuda --fri-fold lagrange
     python -m stark_tpu_torch.cli prove c.r1cs w.wtns proof.json --lde-engine crt
+    python -m stark_tpu_torch.cli warmup c.r1cs --device cuda --lde-engine crt
 
-`prove`, `verify`, `run` (prove then verify) and `serve` (the long-lived
+`prove`, `verify`, `run` (prove then verify), `serve` (the long-lived
 proving worker, line-delimited JSON-RPC on stdio: `stark_tpu_torch/serve.py`)
-mirror `stark_tpu.cli`; the bare 3-argument form means `run`, like the
-reference's binary. `--fri-fold` names FRI's fold route for the proving
+and `warmup` mirror `stark_tpu.cli`; the bare 3-argument form means `run`,
+like the reference's binary. The files are read on the runner's native
+route (the C++ readers of the host library, built with g++ at first use)
+where that library builds. `warmup` fills what a later process finds on
+disk, so that its first prove starts at once: the CUDA kernel library (on
+a card), the host library and, on the crt engine, the residue tables
+(`ops/mxu_ntt.py CACHE_DIR`). It reads the circuit and runs the worker's
+warmup (`serve._warmup`: the stage set for the circuit's size) and prints
+`warmed N stages (steps=S)`. `--fri-fold` names FRI's fold route for the proving
 commands; `--lde-engine` names the engine of the low-degree extensions
 (the butterfly NTT, or the CRT matrix-product engine of `ops/mxu_ntt.py`) for
 every command. The proof is the same on either of each. `--digest` names
@@ -21,7 +29,7 @@ import argparse
 import sys
 import time
 
-_COMMANDS = ("prove", "verify", "run", "serve")
+_COMMANDS = ("prove", "verify", "run", "serve", "warmup")
 
 
 def main(argv=None) -> int:
@@ -34,6 +42,7 @@ def main(argv=None) -> int:
         sp = sub.add_parser(name)
         if name != "serve":
             sp.add_argument("r1cs")
+        if name not in ("serve", "warmup"):
             sp.add_argument("wtns")
             sp.add_argument("proof_json")
             sp.add_argument("--digest", choices=("blake2s", "poseidon"), default="blake2s",
@@ -41,7 +50,7 @@ def main(argv=None) -> int:
                             "commits the l-tree and FRI's trees")
         sp.add_argument("--device", default="cuda",
                         help="cuda (the default; needs a card) or cpu")
-        if name != "verify":
+        if name not in ("verify", "warmup"):
             sp.add_argument("--fri-fold", choices=("dft", "lagrange"), default="dft",
                             help="FRI's fold route: the radix-4 inverse DFT (the "
                             "default) or the Lagrange fold kernels")
@@ -59,7 +68,14 @@ def main(argv=None) -> int:
     from stark_tpu_torch.protocol import runner
 
     t0 = time.time()
-    if args.cmd == "prove":
+    if args.cmd == "warmup":
+        from stark_tpu_torch import device as devmod
+        from stark_tpu_torch.serve import _warmup
+
+        warmed = _warmup(runner.read_circuit(args.r1cs), devmod.resolve(args.device),
+                         args.lde_engine)
+        print(f"warmed {warmed['warmed']} stages (steps={warmed['steps']})")
+    elif args.cmd == "prove":
         runner.prove_with_file_path(args.r1cs, args.wtns, args.proof_json,
                                     digest=args.digest, device=args.device,
                                     fri_fold=args.fri_fold, lde_engine=args.lde_engine)

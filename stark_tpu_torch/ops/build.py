@@ -4,7 +4,9 @@ All `csrc/*.cu` sources compile with `nvcc` into ONE shared library with a
 plain C interface, loaded through `ctypes` (no PyTorch headers, so a build
 takes seconds): one `nvcc -c` per source, all started together, then one
 link. The library lands in `stark_tpu_torch/_build/<key>/`, keyed by a hash
-of the sources and of `nvcc --version`, written to a temporary name and
+of the sources, the flags and the compiler (its resolved path, size and
+modification time: a process that finds the library built runs no `nvcc`,
+not even `--version`), written to a temporary name and
 moved into place with `os.replace` (the first-use pattern of
 `stark_tpu_torch/native/__init__.py`).
 
@@ -135,8 +137,9 @@ def _key(nvcc: str) -> str:
         with open(os.path.join(CSRC, path), "rb") as f:
             h.update(path.encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True)
-    h.update(ver.stdout.encode())
+    real = os.path.realpath(nvcc)
+    st = os.stat(real)
+    h.update(f"{real}\0{st.st_size}\0{st.st_mtime_ns}".encode())
     return h.hexdigest()[:16]
 
 

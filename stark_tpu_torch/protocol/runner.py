@@ -19,6 +19,21 @@ when they fit 512 MiB (`stark_tpu/protocol/runner.py:258-276`);
 always derives S and P on the device from the witness; the circuit-static
 arithmetization comes from the C++ host library when it builds, from the
 pure-Python arithmetizer otherwise.
+
+The file-path entry points take the native route where the host library
+has built (`read_circuit`, `read_witness_rows`): the C++ readers hand
+`prove_with_rows` the flat circuit (`native.FlatR1cs`) and the witness as
+(n_wires, 32) rows, as `stark_tpu/protocol/runner.py:215-230, 298-342`
+does, and the verifying ones arithmetize that flat circuit too. Without the
+library they take the Python route (`read_r1cs`, `read_witness`). The
+proof and the verdict do not depend on how the files were parsed, under
+either digest. Both routes refuse the same files, each with `ValueError`:
+a bad magic, version or section layout, a file that ends early, a field
+size other than 32 bytes, a prime other than BN254's, a wire id past the
+circuit's wires (the C++ arithmetizer's code 11), a witness with another
+wire count than the circuit's or whose wire 0 is not 1; all before any
+device work. Only the pure-Python arithmetizer, which runs without the
+library, raises `IndexError` on such a wire id.
 """
 
 from __future__ import annotations
@@ -44,25 +59,31 @@ from stark_tpu_torch.protocol.verify import verify_r1cs_proof
 _BN254_PRIME_LE = BN254_FR.p.to_bytes(32, "little")
 
 
-def _spec_for(r1cs: R1csContents) -> FieldSpec:
-    if r1cs.header.prime_number != _BN254_PRIME_LE:
+def _header(circuit):
+    """The header fields of a parsed circuit: `R1csContents.header`, or the
+    `native.FlatR1cs` itself, which carries the same names."""
+    return getattr(circuit, "header", circuit)
+
+
+def _spec_for(circuit) -> FieldSpec:
+    h = _header(circuit)
+    if h.field_size != 32 or h.prime_number != _BN254_PRIME_LE:
         raise ValueError("only the BN254/circom scalar field is supported")
     return BN254_FR
 
 
-def _n_pub(r1cs: R1csContents) -> int:
-    h = r1cs.header
+def _n_pub(circuit) -> int:
+    h = _header(circuit)
     return 1 + h.n_public_inputs + h.n_public_outputs
 
 
-def _static_arith(spec: FieldSpec, r1cs: R1csContents) -> Arithmetization:
+def _flat_arith(spec: FieldSpec, flat: native.FlatR1cs, constraints=None) -> Arithmetization:
     """The witness-less arithmetization (K, flags, permutation, public
-    indices) plus the per-slot wire ids, cached on the parsed circuit."""
-    arith = getattr(r1cs, "_torch_arith_cache", None)
-    if arith is not None:
-        return arith
-    flat = native.flat_from_contents(r1cs)
-    n_pub = _n_pub(r1cs)
+    indices) plus the per-slot wire ids of a flat circuit: through the C++
+    arithmetizer where the host library has built, else through the
+    pure-Python one over `constraints`, the parsed tree's (a flat circuit
+    read from a file exists only where the library has built)."""
+    n_pub = _n_pub(flat)
     if native.available():
         fa = native.arithmetize_flat(flat, None, spec.p.to_bytes(32, "little"), n_pub)
         arith = Arithmetization(
@@ -77,40 +98,75 @@ def _static_arith(spec: FieldSpec, r1cs: R1csContents) -> Arithmetization:
             last_coeff_list=fa.last_coeff_list,
         )
     else:
-        h = r1cs.header
-        arith = arithmetize(spec, r1cs.constraints, None, h.n_wires, n_pub)
+        arith = arithmetize(spec, constraints, None, flat.n_wires, n_pub)
     arith.slot_wire_ids = slot_wire_ids_np(flat.ncoeffs, flat.wire_ids, flat.n_wires)
-    r1cs._torch_arith_cache = arith
     return arith
 
 
-def _public_wires(spec: FieldSpec, r1cs: R1csContents, witness_bytes) -> list[int]:
-    public_wires = [spec.from_bytes_le(w) for w in witness_bytes[: _n_pub(r1cs)]]
+def _static_arith(spec: FieldSpec, circuit) -> Arithmetization:
+    """`_flat_arith` of a parsed circuit (`R1csContents`) or a flat one
+    (`native.FlatR1cs`), cached on that object."""
+    arith = getattr(circuit, "_torch_arith_cache", None)
+    if arith is None:
+        if isinstance(circuit, native.FlatR1cs):
+            arith = _flat_arith(spec, circuit)
+        else:
+            arith = _flat_arith(spec, native.flat_from_contents(circuit), circuit.constraints)
+        circuit._torch_arith_cache = arith
+    return arith
+
+
+def _public_wires(spec: FieldSpec, circuit, witness) -> list[int]:
+    """The public wires from the first entries of `witness`: LE byte strings
+    or (n_wires, 32) uint8 rows."""
+    public_wires = [spec.from_bytes_le(bytes(w)) for w in witness[: _n_pub(circuit)]]
     if public_wires[0] != 1:
         raise ValueError("witness[0] must be 1")
     return public_wires
 
 
-def _witness_rows(r1cs: R1csContents, witness_bytes) -> np.ndarray:
+def _check_wire_count(circuit, n_witness: int) -> None:
+    n_wires = _header(circuit).n_wires
+    if n_witness != n_wires:
+        raise ValueError(f"the witness has {n_witness} wires, the circuit {n_wires}")
+
+
+def _witness_rows(circuit, witness_bytes) -> np.ndarray:
     """The witness as (n_wires, 32) uint8 little-endian rows."""
-    wit_np = np.zeros((r1cs.header.n_wires, 32), np.uint8)
+    _check_wire_count(circuit, len(witness_bytes))
+    wit_np = np.zeros((len(witness_bytes), 32), np.uint8)
     for i, wb in enumerate(witness_bytes):
         wit_np[i, : len(wb[:32])] = np.frombuffer(wb[:32], np.uint8)
     return wit_np
 
 
-def prove_with_witness(r1cs: R1csContents, witness_bytes: list[bytes], mesh=None,
-                       digest: str = "blake2s", device="cuda", fri_fold: str = "dft",
-                       lde_engine: str = "butterfly"):
-    """run.rs:310-452 -> a StarkProof."""
-    spec = _spec_for(r1cs)
-    h = r1cs.header
-    public_wires = _public_wires(spec, r1cs, witness_bytes)
-    arith = _static_arith(spec, r1cs)
-    arith.witness_le = _witness_rows(r1cs, witness_bytes)
+def prove_with_rows(circuit, rows: np.ndarray, mesh=None, digest: str = "blake2s",
+                    device="cuda", fri_fold: str = "dft", lde_engine: str = "butterfly"):
+    """A StarkProof of `circuit`, a parsed `R1csContents` or a
+    `native.FlatR1cs`, from its witness as (n_wires, 32) uint8 LE rows, which
+    go to the prover as they are: the counterpart of
+    `stark_tpu/protocol/runner.py:215-230 prove_with_witness_native`, under
+    either digest. A wrong prime, wire count or wire 0 raises `ValueError`
+    before any device work."""
+    spec = _spec_for(circuit)
+    h = _header(circuit)
+    _check_wire_count(circuit, rows.shape[0])
+    public_wires = _public_wires(spec, circuit, rows)
+    arith = _static_arith(spec, circuit)
+    arith.witness_le = rows
     return mk_r1cs_proof(spec, arith, public_wires, h.n_constraints, h.n_wires,
                          mesh=mesh, digest=digest, device=device, fri_fold=fri_fold,
                          lde_engine=lde_engine)
+
+
+def prove_with_witness(r1cs: R1csContents, witness_bytes: list[bytes], mesh=None,
+                       digest: str = "blake2s", device="cuda", fri_fold: str = "dft",
+                       lde_engine: str = "butterfly"):
+    """run.rs:310-452 -> a StarkProof: `prove_with_rows` on the witness's
+    rows."""
+    return prove_with_rows(r1cs, _witness_rows(r1cs, witness_bytes), mesh=mesh,
+                           digest=digest, device=device, fri_fold=fri_fold,
+                           lde_engine=lde_engine)
 
 
 def prove_many(r1cs: R1csContents, witness_bytes_list, pipeline: int = 2, mesh=None,
@@ -136,7 +192,7 @@ def prove_many(r1cs: R1csContents, witness_bytes_list, pipeline: int = 2, mesh=N
     if pipeline < 1:
         raise ValueError(f"pipeline must be at least 1, got {pipeline}")
     spec = _spec_for(r1cs)
-    h = r1cs.header
+    h = _header(r1cs)
     dev = devmod.resolve(device)
     arith = _static_arith(spec, r1cs)
     side = torch.cuda.Stream(dev) if dev.type == "cuda" and mesh is None else None
@@ -194,9 +250,12 @@ def verify_with_witness(r1cs: R1csContents, public_wires_bytes: list[bytes], pro
                         digest: str = "blake2s", device="cuda",
                         lde_engine: str = "butterfly",
                         verify_cache: bool = True) -> bool:
+    """`r1cs` may also be a `native.FlatR1cs` and the public wires (n_pub,
+    32) uint8 rows: the static arithmetization and the LDE cache hang on
+    whichever object is given."""
     spec = _spec_for(r1cs)
-    h = r1cs.header
-    public_wires = [spec.from_bytes_le(w) for w in public_wires_bytes]
+    h = _header(r1cs)
+    public_wires = [spec.from_bytes_le(bytes(w)) for w in public_wires_bytes]
     if public_wires[0] != 1:
         raise ValueError("public wire 0 must be 1")
     arith = _static_arith(spec, r1cs)
@@ -219,34 +278,71 @@ def _read(path: str) -> bytes:
         return f.read()
 
 
+def read_circuit(path: str):
+    """A `.r1cs` file parsed on the native route (`native.FlatR1cs`, the C++
+    reader) where the host library has built, else on the Python route
+    (`R1csContents`)."""
+    data = _read(path)
+    return native.read_r1cs_flat(data) if native.available() else read_r1cs(data)
+
+
+def read_witness_rows(path: str, circuit) -> np.ndarray:
+    """A `.wtns` file of `circuit` as (n_wires, 32) uint8 LE rows, by the
+    route `read_circuit` takes: the C++ reader's rows as they are, or the
+    Python reader's values padded by `_witness_rows`. A field size other
+    than 32 bytes or a wire count other than the circuit's raises
+    `ValueError` on both."""
+    data = _read(path)
+    if not native.available():
+        return _witness_rows(circuit, read_witness(data))
+    rows = native.read_witness_flat(data)
+    if rows.shape[1] != 32:
+        raise ValueError(f"the .wtns holds {rows.shape[1]}-byte field elements: "
+                         f"only 32-byte ones (BN254's Fr) are read")
+    _check_wire_count(circuit, rows.shape[0])
+    return rows
+
+
+def write_proof(proof, proof_json_path) -> str:
+    text = proof_mod.to_json(proof)
+    with open(proof_json_path, "w") as f:
+        f.write(text)
+    return text
+
+
+def _verify_rows(circuit, rows, proof, digest, device, lde_engine) -> None:
+    if not verify_with_witness(circuit, rows[: _n_pub(circuit)], proof, digest=digest,
+                               device=device, lde_engine=lde_engine):
+        raise ValueError("proof rejected")
+
+
 def prove_with_file_path(r1cs_path, witness_path, proof_json_path,
                          digest: str = "blake2s", device="cuda",
                          fri_fold: str = "dft", lde_engine: str = "butterfly") -> None:
-    r1cs = read_r1cs(_read(r1cs_path))
-    proof = prove_with_witness(r1cs, read_witness(_read(witness_path)),
-                               digest=digest, device=device, fri_fold=fri_fold,
-                               lde_engine=lde_engine)
-    with open(proof_json_path, "w") as f:
-        f.write(proof_mod.to_json(proof))
+    circuit = read_circuit(r1cs_path)
+    write_proof(prove_with_rows(circuit, read_witness_rows(witness_path, circuit),
+                                digest=digest, device=device, fri_fold=fri_fold,
+                                lde_engine=lde_engine), proof_json_path)
 
 
 def verify_with_file_path(r1cs_path, witness_path, proof_json_path,
                           digest: str = "blake2s", device="cuda",
                           lde_engine: str = "butterfly") -> None:
-    r1cs = read_r1cs(_read(r1cs_path))
-    witness = read_witness(_read(witness_path))
+    circuit = read_circuit(r1cs_path)
+    rows = read_witness_rows(witness_path, circuit)
     with open(proof_json_path) as f:
         proof = proof_mod.from_json(f.read())
-    if not verify_with_witness(r1cs, witness[: _n_pub(r1cs)], proof,
-                               digest=digest, device=device, lde_engine=lde_engine):
-        raise ValueError("proof rejected")
+    _verify_rows(circuit, rows, proof, digest, device, lde_engine)
 
 
 def run_with_file_path(r1cs_path, witness_path, proof_json_path,
                        digest: str = "blake2s", device="cuda",
                        fri_fold: str = "dft", lde_engine: str = "butterfly") -> None:
-    """Prove, write the JSON, verify (run.rs:590-625)."""
-    prove_with_file_path(r1cs_path, witness_path, proof_json_path, digest, device,
-                         fri_fold, lde_engine)
-    verify_with_file_path(r1cs_path, witness_path, proof_json_path, digest, device,
-                          lde_engine)
+    """Prove, write the JSON, verify (run.rs:590-625): each file read once,
+    the prove and the verify sharing the parsed circuit."""
+    circuit = read_circuit(r1cs_path)
+    rows = read_witness_rows(witness_path, circuit)
+    text = write_proof(prove_with_rows(circuit, rows, digest=digest, device=device,
+                                       fri_fold=fri_fold, lde_engine=lde_engine),
+                       proof_json_path)
+    _verify_rows(circuit, rows, proof_mod.from_json(text), digest, device, lde_engine)

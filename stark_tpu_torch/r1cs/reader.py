@@ -5,11 +5,16 @@ Host-side I/O replacing the reference's `circom2bellman_core`
 witness reader (`r1cs-stark/src/reader.rs:7-42`). The data model mirrors the
 reference's serde structs (`r1csfile.rs:4-58`) so the golden-file JSON test
 (`compute.r1cs.json`) can be checked field-for-field.
+
+Both readers refuse what the C++ readers of `native/stark_host.cpp` refuse,
+each with `ValueError`: a bad magic, version or section layout, a file that
+ends before its last value, and a field size other than 32 bytes. (The JAX
+package's copies return short values from a file that ends early and read
+any field size.)
 """
 
 from __future__ import annotations
 
-import struct
 from dataclasses import dataclass, field
 
 
@@ -54,25 +59,31 @@ class _Cursor:
         self.data = data
         self.pos = 0
 
-    def u8(self) -> int:
-        v = self.data[self.pos]
-        self.pos += 1
-        return v
-
     def u32(self) -> int:
-        (v,) = struct.unpack_from("<I", self.data, self.pos)
-        self.pos += 4
-        return v
+        return int.from_bytes(self.take(4), "little")
 
     def u64(self) -> int:
-        (v,) = struct.unpack_from("<Q", self.data, self.pos)
-        self.pos += 8
-        return v
+        return int.from_bytes(self.take(8), "little")
 
     def take(self, n: int) -> bytes:
         v = self.data[self.pos : self.pos + n]
+        if len(v) != n:
+            raise ValueError(f"the file ends at byte {len(self.data)}, inside a value "
+                             f"at byte {self.pos}")
         self.pos += n
         return v
+
+
+def _expect(ok: bool, what: str) -> None:
+    if not ok:
+        raise ValueError(what)
+
+
+def _field_size(c: _Cursor) -> int:
+    field_size = c.u32()
+    _expect(field_size == 32, f"field size {field_size}: only 32-byte field elements "
+            "(BN254's Fr) are read")
+    return field_size
 
 
 def read_r1cs(data: bytes) -> R1csContents:
@@ -80,17 +91,14 @@ def read_r1cs(data: bytes) -> R1csContents:
     (version 1, exactly 3 sections, header then constraints; the
     wire2label section is ignored -- reader.rs:71-81)."""
     c = _Cursor(data)
-    magic = c.u32()
-    assert magic == int.from_bytes(b"r1cs", "little"), "bad r1cs magic"
+    _expect(c.u32() == int.from_bytes(b"r1cs", "little"), "bad r1cs magic")
     version = c.u32()
-    assert version == 1, "unsupported r1cs version"
-    n_section = c.u32()
-    assert n_section == 3, "expected 3 sections"
+    _expect(version == 1, "unsupported r1cs version")
+    _expect(c.u32() == 3, "expected 3 sections")
 
-    section_type = c.u32()
-    assert section_type == 1, "expected header section"
+    _expect(c.u32() == 1, "expected header section")
     c.u64()  # section size
-    field_size = c.u32()
+    field_size = _field_size(c)
     prime_number = c.take(32)
     n_wires = c.u32()
     n_public_outputs = c.u32()
@@ -109,8 +117,7 @@ def read_r1cs(data: bytes) -> R1csContents:
         n_constraints=n_constraints,
     )
 
-    section_type = c.u32()
-    assert section_type == 2, "expected constraint section"
+    _expect(c.u32() == 2, "expected constraint section")
     c.u64()  # section size
     constraints = []
     for _ in range(n_constraints):
@@ -134,11 +141,10 @@ def read_witness(data: bytes) -> list[bytes]:
     Returns minimal-length little-endian byte strings per wire, exactly like
     the reference (BigUint::to_bytes_le -- r1cs-stark/src/reader.rs:38)."""
     c = _Cursor(data)
-    magic = c.u32()
-    assert magic == 1936618615, "bad wtns magic"  # reader.rs:11
+    _expect(c.u32() == 1936618615, "bad wtns magic")  # reader.rs:11
     for _ in range(5):
         c.u32()
-    field_size = c.u32()
+    field_size = _field_size(c)
     c.take(field_size)  # field order (unused beyond advancing)
     n_wires = c.u32()
     c.u32()  # n_constraints slot

@@ -4,9 +4,13 @@ The reference benches only on fixed circom fixtures; for scaling studies we
 need circuits of arbitrary size. `squaring_chain(n)` builds the classic
 x_{i+1} = x_i^2 chain: n constraints, n+2 wires, witness generated from a
 seed -- every constraint is satisfied by construction.
+`write_circuit_files` writes a circuit and its witness as the `.r1cs` and
+`.wtns` files that the readers and the file-path entry points take.
 """
 
 from __future__ import annotations
+
+import struct
 
 from stark_tpu_torch.fields.field import BN254_FR, FieldSpec
 from stark_tpu_torch.r1cs.reader import Coefficient, Constraint, Factor, Header, R1csContents
@@ -158,3 +162,34 @@ def ragged_mix(
         for v in wires
     ]
     return R1csContents(1, header, constraints), witness
+
+
+def write_circuit_files(r1cs: R1csContents, witness, r1cs_path: str, wtns_path: str) -> None:
+    """A parsed circuit and its witness as iden3 `.r1cs` and circom `.wtns`
+    files, the inverse of `stark_tpu_torch/r1cs/reader.py` (and of the C++
+    readers): the `.r1cs` has its three sections, the third the identity
+    map of `n_labels` wire labels (u64), as circom's tools write it; the
+    `.wtns` is version 2, with each value padded to the field size."""
+    h = r1cs.header
+    header = struct.pack("<I", h.field_size) + h.prime_number + struct.pack(
+        "<IIIIQI", h.n_wires, h.n_public_outputs, h.n_public_inputs,
+        h.n_private_inputs, h.n_labels, h.n_constraints)
+    body = bytearray()
+    for constraint in r1cs.constraints:
+        for factor in constraint.factors:
+            body += struct.pack("<I", len(factor.coefficients))
+            for c in factor.coefficients:
+                body += struct.pack("<I", c.wire_id) + c.value.ljust(32, b"\0")
+    labels = struct.pack(f"<{h.n_labels}Q", *range(h.n_labels))
+    with open(r1cs_path, "wb") as f:
+        f.write(b"r1cs" + struct.pack("<II", r1cs.version, 3))
+        for kind, section in ((1, header), (2, bytes(body)), (3, labels)):
+            f.write(struct.pack("<IQ", kind, len(section)) + section)
+    with open(wtns_path, "wb") as f:
+        # version 2, two sections: the header (id 1), then the values (id 2)
+        f.write(b"wtns" + struct.pack("<IIIQ", 2, 2, 1, 8 + h.field_size))
+        f.write(struct.pack("<I", h.field_size) + h.prime_number)
+        f.write(struct.pack("<I", len(witness)))
+        f.write(struct.pack("<IQ", 2, len(witness) * h.field_size))
+        for w in witness:
+            f.write(w.ljust(h.field_size, b"\0"))

@@ -24,6 +24,10 @@ gate), so repeat verifies of one circuit skip them. Errors come back as
 {"id", "error": {"type", "message"}}: the worker never dies on a bad
 request.
 
+Circuits and witnesses are read on the runner's native route where the
+host library has built (`runner.read_circuit`, `runner.read_witness_rows`:
+the C++ readers), on the Python route otherwise; the replies are the same.
+
 `warmup` takes {"r1cs": path}. The JAX worker compiles its executables
 there; this one has none to compile. It builds and loads the CUDA kernel
 library (on a card), parses and arithmetizes the circuit, and builds the
@@ -50,13 +54,14 @@ from stark_tpu_torch.ops.ntt import check_lde_engine
 from stark_tpu_torch.protocol import proof as proof_mod
 from stark_tpu_torch.protocol import prove, runner
 from stark_tpu_torch.protocol.params import derive_params
-from stark_tpu_torch.r1cs.reader import read_r1cs, read_witness
 
 
 class _CircuitCache:
-    """Parsed circuits keyed by (path, mtime, size). The runner attaches the
-    static arithmetization to the parsed object, so repeat requests for one
-    circuit skip parsing and arithmetizing."""
+    """Parsed circuits keyed by (path, mtime, size): flat ones
+    (`native.FlatR1cs`, read in C++) where the host library has built, else
+    parsed trees (`runner.read_circuit`). The runner attaches the static
+    arithmetization and the verifier's LDE cache to the cached object, so
+    repeat requests for one circuit skip parsing and arithmetizing."""
 
     def __init__(self, max_entries: int = 8):
         self._d: dict = {}
@@ -68,17 +73,11 @@ class _CircuitCache:
         hit = self._d.get(key)
         if hit is not None:
             return hit
-        with open(path, "rb") as f:
-            r1cs = read_r1cs(f.read())
+        r1cs = runner.read_circuit(path)
         if len(self._d) >= self._max:
             self._d.pop(next(iter(self._d)))
         self._d[key] = r1cs
         return r1cs
-
-
-def _read_witness(path: str):
-    with open(path, "rb") as f:
-        return read_witness(f.read())
 
 
 def _warmup(r1cs, dev, lde_engine: str) -> dict:
@@ -136,11 +135,11 @@ def serve(stdin=None, stdout=None, device="cuda", fri_fold: str = "dft",
             elif method in ("prove", "verify", "run"):
                 digest = prm.get("digest", "blake2s")
                 r1cs = circuits.get(prm["r1cs"])
-                witness = _read_witness(prm["wtns"])
+                rows = runner.read_witness_rows(prm["wtns"], r1cs)
                 result = {"ok": True}
                 if method in ("prove", "run"):
-                    proof = runner.prove_with_witness(
-                        r1cs, witness, digest=digest, device=dev, fri_fold=fri_fold,
+                    proof = runner.prove_with_rows(
+                        r1cs, rows, digest=digest, device=dev, fri_fold=fri_fold,
                         lde_engine=lde_engine,
                     )
                     pj = proof_mod.to_json(proof)
@@ -155,7 +154,7 @@ def serve(stdin=None, stdout=None, device="cuda", fri_fold: str = "dft",
                         with open(prm["proof_json"]) as f:
                             proof = proof_mod.from_json(f.read())
                     ok = runner.verify_with_witness(
-                        r1cs, witness[: runner._n_pub(r1cs)], proof, digest=digest,
+                        r1cs, rows[: runner._n_pub(r1cs)], proof, digest=digest,
                         device=dev, lde_engine=lde_engine,
                     )
                     result["verified"] = bool(ok)
