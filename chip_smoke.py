@@ -123,6 +123,19 @@ non-zero and no phase's error is swallowed:
    arithmetization, the prove, the JSON write). Then, each in a fresh
    process, `python -m stark_tpu_torch.cli warmup` and `... prove`, with
    their walls. Every proof must equal phase 5's byte for byte;
+5c. tracing: the program's phases (`utils/tracing.py`) on the same
+   circuit and route: three warm proves with tracing off, two under
+   `trace` alone, two under `trace` and `sync_phases` (their top-level
+   phases' walls, which must hold at least 1 - `TRACED_OUTSIDE` of the
+   synced prove's wall, and the report's lines), one inside a top-level
+   span under `profile_dir` and `sync_phases`, whose Chrome trace
+   `utils/profiling.py parse_device_trace` reads (device ms a phase, which
+   with `(outside phases)` must sum to the busy time, the busy share of the
+   profiled and of the warm prove, the hand-written kernels' share of the
+   busy time), the stage set's `resident_bytes()`, and one prove under
+   `profiling.phase_memory_peaks` (the peak device bytes a phase). Every
+   proof must equal phase 5's byte for byte, and no traced prove may call
+   `torch.cuda.reset_peak_memory_stats`;
 6. serve: the proving worker (`stark_tpu_torch.serve.serve`, the loop behind
    `python -m stark_tpu_torch.cli serve --device cuda --fri-fold lagrange`)
    on the Lagrange fold route, fed the same circuit as files: ping, warmup,
@@ -155,7 +168,7 @@ non-zero and no phase's error is swallowed:
    under digest="poseidon" (on the default route), `torch.profiler` over
    one more warm prove (device busy share, launches,
    copies, device time by kernel) and the wall and peak memory of each
-   stage with a device synchronise after it;
+   of the program's top-level phases, synced (`stage_walls`);
 9. big_domain, after phase 7: `squaring_chain(349525)` (steps 2^20,
    precision 2^23, `core.MAX_PRECISION`: the largest circuit the protocol
    proves) on the defaults, proved cold and warm: both proofs
@@ -404,6 +417,8 @@ MESH_LDE_STEPS, MESH_LDE_PRECISION = 1 << 17, 1 << 20
 BITS_TIMED = ("horner_eval", "vanishing_eval")
 LONG_D, LONG_POINTS = 1062, 1061  # the `bits` golden's public wires; one fewer
 N_CHECK = 1 << 14  # where the long cases are compared with their plain versions
+# the share of a synced prove's wall that may lie outside its top-level phases
+TRACED_OUTSIDE = 0.10
 # the engine's disk cache of host-built tables, inside the (ignored) build tree
 PLAN_CACHE = os.path.join(ROOT, "stark_tpu_torch", "_build", "plans")
 PROVE_MANY_X0 = (3, 5, 7, 11)  # start values of the four pipelined witnesses
@@ -1786,19 +1801,6 @@ def phase_lde_engines(spec, device, params) -> dict:
     return {"columns": len(traces), "runs": runs}
 
 
-def union_us(spans) -> float:
-    """Length of the union of (start, end) intervals, in their unit."""
-    busy, end = 0.0, None
-    for lo, hi in sorted(spans):
-        if end is None or lo > end:
-            busy += hi - lo
-            end = hi
-        elif hi > end:
-            busy += hi - end
-            end = hi
-    return busy
-
-
 def device_busy_ms(fn, reps: int = 5, tries: int = 3):
     """Device time of a call of fn: the union of the intervals of its
     kernels and copies under torch.profiler, the card's idle gaps left out,
@@ -1807,6 +1809,8 @@ def device_busy_ms(fn, reps: int = 5, tries: int = 3):
     to a short one) is profiled again; after `tries` such windows the time
     is None (not measured), since fn's values are checked elsewhere."""
     from torch.profiler import ProfilerActivity, profile
+
+    from stark_tpu_torch.utils import profiling
 
     fn()
     torch.cuda.synchronize()
@@ -1818,7 +1822,7 @@ def device_busy_ms(fn, reps: int = 5, tries: int = 3):
         spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events()
                  if str(ev.device_type).endswith("CUDA")]
         if spans:
-            return union_us(spans) / 1e3 / reps
+            return profiling.union_length(spans) / 1e3 / reps
     return None
 
 
@@ -1830,6 +1834,7 @@ def profile_warm_prove(r1cs, witness, device, want_proof, fri_fold,
     from torch.profiler import ProfilerActivity, profile
 
     from stark_tpu_torch.protocol import runner
+    from stark_tpu_torch.utils import profiling
 
     route = {"device": device, "fri_fold": fri_fold, "lde_engine": lde_engine,
              "digest": digest}
@@ -1852,14 +1857,13 @@ def profile_warm_prove(r1cs, witness, device, want_proof, fri_fold,
                 k = kernels.setdefault(ev.name, {"count": 0, "us": 0.0})
                 k["count"] += 1
                 k["us"] += us
-    busy_us = union_us(spans)
+    busy_us = profiling.union_length(spans)
     span_us = max(hi for _, hi in spans) - min(lo for lo, _ in spans)
     top = sorted(kernels.items(), key=lambda kv: -kv[1]["us"])[:25]
-    # the hand-written kernels sit in anonymous namespaces outside at::
     hand = {}
     for name, k in kernels.items():
-        if "at::" not in name and "anonymous namespace" in name:
-            short = re.search(r"\w+_kernel\b", name).group(0)
+        short = profiling.hand_kernel_name(name)
+        if short is not None:
             h = hand.setdefault(short, {"count": 0, "us": 0.0})
             h["count"] += k["count"]
             h["us"] += k["us"]
@@ -1880,59 +1884,31 @@ def profile_warm_prove(r1cs, witness, device, want_proof, fri_fold,
 
 def stage_walls(r1cs, witness, device, want_proof, fri_fold, lde_engine="butterfly",
                 digest="blake2s", runs: int = 2) -> list[dict]:
-    """Wall seconds of each prover stage over `runs` warm proves, every stage
-    ending in a device synchronise, and the peak memory within each
-    (`peak_bytes`); "rest" is host preparation plus the materializing
-    transfer and formatting."""
-    from stark_tpu_torch import device as devmod
-    from stark_tpu_torch.fields.field import BN254_FR as spec
-    from stark_tpu_torch.fri import fri
-    from stark_tpu_torch.protocol import prove, runner
-    from stark_tpu_torch.protocol.params import derive_params
+    """Wall seconds of each of the program's top-level phases (`utils/
+    tracing.py`: arithmetize, traces, a_tree, columns, commits, branches,
+    fri, materialize) over `runs` warm proves, each phase ending in a device
+    synchronise, with the peak memory within each (`peak_bytes`:
+    `profiling.phase_memory_peaks`); "rest" is the prove's wall outside
+    the phases."""
+    from stark_tpu_torch.protocol import runner
+    from stark_tpu_torch.utils import profiling, tracing
 
-    arith = runner._static_arith(spec, r1cs)
-    params = derive_params(spec, arith.original_steps)
-    stages = prove._stages_cached(spec, params.steps, params.precision,
-                                  arith.original_steps, digest, devmod.resolve(device),
-                                  lde_engine)
-    walls: dict[str, float] = {}
-    peaks: dict[str, int] = {}
-
-    def synced(name, fn):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.time()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            walls[name] = walls.get(name, 0.0) + time.time() - t0
-            peaks[name] = max(peaks.get(name, 0), torch.cuda.max_memory_allocated())
-            return out
-        return run
-
-    names = ("wit_traces", "a_root", "r", "columns", "commit_chain", "pos_gather")
-    saved = {name: stages[name] for name in names}
-    saved_fri = fri.prove_low_degree_pending
     out = []
-    try:
-        for name in names:
-            stages[name] = synced(name, saved[name])
-        fri.prove_low_degree_pending = synced("fri", saved_fri)
-        for _ in range(runs):
-            walls.clear()
-            peaks.clear()
-            torch.cuda.synchronize()
-            t0 = time.time()
-            proof = runner.prove_with_witness(r1cs, witness, digest=digest, device=device,
-                                              fri_fold=fri_fold, lde_engine=lde_engine)
-            total = time.time() - t0
-            if proof != want_proof:
-                raise AssertionError("a stage-timed proof differs from the cold proof")
-            out.append({**walls, "rest": total - sum(walls.values()), "total": total,
-                        "peak_bytes": dict(peaks)})
-    finally:
-        stages.update(saved)
-        fri.prove_low_degree_pending = saved_fri
+    for _ in range(runs):
+        tracing.reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        peaks, proof = profiling.phase_memory_peaks(
+            lambda: runner.prove_with_witness(r1cs, witness, digest=digest, device=device,
+                                              fri_fold=fri_fold, lde_engine=lde_engine),
+            device)
+        total = time.time() - t0
+        if proof != want_proof:
+            raise AssertionError("a phase-timed proof differs from the cold proof")
+        walls = profiling.phase_walls()
+        out.append({**walls, "rest": total - sum(walls.values()), "total": total,
+                    "peak_bytes": peaks})
+    tracing.reset()
     return out
 
 
@@ -2054,6 +2030,89 @@ def phase_file_route(device, r1cs, witness, want_proof) -> dict:
                                   "printed": done.stdout.splitlines()}
         if read(paths["child.json"]) != want_json:
             raise AssertionError("the fresh process's proof differs from the real-size one")
+    return out
+
+
+def phase_tracing(device, r1cs, witness, want_proof) -> dict:
+    """The program's phases on the default route at 2^20 (phase 5c, see the
+    module docstring). Every proof must equal `want_proof`, and no traced
+    prove may reset the peak memory (`reset_peak_memory_stats` is counted
+    around them)."""
+    from stark_tpu_torch import device as devmod
+    from stark_tpu_torch.fields.field import BN254_FR as spec
+    from stark_tpu_torch.protocol import prove, runner
+    from stark_tpu_torch.protocol.params import derive_params
+    from stark_tpu_torch.utils import profiling, tracing
+
+    dev = devmod.resolve(device)
+    resets = []
+    real_reset = torch.cuda.reset_peak_memory_stats
+
+    def counted_reset(*args, **kwargs):
+        resets.append(1)
+        return real_reset(*args, **kwargs)
+
+    def traced(wrap=None, **switches):
+        previous = tracing.configure(**switches)
+        tracing.reset()
+        torch.cuda.reset_peak_memory_stats = counted_reset
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with wrap if wrap is not None else contextlib.nullcontext():
+                proof = runner.prove_with_witness(r1cs, witness, device=device)
+            wall = time.time() - t0
+        finally:
+            torch.cuda.reset_peak_memory_stats = real_reset
+            tracing.configure(**previous)
+        if proof != want_proof:
+            raise AssertionError(f"a prove under {switches} differs from phase 5's")
+        return wall
+
+    out = {"off_s": [traced() for _ in range(3)]}
+    report = io.StringIO()
+    out["trace_s"] = [traced(trace=True, out=report) for _ in range(2)]
+    synced = []
+    for _ in range(2):
+        wall = traced(trace=True, sync_phases=True, out=report)
+        walls = profiling.phase_walls()
+        synced.append({"wall_s": wall, "phases_s": walls, "sum_s": sum(walls.values()),
+                       "share": sum(walls.values()) / wall})
+    out["synced"] = synced
+    out["report"] = report.getvalue().splitlines()[-len(walls):]
+    if any(rec["share"] < 1 - TRACED_OUTSIDE for rec in synced):
+        raise AssertionError(f"the synced prove's top-level phases hold less than "
+                             f"{1 - TRACED_OUTSIDE:.0%} of its wall: {synced}")
+    with tempfile.TemporaryDirectory() as profile_dir:
+        out["profiled_s"] = traced(wrap=tracing.phase("profiled_prove", device=dev),
+                                   profile_dir=profile_dir, sync_phases=True)
+        names = [name for name in tracing.exit_log() if name != "profiled_prove"]
+        timeline = profiling.parse_device_trace(profile_dir, names)
+        timeline["trace_bytes"] = os.path.getsize(os.path.join(profile_dir, timeline["trace"]))
+    busy = timeline["device_busy_s"]
+    split = timeline["phase_device_s"]
+    if not busy or abs(sum(split.values()) - busy) > 1e-9 * (len(split) + 1):
+        raise AssertionError(f"the phases' device seconds do not sum to the busy time: "
+                             f"{split} against {busy}")
+    timeline["phase_device_ms"] = {k: v * 1e3 for k, v in split.items()}
+    timeline["busy_share_of_profiled_prove"] = busy / out["profiled_s"]
+    timeline["busy_share_of_warm_prove"] = busy / statistics.median(out["off_s"])
+    timeline["hand_kernel_share_of_busy"] = timeline["hand_kernel_s"] / busy
+    out["device_timeline"] = timeline
+    if resets:
+        raise AssertionError(f"a traced prove reset the peak memory {len(resets)} times")
+    arith = runner._static_arith(spec, r1cs)
+    params = derive_params(spec, arith.original_steps)
+    stages = prove._stages_cached(spec, params.steps, params.precision, arith.original_steps,
+                                  "blake2s", dev, "butterfly")
+    out["resident_bytes"] = stages["resident_bytes"]()
+    tracing.reset()
+    peaks, proof = profiling.phase_memory_peaks(
+        lambda: runner.prove_with_witness(r1cs, witness, device=device), device)
+    if proof != want_proof:
+        raise AssertionError("the peaks' prove differs from phase 5's")
+    out["peak_bytes"] = peaks
+    tracing.reset()
     return out
 
 
@@ -2243,12 +2302,12 @@ def mesh_rank(mesh, constraints: int, routes, crt: bool = False,
     which the ranks share), then proves cold and warm with
     `lde_engine="crt"`, counted the same way, each prove's collectives' bytes
     equal to the butterfly prove's; with `lde_case`, `mesh_lde_case`."""
-    from stark_tpu_torch.ops import mxu_ntt
+    from stark_tpu_torch.ops import mxu_ntt, plan_cache
     from stark_tpu_torch.protocol import proof as proof_mod
     from stark_tpu_torch.protocol import runner
     from stark_tpu_torch.r1cs.synth import squaring_chain
 
-    mxu_ntt.CACHE_DIR = PLAN_CACHE
+    plan_cache.CACHE_DIR = PLAN_CACHE
     t0 = time.time()
     r1cs, witness = squaring_chain(constraints)
     out = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
@@ -2415,10 +2474,10 @@ def main(argv=None) -> int:
         return 1
     from stark_tpu_torch.fields.field import BN254_FR as spec
     from stark_tpu_torch.protocol.params import derive_params
-    from stark_tpu_torch.ops import build, mxu_ntt
+    from stark_tpu_torch.ops import build, plan_cache
 
     # the CRT engine's tables are built once in this run and loaded from here after
-    mxu_ntt.CACHE_DIR = PLAN_CACHE
+    plan_cache.CACHE_DIR = PLAN_CACHE
     device = "cuda"
     kind = torch.cuda.get_device_name(0)
     def nvidia_smi(query: str) -> str:
@@ -2484,6 +2543,11 @@ def main(argv=None) -> int:
     file_route = phase_file_route(device, r1cs, witness, proof)
     emit({"phase": "file_route", "steps": params.steps, "precision": params.precision,
           **file_route, "seconds": time.time() - t0})
+
+    t0 = time.time()
+    traced = phase_tracing(device, r1cs, witness, proof)
+    emit({"phase": "tracing", "steps": params.steps, "precision": params.precision,
+          **traced, "seconds": time.time() - t0})
 
     # a circuit object of its own, so that its cold prove is the circuit's
     # first (Zb2^-1, which `vanishing_eval` makes, is kept on the circuit)

@@ -16,8 +16,9 @@ Prints one JSON line a record: the card (`nvidia-smi
 cold prove (the stage set's build included), a warm prove and a verify,
 each with its wall and `torch.cuda.max_memory_allocated` over it, and the
 proof's sha256; with `--stages`, one more prove with a device synchronise
-after each stage and each stage's wall and peak memory
-(`chip_smoke.stage_walls`). With `--file-route`, the circuit is written as
+at the exit of each of the program's top-level phases and each phase's
+wall and peak memory (`chip_smoke.stage_walls`: `utils/tracing.py`,
+`utils/profiling.py phase_memory_peaks`). With `--file-route`, the circuit is written as
 `.r1cs` and `.wtns` files (`synth.write_circuit_files`) and proved from
 them: stage by stage on both routes in turns (`chip_smoke.file_route_stages`:
 the native route's C++ readers, and the Python readers the file route took

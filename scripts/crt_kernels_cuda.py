@@ -820,9 +820,9 @@ def main(argv=None) -> int:
         return 1
     import chip_smoke
     from stark_tpu_torch.fields.field import BN254_FR as spec
-    from stark_tpu_torch.ops import build, mxu_ntt
+    from stark_tpu_torch.ops import build, plan_cache
 
-    mxu_ntt.CACHE_DIR = chip_smoke.PLAN_CACHE
+    plan_cache.CACHE_DIR = chip_smoke.PLAN_CACHE
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

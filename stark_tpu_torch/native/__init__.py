@@ -11,7 +11,7 @@ the pure-Python versions on the real circuit fixtures.
 
 The port's own copy of `stark_tpu/native/__init__.py`: same bindings, same
 repo-root source, but the library is cached under the port's own gitignored
-`stark_tpu_torch/_build/host/`.
+`stark_tpu_torch/_build/host/` (`BUILD_DIR`).
 """
 
 from __future__ import annotations
@@ -26,6 +26,9 @@ from dataclasses import dataclass
 import numpy as np
 
 _SRC = os.path.join(os.path.dirname(__file__), "..", "..", "native", "stark_host.cpp")
+# where the library is built and cached, as libstark_host_<sha256 of the source>.so
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "_build", "host")
 
 
 @functools.lru_cache(maxsize=1)
@@ -36,10 +39,8 @@ def _lib():
         return None
     with open(src, "rb") as f:
         tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    cache = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                         "_build", "host")
-    os.makedirs(cache, exist_ok=True)
-    so = os.path.join(cache, f"libstark_host_{tag}.so")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so = os.path.join(BUILD_DIR, f"libstark_host_{tag}.so")
     if not os.path.exists(so):
         tmp = so + f".tmp{os.getpid()}"
         cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src, "-o", tmp]

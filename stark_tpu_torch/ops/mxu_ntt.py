@@ -21,7 +21,7 @@ rows.
 Plans hold their tables as tensors on one device: the constant matrices'
 digit planes as int8, the twiddle pre-tables as int16 (every prime is below
 2^14; at n = 2^20 the table is 57 x 2^20 values). The host build of a plan
-is cached on disk as an `.npz` under `CACHE_DIR`, a module attribute that a
+is cached on disk as an `.npz` under `ops/plan_cache.py CACHE_DIR`, which a
 deployment sets before its first plan; the port never reads a file the JAX
 package wrote.
 
@@ -42,10 +42,8 @@ import numpy as np
 import torch
 
 from stark_tpu_torch.fields.field import FieldSpec
-from stark_tpu_torch.ops import crt
+from stark_tpu_torch.ops import crt, plan_cache
 
-# where the plans' host-built tables are cached; the one setting of the cache
-CACHE_DIR = "~/.cache/stark_tpu_torch_plans"
 _PLAN_KEYS = ("bits_a", "bits_b", "aw0", "aw1", "bw0", "bw1", "tw")
 
 
@@ -203,7 +201,7 @@ def ntt_mxu3(plan: MxuNttPlan3, x: torch.Tensor) -> torch.Tensor:
 def _plan_cache_path(spec, root, n, n1, n2, scale, nz1, stepa_pre) -> str:
     key = f"v1:{spec.p}:{root}:{n}:{n1}:{n2}:{scale}:{nz1}:{stepa_pre}:int8:int16"
     h = hashlib.sha256(key.encode()).hexdigest()[:24]
-    d = os.path.expanduser(CACHE_DIR)
+    d = os.path.expanduser(plan_cache.CACHE_DIR)
     os.makedirs(d, exist_ok=True)
     return os.path.join(d, f"ntt_{h}.npz")
 
@@ -211,7 +209,7 @@ def _plan_cache_path(spec, root, n, n1, n2, scale, nz1, stepa_pre) -> str:
 def make_ntt_plan_cached(spec: FieldSpec, root: int, n: int, device, n1=None, n2=None,
                          scale: int = 1, nz1=None, stepa_pre: bool = False) -> MxuNttPlan:
     """`MxuNttPlan` with an on-disk cache of its host-built tables, in
-    `CACHE_DIR`. A file that is missing, truncated, not an `.npz` or short
+    `plan_cache.CACHE_DIR`. A file that is missing, truncated, not an `.npz` or short
     of a table counts as a miss: the tables are built and the file written
     anew."""
     n1, n2 = _split(n, n1, n2)

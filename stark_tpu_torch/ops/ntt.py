@@ -578,11 +578,16 @@ def make_best_lde(spec: FieldSpec, g1: int, g2: int, steps: int, precision: int,
     (`stark_tpu/ops/ntt.py:504`, where the environment chooses): "butterfly"
     is `lde` on an `LdePlan`; "crt" is the CRT matrix-product engine of
     `ops/mxu_ntt.py` at every size it supports (the JAX package's
-    `STARK_TPU_MXU=force`). Both give the same field values."""
+    `STARK_TPU_MXU=force`). Both give the same field values. The function's
+    `plans` holds the engine's plans, whose tensors it keeps on the device."""
     if check_lde_engine(lde_engine) == "crt":
         from stark_tpu_torch.ops import mxu_ntt
 
         inv_plan, big_plan = mxu_ntt.make_lde_plans(spec, g1, g2, steps, precision, device)
-        return lambda t: mxu_ntt.lde_mxu(inv_plan, big_plan, t.contiguous())
+        fn = lambda t: mxu_ntt.lde_mxu(inv_plan, big_plan, t.contiguous())  # noqa: E731
+        fn.plans = (inv_plan, big_plan)
+        return fn
     plan = make_lde_plan(spec, g1, g2, steps, precision, device, block)
-    return lambda t: lde(spec, t, plan)
+    fn = lambda t: lde(spec, t, plan)  # noqa: E731
+    fn.plans = (plan,)
+    return fn

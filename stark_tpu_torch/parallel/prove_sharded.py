@@ -47,7 +47,13 @@ from stark_tpu_torch.parallel import ntt4
 from stark_tpu_torch.parallel.distributed import shard_cols
 from stark_tpu_torch.protocol import device_transcript as dt
 from stark_tpu_torch.protocol import kernels
-from stark_tpu_torch.protocol.core import COL_NAMES, TRACE_NAMES, leaves_to_words, spot_positions
+from stark_tpu_torch.protocol.core import (
+    COL_NAMES,
+    TRACE_NAMES,
+    leaves_to_words,
+    resident_groups,
+    spot_positions,
+)
 
 
 def roll_sharded(x_local: torch.Tensor, shift: int, mesh) -> torch.Tensor:
@@ -287,4 +293,7 @@ def sharded_stages(spec: FieldSpec, mesh, steps: int, precision: int, original_s
         "commit": lambda cols: commit(spec, dom, cols, digest),
         "branches": branches,
         "replicate": lambda l_ev: (mesh.all_gather(l_ev), mesh.all_gather(dom["xs_local"])),
+        "resident_bytes": resident_groups(dom["xs_local"], dom["inv_zb3"], dom["iz_pats"],
+                                          dom["x2_pats"],
+                                          (dom["steps_tabs_inv"], dom["prec_tabs"], dom["n_inv"])),
     }

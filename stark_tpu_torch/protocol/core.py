@@ -24,6 +24,8 @@ and `replicate` are the interface the prover calls on either stage set.
 
 from __future__ import annotations
 
+import types
+
 import torch
 
 from stark_tpu_torch.fields.field import FieldSpec
@@ -70,6 +72,43 @@ def leaves_to_words(spec: FieldSpec, columns) -> torch.Tensor:
         fused_kernels.from_mont_pack_words(spec, col.contiguous(), out=words[8 * j : 8 * j + 8])
     words[8 * len(columns) :] = 0
     return words
+
+
+def tensor_bytes(*objs) -> int:
+    """Device bytes of the tensors held by `objs`: tensors, and lists,
+    tuples, dicts and plain objects (plans, bases) of them, each storage
+    counted once (a view adds nothing to its base)."""
+    seen, total, stack, visited = set(), 0, list(objs), set()
+    while stack:
+        obj = stack.pop()
+        if torch.is_tensor(obj):
+            storage = obj.untyped_storage()
+            if storage.data_ptr() not in seen:
+                seen.add(storage.data_ptr())
+                total += storage.nbytes()
+        elif isinstance(obj, (list, tuple)):
+            stack.extend(obj)
+        elif isinstance(obj, dict):
+            stack.extend(obj.values())
+        elif (hasattr(obj, "__dict__") and id(obj) not in visited and not callable(obj)
+              and not isinstance(obj, types.ModuleType)):
+            visited.add(id(obj))
+            stack.extend(vars(obj).values())
+    return total
+
+
+def resident_groups(xs_full, inv_zb3, iz_pats, x2_pats, plans):
+    """`resident_bytes` of a stage set: the device bytes it holds between
+    stages, grouped as `stark_tpu/protocol/core.py:909-933` groups them. The
+    port holds no (L, N) Z^-1 or x^steps table (they travel as the Shoup
+    pattern pairs), so `domain_tables` is Zb3^-1 alone; `ntt_plan_tables` is
+    the butterfly plan, or the CRT engine's plans on crt. Per-circuit caches
+    (Zb2^-1, the verifier's LDEs) hang on the circuit, not here."""
+    def resident_bytes():
+        return {"xs_full": tensor_bytes(xs_full), "domain_tables": tensor_bytes(inv_zb3),
+                "shoup_patterns": tensor_bytes(iz_pats, x2_pats),
+                "ntt_plan_tables": tensor_bytes(plans)}
+    return resident_bytes
 
 
 def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
@@ -289,5 +328,7 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
         "commit": commit,
         "branches": branches,
         "replicate": lambda l_ev: (l_ev, xs_full),
+        "resident_bytes": resident_groups(xs_full, inv_zb3, iz_pats, x2_pats,
+                                          lde_one.plans),
     })
     return stages

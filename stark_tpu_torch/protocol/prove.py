@@ -5,7 +5,10 @@ enqueued as one chain of device work (every Fiat-Shamir challenge derived
 on the device), then one materializing transfer moves it to the host and
 `materialize_r1cs_proof` formats it. Stages: traces (device
 arithmetization), a-tree and r, columns (9 LDEs, accumulator, quotients,
-boundaries), commits (m-tree, k, linear combination, l-tree), branches, FRI.
+boundaries), commits (m-tree, k, linear combination, l-tree), branches, FRI;
+each runs in the tracer's phase of the JAX package's name (`utils/
+tracing.py`: traces, a_tree, columns, commits, branches, fri, then
+materialize), on the prove's device.
 
 `mesh=` (a `parallel/distributed.py DomainMesh`, `stark_tpu/protocol/
 prove.py:190-198`) runs the same orchestration on each of d ranks: the
@@ -34,6 +37,7 @@ from stark_tpu_torch.ops import modmath as mm
 from stark_tpu_torch.ops.ntt import check_lde_engine
 from stark_tpu_torch.parallel.distributed import DomainMesh
 from stark_tpu_torch.protocol.proof import StarkProof
+from stark_tpu_torch.utils.tracing import phase
 
 
 def _pad_col(col, steps: int):
@@ -180,63 +184,69 @@ def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
         stages = _stages_cached(*key)
 
     # --- traces: only K, the witness and the circuit-static vectors move ---
-    permuted = permuted_column(arith.permuted_indices, original_steps, steps)
-    plo_d, phi_d = lo_hi_words(permuted, dev)
-    wids = np.zeros(steps, dtype=np.int64)
-    wids[:original_steps] = arith.slot_wire_ids
-    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    witness = arith.witness_le
-    if not torch.is_tensor(witness):
-        witness = to_dev(_col_bytes_np(spec, witness))
-    elif witness.device != dev or witness.dtype != torch.uint8:
-        raise ValueError(
-            f"a witness tensor must be uint8 on {dev}, got {witness.dtype} on "
-            f"{witness.device}"
+    with phase("traces", device=dev):
+        permuted = permuted_column(arith.permuted_indices, original_steps, steps)
+        plo_d, phi_d = lo_hi_words(permuted, dev)
+        wids = np.zeros(steps, dtype=np.int64)
+        wids[:original_steps] = arith.slot_wire_ids
+        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        witness = arith.witness_le
+        if not torch.is_tensor(witness):
+            witness = to_dev(_col_bytes_np(spec, witness))
+        elif witness.device != dev or witness.dtype != torch.uint8:
+            raise ValueError(
+                f"a witness tensor must be uint8 on {dev}, got {witness.dtype} on "
+                f"{witness.device}"
+            )
+        traces = stages["wit_traces"](
+            to_dev(_col_bytes_np(spec, _pad_col(arith.coefficients, steps))),
+            witness,
+            to_dev(wids),
+            to_dev(np.asarray(_pad_col(arith.flag1, steps), dtype=np.uint8)),
+            to_dev(np.asarray(_pad_col(arith.flag2, steps), dtype=np.uint8)),
+            plo_d,
+            phi_d,
         )
-    traces = stages["wit_traces"](
-        to_dev(_col_bytes_np(spec, _pad_col(arith.coefficients, steps))),
-        witness,
-        to_dev(wids),
-        to_dev(np.asarray(_pad_col(arith.flag1, steps), dtype=np.uint8)),
-        to_dev(np.asarray(_pad_col(arith.flag2, steps), dtype=np.uint8)),
-        plo_d,
-        phi_d,
-    )
 
     # --- a-tree root and r ---
-    a_root_words = stages["a_root"](plo_d, phi_d, traces["s"])
-    r_mont = stages["r"](a_root_words)
+    with phase("a_tree", device=dev):
+        a_root_words = stages["a_root"](plo_d, phi_d, traces["s"])
+        r_mont = stages["r"](a_root_words)
 
     # --- columns: 9 LDEs, accumulator, quotients, boundaries ---
-    pub_xs = [pow(params.g2, skips * w, p) for (_, w) in arith.public_first_indices]
-    pub_ys = [public_wires[k] for (k, _) in arith.public_first_indices]
-    i2_mont = mm.mont_consts(spec, ph.lagrange_interp(spec, pub_xs, pub_ys), dev)
-    # Zb2^-1 is circuit-static: computed once per (circuit, shape, device) and,
-    # on a mesh, per (size, rank): the rank's chunk
-    zb2_key = (steps, str(dev), None if mesh is None else mesh.key)
-    zb2c = getattr(arith, "_torch_inv_zb2", None)
-    if zb2c is None or zb2c[0] != zb2_key:
-        zb2c = (zb2_key, stages["inv_zb2"](mm.mont_consts(spec, pub_xs, dev)))
-        arith._torch_inv_zb2 = zb2c
-    cols, q_bad = stages["columns"](traces, r_mont, i2_mont, zb2c[1])
-    del traces
+    with phase("columns", device=dev):
+        pub_xs = [pow(params.g2, skips * w, p) for (_, w) in arith.public_first_indices]
+        pub_ys = [public_wires[k] for (k, _) in arith.public_first_indices]
+        i2_mont = mm.mont_consts(spec, ph.lagrange_interp(spec, pub_xs, pub_ys), dev)
+        # Zb2^-1 is circuit-static: computed once per (circuit, shape, device)
+        # and, on a mesh, per (size, rank): the rank's chunk
+        zb2_key = (steps, str(dev), None if mesh is None else mesh.key)
+        zb2c = getattr(arith, "_torch_inv_zb2", None)
+        if zb2c is None or zb2c[0] != zb2_key:
+            zb2c = (zb2_key, stages["inv_zb2"](mm.mont_consts(spec, pub_xs, dev)))
+            arith._torch_inv_zb2 = zb2c
+        cols, q_bad = stages["columns"](traces, r_mont, i2_mont, zb2c[1])
+        del traces
 
     # --- commits: m-tree -> k -> linear combination -> l-tree ---
-    m_tree, l_tree, l_ev = stages["commit"](cols)
-    del cols
-    m_root_w = m_tree.root_words
-    l_root_w = l_tree.root_words
+    with phase("commits", device=dev):
+        m_tree, l_tree, l_ev = stages["commit"](cols)
+        del cols
+        m_root_w = m_tree.root_words
+        l_root_w = l_tree.root_words
 
     # --- branches at the device-derived spot checks ---
-    l_flat, m_flat = stages["branches"](l_tree, m_tree)
+    with phase("branches", device=dev):
+        l_flat, m_flat = stages["branches"](l_tree, m_tree)
 
     # --- FRI, replicated on a mesh; the l-tree is round 0's value tree ---
-    l_ev, xs_full = stages["replicate"](l_ev)
-    pending = fri.prove_low_degree_pending(
-        spec, l_ev, xs_full, precision // 4, skips, first_tree=l_tree,
-        fri_fold=fri_fold, digest=digest,
-    )
-    del l_ev, xs_full
+    with phase("fri", device=dev):
+        l_ev, xs_full = stages["replicate"](l_ev)
+        pending = fri.prove_low_degree_pending(
+            spec, l_ev, xs_full, precision // 4, skips, first_tree=l_tree,
+            fri_fold=fri_fold, digest=digest,
+        )
+        del l_ev, xs_full
     # every gather against the two trees is enqueued: their device tensors
     # go back to the allocator as soon as the stream has run those gathers
     m_tree.release_device()
@@ -248,6 +258,7 @@ def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
         "l_tree": l_tree,
         "m_tree": m_tree,
         "mesh": mesh,
+        "device": dev,
     }
 
 
@@ -255,22 +266,26 @@ def materialize_r1cs_proof(spec: FieldSpec, st: dict) -> StarkProof:
     """One device->host transfer, then host formatting. On a mesh every
     array read here is replicated (roots, flags, gathered branches, FRI's
     outputs), so no gather is needed: the ranks' copies are held equal."""
-    mats = fri.materialize_u32(st["device_arrays"])
-    if st["mesh"] is not None:
-        digest = hashlib.sha256(b"".join(m.tobytes() for m in mats)).digest()
-        mine = torch.frombuffer(bytearray(digest), dtype=torch.uint8).to(st["mesh"].device)
-        if not bool((st["mesh"].all_gather_stack(mine) == mine).all()):
-            raise AssertionError("the ranks' proof arrays differ: one is not replicated")
-    a_root_np, m_root_np, l_root_np, bad, l_flat_np, m_flat_np = mats[:6]
-    for i, what in enumerate(("D1", "D2", "D3")):
-        if bad[i]:
-            raise AssertionError(f"invalid {what}: quotient not divisible by Z")
-    n_pos = SPOT_CHECK_SECURITY_FACTOR
+    with phase("materialize", device=st["device"]):
+        mats = fri.materialize_u32(st["device_arrays"])
+        if st["mesh"] is not None:
+            digest = hashlib.sha256(b"".join(m.tobytes() for m in mats)).digest()
+            mine = torch.frombuffer(bytearray(digest), dtype=torch.uint8).to(st["mesh"].device)
+            if not bool((st["mesh"].all_gather_stack(mine) == mine).all()):
+                raise AssertionError("the ranks' proof arrays differ: one is not replicated")
+        a_root_np, m_root_np, l_root_np, bad, l_flat_np, m_flat_np = mats[:6]
+        for i, what in enumerate(("D1", "D2", "D3")):
+            if bad[i]:
+                raise AssertionError(f"invalid {what}: quotient not divisible by Z")
+        n_pos = SPOT_CHECK_SECURITY_FACTOR
+        main_branches = st["m_tree"].proofs_from_flat(m_flat_np, 4 * n_pos)
+        linear_comb_branches = st["l_tree"].proofs_from_flat(l_flat_np, n_pos)
+        fri_proof = fri.assemble_fri(spec, st["pending"], mats[6:])
     return StarkProof(
         m_root=m_root_np.astype("<u4").tobytes(),
         l_root=l_root_np.astype("<u4").tobytes(),
         a_root=a_root_np.astype("<u4").tobytes(),
-        main_branches=st["m_tree"].proofs_from_flat(m_flat_np, 4 * n_pos),
-        linear_comb_branches=st["l_tree"].proofs_from_flat(l_flat_np, n_pos),
-        fri_proof=fri.assemble_fri(spec, st["pending"], mats[6:]),
+        main_branches=main_branches,
+        linear_comb_branches=linear_comb_branches,
+        fri_proof=fri_proof,
     )

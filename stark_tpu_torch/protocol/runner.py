@@ -30,10 +30,16 @@ proof and the verdict do not depend on how the files were parsed, under
 either digest. Both routes refuse the same files, each with `ValueError`:
 a bad magic, version or section layout, a file that ends early, a field
 size other than 32 bytes, a prime other than BN254's, a wire id past the
-circuit's wires (the C++ arithmetizer's code 11), a witness with another
+circuit's wires (the C++ arithmetizer's code 11, checked ahead of the
+pure-Python arithmetizer by `_check_wire_ids`), a witness with another
 wire count than the circuit's or whose wire 0 is not 1; all before any
-device work. Only the pure-Python arithmetizer, which runs without the
-library, raises `IndexError` on such a wire id.
+device work.
+
+Each entry point and route opens the tracer's phases (`utils/tracing.py`)
+that the JAX package's same entry and route opens, in its order: a prove
+`arithmetize` (`parse+arithmetize` on the native file route under
+blake2s), then the prover's seven; a verify `v_arithmetize`, then the
+verifier's three; `prove_many` only the prover's.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from stark_tpu_torch.protocol.prove import (
     mk_r1cs_proof,
 )
 from stark_tpu_torch.protocol.verify import verify_r1cs_proof
+from stark_tpu_torch.utils.tracing import phase
 
 # the BN254/circom scalar field is the only one the reference accepts
 _BN254_PRIME_LE = BN254_FR.p.to_bytes(32, "little")
@@ -98,6 +105,7 @@ def _flat_arith(spec: FieldSpec, flat: native.FlatR1cs, constraints=None) -> Ari
             last_coeff_list=fa.last_coeff_list,
         )
     else:
+        _check_wire_ids(flat)
         arith = arithmetize(spec, constraints, None, flat.n_wires, n_pub)
     arith.slot_wire_ids = slot_wire_ids_np(flat.ncoeffs, flat.wire_ids, flat.n_wires)
     return arith
@@ -131,6 +139,15 @@ def _check_wire_count(circuit, n_witness: int) -> None:
         raise ValueError(f"the witness has {n_witness} wires, the circuit {n_wires}")
 
 
+def _check_wire_ids(flat: native.FlatR1cs) -> None:
+    """Every wire id of the circuit below its wire count: what the C++
+    arithmetizer refuses with its code 11, and what the pure-Python one
+    would index past its wire table on."""
+    if flat.wire_ids.size and int(flat.wire_ids.max()) >= flat.n_wires:
+        raise ValueError(f"the circuit names wire {int(flat.wire_ids.max())}, past its "
+                         f"{flat.n_wires} wires")
+
+
 def _witness_rows(circuit, witness_bytes) -> np.ndarray:
     """The witness as (n_wires, 32) uint8 little-endian rows."""
     _check_wire_count(circuit, len(witness_bytes))
@@ -140,6 +157,26 @@ def _witness_rows(circuit, witness_bytes) -> np.ndarray:
     return wit_np
 
 
+def _rows_inputs(circuit, rows: np.ndarray):
+    """The prover's inputs from the witness rows: the checks of the prime,
+    the wire count and wire 0, the public wires, and the circuit-static
+    arithmetization with the rows as its witness."""
+    spec = _spec_for(circuit)
+    _check_wire_count(circuit, rows.shape[0])
+    public_wires = _public_wires(spec, circuit, rows)
+    arith = _static_arith(spec, circuit)
+    arith.witness_le = rows
+    return spec, public_wires, arith
+
+
+def _prove_inputs(circuit, inputs, mesh, digest, device, fri_fold, lde_engine):
+    spec, public_wires, arith = inputs
+    h = _header(circuit)
+    return mk_r1cs_proof(spec, arith, public_wires, h.n_constraints, h.n_wires,
+                         mesh=mesh, digest=digest, device=device, fri_fold=fri_fold,
+                         lde_engine=lde_engine)
+
+
 def prove_with_rows(circuit, rows: np.ndarray, mesh=None, digest: str = "blake2s",
                     device="cuda", fri_fold: str = "dft", lde_engine: str = "butterfly"):
     """A StarkProof of `circuit`, a parsed `R1csContents` or a
@@ -147,26 +184,21 @@ def prove_with_rows(circuit, rows: np.ndarray, mesh=None, digest: str = "blake2s
     go to the prover as they are: the counterpart of
     `stark_tpu/protocol/runner.py:215-230 prove_with_witness_native`, under
     either digest. A wrong prime, wire count or wire 0 raises `ValueError`
-    before any device work."""
-    spec = _spec_for(circuit)
-    h = _header(circuit)
-    _check_wire_count(circuit, rows.shape[0])
-    public_wires = _public_wires(spec, circuit, rows)
-    arith = _static_arith(spec, circuit)
-    arith.witness_le = rows
-    return mk_r1cs_proof(spec, arith, public_wires, h.n_constraints, h.n_wires,
-                         mesh=mesh, digest=digest, device=device, fri_fold=fri_fold,
-                         lde_engine=lde_engine)
+    before any device work. The checks and the arithmetization run in the
+    tracer's `arithmetize` phase."""
+    with phase("arithmetize"):
+        inputs = _rows_inputs(circuit, rows)
+    return _prove_inputs(circuit, inputs, mesh, digest, device, fri_fold, lde_engine)
 
 
 def prove_with_witness(r1cs: R1csContents, witness_bytes: list[bytes], mesh=None,
                        digest: str = "blake2s", device="cuda", fri_fold: str = "dft",
                        lde_engine: str = "butterfly"):
     """run.rs:310-452 -> a StarkProof: `prove_with_rows` on the witness's
-    rows."""
-    return prove_with_rows(r1cs, _witness_rows(r1cs, witness_bytes), mesh=mesh,
-                           digest=digest, device=device, fri_fold=fri_fold,
-                           lde_engine=lde_engine)
+    rows, made in the same `arithmetize` phase."""
+    with phase("arithmetize"):
+        inputs = _rows_inputs(r1cs, _witness_rows(r1cs, witness_bytes))
+    return _prove_inputs(r1cs, inputs, mesh, digest, device, fri_fold, lde_engine)
 
 
 def prove_many(r1cs: R1csContents, witness_bytes_list, pipeline: int = 2, mesh=None,
@@ -187,10 +219,14 @@ def prove_many(r1cs: R1csContents, witness_bytes_list, pipeline: int = 2, mesh=N
     runs without streams. On a mesh (`mesh=`, a `DomainMesh` on `device`)
     nothing is uploaded ahead (`stark_tpu/protocol/runner.py:144`): each
     rank hands the prover the host rows, and every rank returns the same
-    proofs. Returns the proofs in the witnesses' order.
+    proofs. Returns the proofs in the witnesses' order. A witness with
+    another wire count than the circuit's raises `ValueError` before any
+    device work (the JAX package pads a short one with zeros).
     """
     if pipeline < 1:
         raise ValueError(f"pipeline must be at least 1, got {pipeline}")
+    for witness_bytes in witness_bytes_list:
+        _check_wire_count(r1cs, len(witness_bytes))
     spec = _spec_for(r1cs)
     h = _header(r1cs)
     dev = devmod.resolve(device)
@@ -258,7 +294,8 @@ def verify_with_witness(r1cs: R1csContents, public_wires_bytes: list[bytes], pro
     public_wires = [spec.from_bytes_le(bytes(w)) for w in public_wires_bytes]
     if public_wires[0] != 1:
         raise ValueError("public wire 0 must be 1")
-    arith = _static_arith(spec, r1cs)
+    with phase("v_arithmetize"):
+        arith = _static_arith(spec, r1cs)
     ev_cache = None
     if verify_cache and verify_cache_fits(
             spec, derive_params(spec, arith.original_steps).precision):
@@ -316,13 +353,30 @@ def _verify_rows(circuit, rows, proof, digest, device, lde_engine) -> None:
         raise ValueError("proof rejected")
 
 
+def _file_inputs(r1cs_path, witness_path, digest: str):
+    """The circuit, the witness rows and the prover's inputs from the files.
+    On the native route under blake2s the reads and the arithmetization run
+    in one `parse+arithmetize` phase, where the JAX package's file route
+    takes `prove_with_witness_native`; otherwise the reads run outside any
+    phase and the arithmetization in `arithmetize`, as the JAX package's
+    `prove_with_witness` does (`stark_tpu/protocol/runner.py:298-342`)."""
+    if native.available() and digest == "blake2s":
+        with phase("parse+arithmetize"):
+            circuit = read_circuit(r1cs_path)
+            rows = read_witness_rows(witness_path, circuit)
+            return circuit, rows, _rows_inputs(circuit, rows)
+    circuit = read_circuit(r1cs_path)
+    rows = read_witness_rows(witness_path, circuit)
+    with phase("arithmetize"):
+        return circuit, rows, _rows_inputs(circuit, rows)
+
+
 def prove_with_file_path(r1cs_path, witness_path, proof_json_path,
                          digest: str = "blake2s", device="cuda",
                          fri_fold: str = "dft", lde_engine: str = "butterfly") -> None:
-    circuit = read_circuit(r1cs_path)
-    write_proof(prove_with_rows(circuit, read_witness_rows(witness_path, circuit),
-                                digest=digest, device=device, fri_fold=fri_fold,
-                                lde_engine=lde_engine), proof_json_path)
+    circuit, _, inputs = _file_inputs(r1cs_path, witness_path, digest)
+    write_proof(_prove_inputs(circuit, inputs, None, digest, device, fri_fold, lde_engine),
+                proof_json_path)
 
 
 def verify_with_file_path(r1cs_path, witness_path, proof_json_path,
@@ -340,9 +394,7 @@ def run_with_file_path(r1cs_path, witness_path, proof_json_path,
                        fri_fold: str = "dft", lde_engine: str = "butterfly") -> None:
     """Prove, write the JSON, verify (run.rs:590-625): each file read once,
     the prove and the verify sharing the parsed circuit."""
-    circuit = read_circuit(r1cs_path)
-    rows = read_witness_rows(witness_path, circuit)
-    text = write_proof(prove_with_rows(circuit, rows, digest=digest, device=device,
-                                       fri_fold=fri_fold, lde_engine=lde_engine),
-                       proof_json_path)
+    circuit, rows, inputs = _file_inputs(r1cs_path, witness_path, digest)
+    text = write_proof(_prove_inputs(circuit, inputs, None, digest, device, fri_fold,
+                                     lde_engine), proof_json_path)
     _verify_rows(circuit, rows, proof_mod.from_json(text), digest, device, lde_engine)

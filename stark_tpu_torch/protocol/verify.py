@@ -8,7 +8,9 @@ low-degree-extended on the device with the prover's stages and gathered at
 the spot checks; `ev_cache`, a dict the caller keeps per circuit, holds
 those 6 LDEs across verifies (`stark_tpu/protocol/verify.py:143-150,
 210-222`), keyed by device. The l-tree's and FRI's branches are walked
-under the proof's `digest`; the m-tree's are blake2s under either.
+under the proof's `digest`; the m-tree's are blake2s under either. FRI, the
+branches and the LDEs run in the tracer's phases `v_fri`, `v_branches` and
+`v_lde` (`utils/tracing.py`), the JAX package's.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from stark_tpu_torch.protocol.prove import (
     lo_hi_words,
     permuted_column,
 )
+from stark_tpu_torch.utils.tracing import phase
 
 
 def _validate_proof_shape(proof: StarkProof, precision: int) -> None:
@@ -113,44 +116,47 @@ def verify_r1cs_proof(spec: FieldSpec, proof: StarkProof, public_wires,
 
     _validate_proof_shape(proof, precision)
 
-    if not fri.verify_low_degree_proof(
-        spec, proof.l_root, params.g2, proof.fri_proof, precision // 4, skips, dev,
-        digest,
-    ):
-        raise ValueError("FRI verification failed")
+    with phase("v_fri", device=dev):
+        if not fri.verify_low_degree_proof(
+            spec, proof.l_root, params.g2, proof.fri_proof, precision // 4, skips, dev,
+            digest,
+        ):
+            raise ValueError("FRI verification failed")
 
     positions = ts.get_pseudorandom_indices(
         proof.l_root, precision, SPOT_CHECK_SECURITY_FACTOR, skips
     )
     aug = augmented_positions(positions, params)
-    main_leaves = mt.verify_multi_branch(proof.m_root, aug, proof.main_branches)
-    l_leaves = mt.verify_multi_branch(proof.l_root, positions, proof.linear_comb_branches,
-                                      digest)
+    with phase("v_branches", device=dev):
+        main_leaves = mt.verify_multi_branch(proof.m_root, aug, proof.main_branches)
+        l_leaves = mt.verify_multi_branch(proof.l_root, positions,
+                                          proof.linear_comb_branches, digest)
 
     # device LDEs of the public columns, gathered at the spot checks
-    evs = ev_cache.get(str(dev)) if ev_cache is not None else None
-    if evs is None:
-        stages = _stages_cached(spec, steps, precision, original_steps, digest, dev,
-                                lde_engine)
-        plo, phi = lo_hi_words(permuted_column(permuted_indices, original_steps, steps),
-                               dev)
-        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-        smalls = stages["v_cols"](
-            to_dev(_col_bytes_np(spec, _pad_col(coefficients, steps))),
-            to_dev(np.asarray(_pad_col(flag1, steps), dtype=np.uint8)),
-            to_dev(np.asarray(_pad_col(flag2, steps), dtype=np.uint8)),
-            plo,
-            phi,
+    with phase("v_lde", device=dev):
+        evs = ev_cache.get(str(dev)) if ev_cache is not None else None
+        if evs is None:
+            stages = _stages_cached(spec, steps, precision, original_steps, digest, dev,
+                                    lde_engine)
+            plo, phi = lo_hi_words(
+                permuted_column(permuted_indices, original_steps, steps), dev)
+            to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+            smalls = stages["v_cols"](
+                to_dev(_col_bytes_np(spec, _pad_col(coefficients, steps))),
+                to_dev(np.asarray(_pad_col(flag1, steps), dtype=np.uint8)),
+                to_dev(np.asarray(_pad_col(flag2, steps), dtype=np.uint8)),
+                plo,
+                phi,
+            )
+            evs = stages["lde_many"](smalls)
+            if ev_cache is not None:
+                ev_cache[str(dev)] = evs
+        pos_t = torch.as_tensor(positions, dtype=torch.int64, device=dev)
+        gathered = torch.stack([mm.from_mont(spec, e[:, pos_t]) for e in evs])
+        gathered = gathered.cpu().numpy().view(np.uint32)  # (6, L, n_pos)
+        k_at, f0_at, f1_at, f2_at, idx_at, perm_at = (
+            mm.limbs_to_ints_np(gathered[i], spec) for i in range(6)
         )
-        evs = stages["lde_many"](smalls)
-        if ev_cache is not None:
-            ev_cache[str(dev)] = evs
-    pos_t = torch.as_tensor(positions, dtype=torch.int64, device=dev)
-    gathered = torch.stack([mm.from_mont(spec, e[:, pos_t]) for e in evs])
-    gathered = gathered.cpu().numpy().view(np.uint32)  # (6, L, n_pos)
-    k_at, f0_at, f1_at, f2_at, idx_at, perm_at = (
-        mm.limbs_to_ints_np(gathered[i], spec) for i in range(6)
-    )
 
     pub_xs = [pow(params.g2, skips * w, p) for (_, w) in public_first_indices]
     pub_ys = [public_wires[k] for (k, _) in public_first_indices]

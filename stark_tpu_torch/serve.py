@@ -37,7 +37,9 @@ disk cache where they have been built before), and answers {"ok", "warmed",
 "steps"} with `warmed` the number of stages made ready. The device, FRI's
 fold route and the LDE engine are the worker's, fixed when it starts:
 `python -m stark_tpu_torch.cli serve --device cuda --fri-fold dft
---lde-engine butterfly`.
+--lde-engine butterfly`. Its requests run in the tracer's phases
+(`utils/tracing.py`); `cli serve --trace` prints their reports to stderr,
+so that stdout carries only the protocol's lines.
 """
 
 from __future__ import annotations
@@ -88,7 +90,7 @@ def _warmup(r1cs, dev, lde_engine: str) -> dict:
     params = derive_params(spec, arith.original_steps)
     stages = prove._stages_cached(spec, params.steps, params.precision,
                                   arith.original_steps, "blake2s", dev, lde_engine)
-    warmed = sum(callable(stage) for stage in stages.values())
+    warmed = sum(callable(stage) for name, stage in stages.items() if name != "resident_bytes")
     return {"ok": True, "warmed": warmed, "steps": params.steps}
 
 

@@ -19,7 +19,7 @@ import torch
 from stark_tpu.fields.field import BN254_FR as spec
 from stark_tpu.ops import crt as jcrt
 from stark_tpu_torch.fields.field import BN254_FR as tspec
-from stark_tpu_torch.ops import crt, mxu_ntt
+from stark_tpu_torch.ops import crt, mxu_ntt, plan_cache
 
 torch.set_num_threads(2)
 
@@ -72,7 +72,7 @@ def test_padded_planes_match_jax_plan(bases, kout, k):
 
 
 def test_plan_cache_keeps_the_layout(tmp_path, monkeypatch):
-    monkeypatch.setattr(mxu_ntt, "CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(plan_cache, "CACHE_DIR", str(tmp_path))
     n = 64
     root = tspec.root_of_unity(n)
     first = mxu_ntt.make_ntt_plan_cached(tspec, root, n, "cpu", nz1=3)

@@ -21,7 +21,10 @@ the CPU.
 * `cli warmup` returns 0 and prints its count;
 * both routes refuse the same files with `ValueError` before any device
   work: field sizes, wire counts, wire 0, the prime, a wire id past the
-  circuit's wires, bad magics, truncated files;
+  circuit's wires (checked ahead of the pure-Python arithmetizer on the
+  route without the host library), bad magics, truncated files;
+* the JAX package's runner pads a witness list one wire short with a zero
+  row, which the port's `prove_with_witness` and `prove_many` refuse;
 * the JAX package's Python readers take three of those files (a truncated
   `.wtns`, a field size other than 32 in either file), which its C++
   readers and both of the port's refuse (ROADMAP.md Queue 3);
@@ -401,11 +404,7 @@ def test_both_routes_refuse_the_same_files(case, entry, route, golden, tmp_path,
     with open(pj, "w") as f:
         f.write(golden)
     fn = runner.prove_with_file_path if entry == "prove" else runner.verify_with_file_path
-    # the pure-Python arithmetizer, which runs only without the host
-    # library, indexes past its wire table
-    raised = (IndexError if route == "python" and case == "wire id past the wires"
-              else ValueError)
-    with pytest.raises(raised):
+    with pytest.raises(ValueError):
         fn(r1cs_path, wtns_path, pj, device="cpu")
 
 
@@ -434,6 +433,38 @@ def test_the_jax_python_readers_accept_what_the_port_refuses(case, tmp_path):
             jnative.read_r1cs_flat(_read(r1cs_path))
         with pytest.raises(ValueError):
             read_r1cs(_read(r1cs_path))
+
+
+@pytest.mark.parametrize("entry", ["prove_with_witness", "prove_many"])
+def test_the_jax_runner_pads_a_short_witness_the_port_refuses(entry, golden, monkeypatch):
+    """The JAX package's `prove_with_witness` (and `prove_many`'s `_wit_np`)
+    fill an (n_wires, 32) array of zeros from however many values the list
+    holds (`stark_tpu/protocol/runner.py:61-63, 121-124`): a list one wire
+    short reaches its prover with a zero last row. The port's entry points
+    refuse it with `ValueError` before any device work."""
+    from stark_tpu.r1cs import reader as jreader
+
+    jr1cs = jreader.read_r1cs(_read(R1CS))
+    witness = jreader.read_witness(_read(WTNS))
+    seen = []
+    monkeypatch.setattr(jrunner, "mk_r1cs_proof",
+                        lambda spec, arith, *args, **kw: seen.append(arith) or "proof")
+    assert jrunner.prove_with_witness(jr1cs, witness[:-1]) == "proof"
+    rows = np.asarray(seen[0].witness_le)
+    assert rows.shape == (jr1cs.header.n_wires, 32)
+    assert not rows[-1].any() and rows[-2].tobytes() == witness[-2].ljust(32, b"\0")
+
+    def no_device_work(*args, **kwargs):
+        raise AssertionError("device work began")
+
+    monkeypatch.setattr(runner, "mk_r1cs_proof", no_device_work)
+    monkeypatch.setattr(runner, "enqueue_r1cs_proof", no_device_work)
+    r1cs = read_r1cs(_read(R1CS))
+    with pytest.raises(ValueError, match="wires"):
+        if entry == "prove_with_witness":
+            runner.prove_with_witness(r1cs, witness[:-1], device="cpu")
+        else:
+            runner.prove_many(r1cs, [witness, witness[:-1]], device="cpu")
 
 
 def test_the_unchanged_chain_files_pass_both_routes(golden, tmp_path, monkeypatch):

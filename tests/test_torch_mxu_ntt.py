@@ -27,7 +27,7 @@ from stark_tpu.ops import modmath as jmm
 from stark_tpu.ops import mxu_ntt as jmxu
 from stark_tpu_torch import interop
 from stark_tpu_torch.fields.field import BN254_FR as tspec
-from stark_tpu_torch.ops import mxu_ntt, ntt
+from stark_tpu_torch.ops import mxu_ntt, ntt, plan_cache
 
 torch.set_num_threads(2)
 
@@ -38,7 +38,7 @@ P = spec.p
 def caches(tmp_path, monkeypatch):
     """Both packages' plan caches in this test's own directories."""
     monkeypatch.setenv("STARK_TPU_PLANS_CACHE", str(tmp_path / "jax_plans"))
-    monkeypatch.setattr(mxu_ntt, "CACHE_DIR", str(tmp_path / "plans"))
+    monkeypatch.setattr(plan_cache, "CACHE_DIR", str(tmp_path / "plans"))
     return tmp_path / "plans"
 
 
@@ -177,7 +177,7 @@ def test_plan_cache_lives_where_it_is_told(tmp_path, caches, monkeypatch):
     n = 256
     root = spec.root_of_unity(n)
     mine = tmp_path / "named"
-    monkeypatch.setattr(mxu_ntt, "CACHE_DIR", str(mine))
+    monkeypatch.setattr(plan_cache, "CACHE_DIR", str(mine))
     first = mxu_ntt.make_ntt_plan_cached(tspec, root, n, "cpu")
     files = os.listdir(mine)
     assert len(files) == 1 and files[0].endswith(".npz")

@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from stark_tpu_torch import cli, serve
-from stark_tpu_torch.ops import mxu_ntt
+from stark_tpu_torch.ops import plan_cache
 from stark_tpu_torch.protocol import proof as proof_mod
 from stark_tpu_torch.protocol import prove, runner
 from stark_tpu_torch.protocol.params import derive_params
@@ -44,7 +44,7 @@ WTNS = os.path.join(FIX, "compute.wtns")
 def caches(tmp_path_factory, monkeypatch):
     """The engine's plan cache in a directory of this test run."""
     base = tmp_path_factory.getbasetemp()
-    monkeypatch.setattr(mxu_ntt, "CACHE_DIR", str(base / "plans"))
+    monkeypatch.setattr(plan_cache, "CACHE_DIR", str(base / "plans"))
 
 
 @pytest.fixture(scope="module")

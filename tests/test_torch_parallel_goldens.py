@@ -70,9 +70,9 @@ def test_ranks_prove_the_compute_golden_from_files(d, fri_fold, digest, golden):
 
 
 def test_crt_on_a_mesh_proves_the_single_device_proof(tmp_path, monkeypatch):
-    from stark_tpu_torch.ops import mxu_ntt
+    from stark_tpu_torch.ops import plan_cache
 
-    monkeypatch.setattr(mxu_ntt, "CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(plan_cache, "CACHE_DIR", str(tmp_path))
     with open(os.path.join(FIX, "compute.r1cs"), "rb") as f:
         r1cs = read_r1cs(f.read())
     with open(os.path.join(FIX, "compute.wtns"), "rb") as f:

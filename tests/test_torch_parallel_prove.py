@@ -4,7 +4,9 @@ runs its two processes).
 
 `squaring_chain(44)` (steps 256, precision 2048) on both FRI fold routes:
 every rank's proof JSON equals the single-device prover's, and the port's
-verifier accepts it. The `compute` goldens on a mesh (Poseidon too) are
+verifier accepts it. Each rank's tracer records the single-device prove's
+top-level phases, and its sharded stage set's `resident_bytes()` counts
+the rank's chunk of the domain tables. The `compute` goldens on a mesh (Poseidon too) are
 in `test_torch_parallel_goldens.py`, `prove_many(mesh=)` in
 `test_torch_parallel_prove_many.py`.
 
@@ -35,5 +37,12 @@ def single():
 @pytest.mark.parametrize("d", [2, 4])
 def test_mesh_proof_equals_the_single_device_proof(single, d):
     jobs = [(44, 3, "blake2s", "dft"), (44, 3, "blake2s", "lagrange")]
-    for proofs in torch_mesh.run_procs(torch_mesh.chain_proofs_body, d, jobs, bodies=len(jobs)):
+    phases = ["arithmetize", "traces", "a_tree", "columns", "commits", "branches", "fri",
+              "materialize"]
+    chunk = 16 * 4 * 2048 // d  # one (L, precision / d) int32 table
+    for proofs, names, resident in torch_mesh.run_procs(torch_mesh.chain_proofs_body, d, jobs,
+                                                        bodies=len(jobs)):
         assert proofs == [single, single]
+        assert names == phases
+        assert resident["xs_full"] == resident["domain_tables"] == chunk
+        assert resident["shoup_patterns"] > 0 and resident["ntt_plan_tables"] > 0

@@ -7,6 +7,12 @@ not 1). The same three witnesses go through the JAX package's
 `runner.prove_many`, built by its own `squaring_chain`, and its proofs must
 be the port's byte for byte. The circuit is `squaring_chain(5)` (steps 16,
 the `compute` scale) with three start values. Tolerance: exact (byte-identical JSON).
+
+The tracer's top-level phases of each entry point and route, names and
+order, against those the JAX package's tracer records for its same entry
+and route (`test_phase_names_match_the_jax_package`): here, where the JAX
+prove above has compiled the circuit's stages in this process, a JAX prove
+costs seconds, not the ~40 s of a cold one.
 """
 
 import pytest
@@ -17,7 +23,8 @@ from stark_tpu.protocol import runner as jrunner
 from stark_tpu.r1cs.synth import squaring_chain as jsquaring_chain
 from stark_tpu_torch.protocol import proof as proof_mod
 from stark_tpu_torch.protocol import runner
-from stark_tpu_torch.r1cs.synth import squaring_chain
+from stark_tpu_torch.r1cs.synth import squaring_chain, write_circuit_files
+from stark_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 
@@ -65,3 +72,56 @@ def test_prove_many_edges(chain):
     bad = [b"\x02" + bytes(31)] + witnesses[0][1:]
     with pytest.raises(ValueError, match=r"witness\[0\]"):
         runner.prove_many(r1cs, [witnesses[0], bad], device="cpu")
+
+
+def test_phase_names_match_the_jax_package(chain, tmp_path):
+    """Each entry point records, in its tracer, the top-level phases that the
+    JAX package's same entry records in `stark_tpu.utils.tracing._root`
+    (which records without any switch): the prove and the verify from
+    parsed circuits, `prove_many`, and the three file-path entry points on
+    the route both packages take here (the native one, where the JAX
+    package's file prove is `prove_with_witness_native`: its
+    `parse+arithmetize`). Names and order, not times; both trees reset
+    before each entry."""
+    from stark_tpu.protocol import proof as jproof_mod
+    from stark_tpu.utils import tracing as jtracing
+
+    r1cs, witnesses, singles = chain
+    jr1cs, jw = jsquaring_chain(5, x0=3)
+    proof = jproof = None
+    paths = [str(tmp_path / name) for name in ("c.r1cs", "c.wtns")]
+    write_circuit_files(r1cs, witnesses[0], *paths)
+    port_json, jax_json = str(tmp_path / "port.json"), str(tmp_path / "jax.json")
+
+    def prove():
+        nonlocal proof
+        proof = runner.prove_with_witness(r1cs, witnesses[0], device="cpu")
+
+    def jax_prove():
+        nonlocal jproof
+        jproof = jrunner.prove_with_witness(jr1cs, jw)
+
+    entries = {
+        "prove": (prove, jax_prove),
+        "verify": (lambda: runner.verify_with_witness(r1cs, witnesses[0][:2], proof,
+                                                      device="cpu"),
+                   lambda: jrunner.verify_with_witness(jr1cs, jw[:2], jproof)),
+        "prove_many": (lambda: runner.prove_many(r1cs, witnesses[:1], device="cpu"),
+                       lambda: jrunner.prove_many(jr1cs, [jw])),
+        "prove file": (lambda: runner.prove_with_file_path(*paths, port_json, device="cpu"),
+                       lambda: jrunner.prove_with_file_path(*paths, jax_json)),
+        "verify file": (lambda: runner.verify_with_file_path(*paths, port_json, device="cpu"),
+                        lambda: jrunner.verify_with_file_path(*paths, jax_json)),
+        "run file": (lambda: runner.run_with_file_path(*paths, port_json, device="cpu"),
+                     lambda: jrunner.run_with_file_path(*paths, jax_json)),
+    }
+    for entry, (port, jax) in entries.items():
+        tracing.reset()
+        jtracing.reset()
+        port()
+        jax()
+        assert tracing.top_names() == list(jtracing._root.children), entry
+    assert tracing.top_names()[0] == "parse+arithmetize"
+    assert proof_mod.to_json(proof) == jproof_mod.to_json(jproof) == singles[0]
+    with open(port_json) as f, open(jax_json) as g:
+        assert f.read() == g.read() == singles[0]

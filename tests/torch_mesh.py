@@ -18,7 +18,7 @@ from stark_tpu_torch.fields.field import BN254_FR as tspec
 from stark_tpu_torch.interop import planes_from_numpy, planes_to_numpy
 from stark_tpu_torch.merkle import tree as mt
 from stark_tpu_torch.ops import modmath as mm
-from stark_tpu_torch.ops import mxu_ntt
+from stark_tpu_torch.ops import mxu_ntt, plan_cache
 from stark_tpu_torch.parallel import distributed, ntt4
 from stark_tpu_torch.parallel import prove_sharded as psh
 from stark_tpu_torch.protocol import proof as proof_mod
@@ -117,7 +117,7 @@ def crt_body(mesh, cache_dir: str, vals: np.ndarray, root: int, trace: np.ndarra
     (`make_tables(lde_engine="crt")`), forward and back, and
     `mxu_ntt.lde_mxu_sharded` of `trace` to `precision`, on the rank's
     chunks."""
-    mxu_ntt.CACHE_DIR = cache_dir
+    plan_cache.CACHE_DIR = cache_dir
     n = vals.shape[1]
     x = distributed.shard_cols(planes_from_numpy(vals, "cpu"), mesh)
     fwd = ntt4.make_tables(tspec, root, n, mesh.size, mesh.rank, device="cpu",
@@ -143,13 +143,24 @@ def core_and_crt_body(mesh, core_args, crt_args):
 
 def chain_proofs_body(mesh, jobs):
     """Proofs of squaring chains on the mesh: jobs of (constraints, x0,
-    digest, fri_fold), each a fresh circuit object; -> the proofs' JSON."""
+    digest, fri_fold), each a fresh circuit object; -> the proofs' JSON, the
+    top-level phases the rank's tracer recorded, and the `resident_bytes()`
+    of the last job's sharded stage set."""
+    from stark_tpu_torch.protocol import prove
+    from stark_tpu_torch.protocol.params import derive_params
+    from stark_tpu_torch.utils import tracing
+
+    tracing.reset()
     out = []
     for n, x0, digest, fri_fold in jobs:
         r1cs, witness = squaring_chain(n, x0=x0)
         out.append(proof_mod.to_json(runner.prove_with_witness(
             r1cs, witness, mesh=mesh, digest=digest, device="cpu", fri_fold=fri_fold)))
-    return out
+    original_steps = runner._static_arith(tspec, r1cs).original_steps
+    params = derive_params(tspec, original_steps)
+    stages = prove._stages_cached(tspec, params.steps, params.precision, original_steps,
+                                  digest, torch.device("cpu"), "butterfly", mesh)
+    return out, tracing.top_names(), stages["resident_bytes"]()
 
 
 def golden_proofs_body(mesh, r1cs_path: str, wtns_path: str, jobs, cache_dir: str):
@@ -160,7 +171,7 @@ def golden_proofs_body(mesh, r1cs_path: str, wtns_path: str, jobs, cache_dir: st
     from stark_tpu_torch.parallel import prove_full
     from stark_tpu_torch.r1cs.reader import read_r1cs, read_witness
 
-    mxu_ntt.CACHE_DIR = cache_dir
+    plan_cache.CACHE_DIR = cache_dir
     out = []
     for digest, fri_fold, lde_engine in jobs:
         if lde_engine == "butterfly":

@@ -43,7 +43,7 @@ from stark_tpu.protocol.core import make_example_inputs
 from stark_tpu.protocol.params import derive_params
 from stark_tpu.r1cs.arithmetize import arithmetize
 from stark_tpu.r1cs.synth import squaring_chain
-from stark_tpu_torch.ops import mxu_ntt as tmxu
+from stark_tpu_torch.ops import plan_cache as tplan_cache
 
 import torch_mesh
 
@@ -156,9 +156,9 @@ def run(d: int, cache_dir: str) -> dict:
     vals, trace = crt_inputs()
     root = spec.root_of_unity(CRT_N)
     crt_args = (os.path.join(cache_dir, "port"), vals, root, trace, CRT_PRECISION)
-    saved = os.environ.get("STARK_TPU_PLANS_CACHE"), tmxu.CACHE_DIR
+    saved = os.environ.get("STARK_TPU_PLANS_CACHE"), tplan_cache.CACHE_DIR
     os.environ["STARK_TPU_PLANS_CACHE"] = os.path.join(cache_dir, "jax")
-    tmxu.CACHE_DIR = crt_args[0]
+    tplan_cache.CACHE_DIR = crt_args[0]
     try:
         # the ranks run in their processes while this one runs the JAX side
         with ThreadPoolExecutor(1) as pool:
@@ -177,7 +177,7 @@ def run(d: int, cache_dir: str) -> dict:
             del os.environ["STARK_TPU_PLANS_CACHE"]
         else:
             os.environ["STARK_TPU_PLANS_CACHE"] = saved[0]
-        tmxu.CACHE_DIR = saved[1]
+        tplan_cache.CACHE_DIR = saved[1]
     out["vals"] = vals
     return out
 
