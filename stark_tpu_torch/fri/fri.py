@@ -33,6 +33,7 @@ from stark_tpu_torch.ops import modmath as mm
 from stark_tpu_torch.protocol import device_transcript as dt
 from stark_tpu_torch.protocol import fused_kernels as fk
 from stark_tpu_torch.protocol.core import leaves_to_words
+from stark_tpu_torch.utils.tracing import phase
 
 MIN_DEG_DIRECT_CHECKING = 16
 QUERIES_PER_ROUND = 40
@@ -119,18 +120,24 @@ def prove_low_degree_pending(spec: FieldSpec, values, xs_full, max_deg_plus_1: i
     Returns the
     pending record whose `device_arrays` the caller materializes with the
     rest of the proof: per round (root2, col_flat, val_flat), then the
-    direct-check `last` words."""
+    direct-check `last` words. Each round opens two phases
+    (`utils/tracing.py`) inside the caller's: `fri_fold` (special_x and
+    the fold) and `fri_commit` (the column's leaves, tree and root); the
+    queries and gathers stay in the caller's."""
     check_fold_route(fri_fold)
     rounds = n_rounds(max_deg_plus_1)
     values, xs, tree = values, xs_full, first_tree
     outs = []
     for _ in range(rounds):
         quarter = values.shape[1] // 4
-        sx = dt.digest_le_int_mont(spec, tree.root_words)
-        column = fold(spec, values, xs, sx, fri_fold)
-        c_words = leaves_to_words(spec, [column])
-        c_tree = mt.DeviceMerkleTree(c_words, 32, mt.build_layers_digest(c_words, 32, digest))
-        root2_w = c_tree.root_words
+        with phase("fri_fold", device=values.device):
+            sx = dt.digest_le_int_mont(spec, tree.root_words)
+            column = fold(spec, values, xs, sx, fri_fold)
+        with phase("fri_commit", device=values.device):
+            c_words = leaves_to_words(spec, [column])
+            c_tree = mt.DeviceMerkleTree(c_words, 32,
+                                         mt.build_layers_digest(c_words, 32, digest))
+            root2_w = c_tree.root_words
         ys = dt.pseudorandom_indices(root2_w, quarter, QUERIES_PER_ROUND,
                                      exclude_multiples_of)
         poly_positions = (

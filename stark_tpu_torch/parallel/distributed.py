@@ -42,6 +42,7 @@ import torch
 import torch.distributed as dist
 
 from stark_tpu_torch import device as devmod
+from stark_tpu_torch.utils import tracing
 
 BACKENDS = ("gloo", "nccl")
 _STORE_PREFIX = "stark_tpu_torch.mesh"
@@ -77,6 +78,7 @@ class DomainMesh:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            tracing.count_sync()  # torch's sync debug mode does not flag it
 
     def _to_backend(self, x: torch.Tensor) -> torch.Tensor:
         """x as the backend takes it: contiguous, and on the host (pinned)

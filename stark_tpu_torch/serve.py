@@ -38,8 +38,10 @@ disk cache where they have been built before), and answers {"ok", "warmed",
 fold route and the LDE engine are the worker's, fixed when it starts:
 `python -m stark_tpu_torch.cli serve --device cuda --fri-fold dft
 --lde-engine butterfly`. Its requests run in the tracer's phases
-(`utils/tracing.py`); `cli serve --trace` prints their reports to stderr,
-so that stdout carries only the protocol's lines.
+(`utils/tracing.py`): the runner's, and the worker's own top-level
+`read_witness` (the `.wtns` read) and `to_json` (the proof's JSON text; the
+file write and the reply stay outside). `cli serve --trace` prints their
+reports to stderr, so that stdout carries only the protocol's lines.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from stark_tpu_torch.ops.ntt import check_lde_engine
 from stark_tpu_torch.protocol import proof as proof_mod
 from stark_tpu_torch.protocol import prove, runner
 from stark_tpu_torch.protocol.params import derive_params
+from stark_tpu_torch.utils.tracing import phase
 
 
 class _CircuitCache:
@@ -137,14 +140,16 @@ def serve(stdin=None, stdout=None, device="cuda", fri_fold: str = "dft",
             elif method in ("prove", "verify", "run"):
                 digest = prm.get("digest", "blake2s")
                 r1cs = circuits.get(prm["r1cs"])
-                rows = runner.read_witness_rows(prm["wtns"], r1cs)
+                with phase("read_witness"):
+                    rows = runner.read_witness_rows(prm["wtns"], r1cs)
                 result = {"ok": True}
                 if method in ("prove", "run"):
                     proof = runner.prove_with_rows(
                         r1cs, rows, digest=digest, device=dev, fri_fold=fri_fold,
                         lde_engine=lde_engine,
                     )
-                    pj = proof_mod.to_json(proof)
+                    with phase("to_json"):
+                        pj = proof_mod.to_json(proof)
                     result["proof_bytes"] = len(pj)
                     if prm.get("inline"):
                         result["proof"] = pj

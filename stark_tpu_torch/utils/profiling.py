@@ -1,5 +1,6 @@
-"""What a benchmark reads of a prove: its phases' walls, a profiled prove's
-device timeline and each phase's peak device memory.
+"""What a benchmark reads of a prove: its phases' walls, their host-sync
+counts, a profiled prove's device timeline and each phase's peak device
+memory.
 
 Counterpart of what `bench.py:151-290` reads from
 `stark_tpu/utils/profiling.py`: `phase_walls`, `parse_device_trace` and, in
@@ -43,6 +44,25 @@ def phase_walls(top_only: bool = True) -> dict:
 
     walk(tracing._root)
     return phases
+
+
+def phase_counts() -> dict:
+    """{phase_name: host-blocking CUDA calls} from the tracing tree
+    (`tracing` module docstring), each name's nodes summed at every depth
+    and the calls outside every phase under OUTSIDE. A node counts only the
+    calls made while it was the innermost open phase, so the values add up
+    to the whole count. Phases that counted none are left out: the dict is
+    empty where nothing was counted (no card, or `sync_phases` off)."""
+    counts: dict = {}
+
+    def walk(node, name):
+        if node.host_syncs:
+            counts[name] = counts.get(name, 0) + node.host_syncs
+        for c in node.children.values():
+            walk(c, c.name)
+
+    walk(tracing._root, OUTSIDE)
+    return counts
 
 
 def hand_kernel_name(name: str) -> str | None:

@@ -23,6 +23,8 @@ switches from the environment; here `configure` sets them:
                 phase's name to `exit_log()`. CUDA work is enqueued
                 asynchronously, so without the barrier the report gives the
                 device time to whichever phase waits first (`materialize`).
+                Where a card is present, also count the program's
+                host-blocking CUDA calls a phase (`host_syncs`, below).
                 Diagnostic only: the barriers stop the host from running
                 ahead of the device, so a synced prove is a little slower
   rss           record the process's VmRSS at each exit and its growth
@@ -31,6 +33,21 @@ A phase records its wall and its calls whatever the switches. With every
 switch off it costs two `perf_counter` calls and a dict lookup: it does not
 synchronize, touch the profiler or read `/proc`. Each process keeps one
 tree, so each rank of a mesh keeps its own.
+
+The host-sync count: while `sync_phases` is on and a card is present,
+torch's sync debug mode is "warn" (`torch.cuda.set_sync_debug_mode`), so
+every CUDA call that blocks the host until the device has drained (a
+pageable `.to(cuda)` or `torch.tensor(..., device=cuda)`, `.cpu()`,
+`.item()`, a stream synchronize) raises torch's warning "called a
+synchronizing CUDA operation". A hook on `warnings.showwarning` counts each
+one into the innermost open phase's `host_syncs` (the root's outside every
+phase) and passes every other warning on as before. Neither
+`torch.cuda.synchronize` nor `Event.synchronize` raises the warning, so
+the tracer's own barriers go uncounted, and the port's one call of
+`torch.cuda.synchronize` outside the tracer, before each collective of a
+mesh (`parallel/distributed.py`), counts itself (`count_sync`).
+`configure(sync_phases=False)` restores the previous debug mode and
+warning handling. `utils/profiling.py phase_counts` reads the counts.
 
 Usage::
 
@@ -44,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import re
 import sys
 import time
 from dataclasses import dataclass, field
@@ -57,6 +75,7 @@ class _Node:
     children: dict = field(default_factory=dict)
     rss_end_kb: int = 0  # VmRSS at last exit (rss runs)
     rss_delta_kb: int = 0  # summed enter->exit VmRSS growth
+    host_syncs: int = 0  # host-blocking CUDA calls while innermost (sync_phases runs)
 
 
 def _vmrss_kb() -> int:
@@ -82,8 +101,12 @@ _out = None
 # a callable (node, "enter" or "exit", top, device) run at each phase's
 # entry and exit; set only by `profiling.phase_memory_peaks` for its run
 _watch = None
+# (warnings.catch_warnings, previous sync debug mode) while syncs are counted
+_sync_count = None
 
 BARRIER_NAME = "stark_phase_barrier"
+# the text of torch's warning in sync debug mode "warn" (c10/cuda/CUDAFunctions.cpp)
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def configure(trace: bool = False, profile_dir: str | None = None,
@@ -95,7 +118,50 @@ def configure(trace: bool = False, profile_dir: str | None = None,
                 "sync_phases": _sync_phases, "rss": _rss, "out": _out}
     _trace, _profile_dir, _sync_phases, _rss, _out = (
         bool(trace), profile_dir or None, bool(sync_phases), bool(rss), out)
+    if _sync_phases != (_sync_count is not None):
+        _count_syncs(_sync_phases)
     return previous
+
+
+def _count_syncs(on: bool) -> None:
+    """Start counting host-blocking CUDA calls (where a card is present),
+    or stop and restore the sync debug mode and warning handling that the
+    start found."""
+    global _sync_count
+    import warnings
+
+    import torch
+
+    if not on:
+        caught, mode = _sync_count
+        _sync_count = None
+        torch.cuda.set_sync_debug_mode(mode)
+        caught.__exit__(None, None, None)
+        return
+    if not torch.cuda.is_available():
+        return
+    caught = warnings.catch_warnings()
+    caught.__enter__()
+    shown = warnings.showwarning
+
+    def count(message, category, filename, lineno, file=None, line=None):
+        if str(message).startswith(SYNC_WARNING):
+            _stack[-1].host_syncs += 1
+        else:
+            shown(message, category, filename, lineno, file, line)
+
+    warnings.filterwarnings("always", message=re.escape(SYNC_WARNING))
+    warnings.showwarning = count
+    _sync_count = (caught, torch.cuda.get_sync_debug_mode())
+    torch.cuda.set_sync_debug_mode("warn")
+
+
+def count_sync() -> None:
+    """Count one host-blocking call that torch's debug mode does not flag
+    (`torch.cuda.synchronize`) into the innermost open phase, while syncs
+    are counted."""
+    if _sync_count is not None:
+        _stack[-1].host_syncs += 1
 
 
 def enabled() -> bool:
@@ -221,9 +287,10 @@ def report(node: _Node | None = None, indent: int = 0) -> str:
             if node.rss_end_kb
             else ""
         )
+        syncs = f"  syncs {node.host_syncs}" if node.host_syncs else ""
         lines = [
             f"{'  ' * indent}{node.name:<{max(28 - 2 * indent, 1)}s}"
-            f" {node.elapsed * 1e3:10.1f} ms  x{node.calls}{rss}"
+            f" {node.elapsed * 1e3:10.1f} ms  x{node.calls}{syncs}{rss}"
         ]
     for child in node.children.values():
         lines.append(report(child, indent + 1))
