@@ -11,11 +11,11 @@ non-zero and no phase's error is swallowed:
 2. build: the kernel library is built with nvcc from stark_tpu_torch/csrc;
    the record's `ptxas` list holds what `ptxas -v` said of every kernel
    (registers, spills), the ones redesigned for Hopper among them;
-3. kernels: each of the 28 CUDA kernels (the 22 TPU kernels' counterparts,
+3. kernels: each of the 29 CUDA kernels (the 22 TPU kernels' counterparts,
    the multi-stage pass, the Shoup-twiddle forms of the pass and of the
-   fused pass, the vanishing product's pre-pass and the Poseidon pair,
-   `poseidon_leaves` and `poseidon_pairs`) against its plain PyTorch
-   version
+   fused pass, the vanishing product's pre-pass, the Poseidon pair,
+   `poseidon_leaves` and `poseidon_pairs`, and FRI's default fold round,
+   `fri_fold_dft`) against its plain PyTorch version
    on the card, at the prover's shapes for 43,690 constraints (steps 2^17,
    precision 2^20), inputs from a numpy seed; tolerance: exact equality
    (integer field arithmetic with canonical outputs), with the median
@@ -57,6 +57,10 @@ non-zero and no phase's error is swallowed:
    round's quarter q (2^18 down to 2^6), at q = 192 and on BLS12-381's
    field at 2^16, each case with 0, 1 and p - 1 among the x and y, a row
    with two equal x and sx equal to one of a row's x (`fold_inputs`).
+   `fri_fold_dft` runs at the rounds of a 2^23 prove (`fold_dft_cases`:
+   q = 2^21, 2^19 and 2^17, the whole domain's table read at strides 1, 4
+   and 16, and the last three rounds' 2^9, 2^7 and 2^5), its root words
+   random, all ones and zero, and on BLS12-381's field at q = 2^16.
    `q2_eval` runs the prover's shift (in `fused_kernels.q2_plan`'s grouped
    order), shifts 0, 1 and n - 1 and the 2^17 domain's prover shape;
    `linear_combination_shoup` a pattern of 8 and of 1,024 columns, every
@@ -100,7 +104,9 @@ non-zero and no phase's error is swallowed:
    not need, must launch there. The `compute` proof under digest="poseidon"
    on both fold routes must equal its committed golden
    (`compute_proof_poseidon_golden.json`) and verify, and the blake2s
-   verifier must reject it;
+   verifier must reject it. Every prove of this phase and of phase 5 must
+   launch `fri_fold_dft` once a round of its FRI on the default route and
+   never on the Lagrange route (`check_fold_launches`);
 5. real size: `squaring_chain(43690)` proved twice (cold and warm) on the
    default route (the radix-4 inverse-DFT fold) and verified; the launch
    counter of every kernel of that route must be > 0 for the cold proving
@@ -173,9 +179,12 @@ non-zero and no phase's error is swallowed:
    precision 2^23, `core.MAX_PRECISION`: the largest circuit the protocol
    proves) on the defaults, proved cold and warm: both proofs
    byte-identical (`proof_sha256`), the verifier accepting; every kernel of
-   the default route must launch in the cold prove; each prove's wall,
-   launches and peak memory, and the host's seconds (synthesis,
-   arithmetization);
+   the default route must launch in the cold prove, `fri_fold_dft` once a
+   round (9); each prove's wall, launches and peak memory, and the host's
+   seconds (synthesis, arithmetization). Then (`fold_routes`) the same
+   proof on the Lagrange route, and `squaring_chain(174762)` (precision
+   2^22) under digest="poseidon" on both routes (8 launches of
+   `fri_fold_dft` on the default one): each pair byte-identical;
 10. mesh: `squaring_chain(43690)` proved on a mesh of d = 2 and then d = 4
    ranks (`stark_tpu_torch/parallel/`, `runner.prove_with_witness(mesh=)`),
    each rank an OS process on the one card (`distributed.run_ranks`) over
@@ -297,6 +306,7 @@ REAL_CONSTRAINTS = 43690
 # the big-domain phase's circuit: the largest squaring chain at precision 2^23
 # (steps 2^20), the protocol's largest precision
 BIG_CONSTRAINTS = 349525
+POSEIDON_BIG_CONSTRAINTS = 174762  # precision 2^22, proved under digest="poseidon"
 BIG_PRECISION = 1 << 23
 SEED = 20261016
 
@@ -306,6 +316,7 @@ _FRI_CU = "stark_tpu_torch/csrc/fri.cu"
 _CRT_CU = "stark_tpu_torch/csrc/crt.cu"
 _POSEIDON_CU = "stark_tpu_torch/csrc/poseidon.cu"
 _POSEIDON_JAX = "stark_tpu/ops/poseidon.py:147"
+_FOLD_JAX = "stark_tpu/fri/fri.py:121"
 KERNELS = {
     # wrapper name -> (source in the repo, the TPU kernel it replaces)
     "mmul": ("stark_tpu_torch/csrc/mmul.cu", "stark_tpu/ops/pallas_field.py:174"),
@@ -351,6 +362,8 @@ KERNELS = {
     "from_mont_pack_words": (_PROTOCOL_CU, f"{_PK}:373"),
     "fri_fold_pre": (_FRI_CU, f"{_PK}:433"),
     "fri_fold_post": (_FRI_CU, f"{_PK}:478"),
+    # the port's own kernel: the JAX package's fold on this route is XLA glue
+    "fri_fold_dft": (_FRI_CU, _FOLD_JAX),
     "residues_in": (_CRT_CU, "stark_tpu/ops/pallas_crt.py:106"),
     "matmul_fold": (_CRT_CU, "stark_tpu/ops/pallas_crt.py:176"),
     "reconstruct": (_CRT_CU, "stark_tpu/ops/pallas_crt.py:254"),
@@ -391,6 +404,8 @@ SLEEP_CYCLES = 1_000_000  # about 0.5 ms of SM clock: the wait `median_ms` puts 
 OFF_PATH = ("linear_combination", "butterfly_stage")
 # run only on FRI's Lagrange fold route: counted in the serve phase
 LAGRANGE_ONLY = ("fri_fold_pre", "fri_fold_post")
+# run only on FRI's default fold route, once a round of every prove on it
+DFT_ONLY = ("fri_fold_dft",)
 # run only on the CRT LDE engine: counted in the crt phase
 CRT_ONLY = ("residues_in", "matmul_fold", "reconstruct")
 # run only by a Shoup-form plan (`ntt.make_lde_plan(shoup=True)`), which no
@@ -594,6 +609,30 @@ def fold_inputs(spec, rng, q: int, device):
     return xs4[:, 2, 5:6].clone(), xs4, ys4
 
 
+def fold_dft_cases(spec, bls, device) -> dict:
+    """`fri_fold_dft`'s cases: the rounds of a 2^23 prove, 0-2 (q = 2^21,
+    2^19, 2^17: the whole domain's table read at strides 1, 4 and 16) and
+    the last three (q = 2^9, 2^7, 2^5), with random root words, all ones
+    (2^256 - 1, above p) and zero in turn, and 0 and p - 1 among the values
+    and points; then BLS12-381's scalar field at q = 2^16. Bytes: 4 values
+    and x^-1 in, one element out; operations: 5 products a row."""
+    rng = np.random.default_rng(SEED + 24)
+    roots = (torch.from_numpy(rng.integers(0, 1 << 32, 8, dtype=np.uint64)
+                              .astype(np.uint32).view(np.int32)).to(device),
+             torch.full((8,), -1, dtype=torch.int32, device=device),
+             torch.zeros(8, dtype=torch.int32, device=device))
+    cases = {}
+    for field, n_full, rounds in ((spec, BIG_PRECISION, (0, 1, 2, 6, 7, 8)), (bls, 1 << 18, (0,))):
+        xs = with_edges(field, random_planes(rng, field, n_full, device))
+        for k, r in enumerate(rounds):
+            q = n_full >> (2 * r + 2)
+            values = with_edges(field, random_planes(rng, field, 4 * q, device))
+            name = "" if field is spec else f"{field.name} "
+            cases[f"{name}q={q} round {r}"] = ((field, roots[k % 3], values, xs), 384 * q,
+                                               5 * q * MONT_MUL_OPS)
+    return cases
+
+
 def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
                   sm_hz: float) -> dict:
     """Every kernel against its plain version at the main path's shapes."""
@@ -788,6 +827,8 @@ def phase_kernels(spec, device, steps: int, precision: int, original_steps: int,
                                   pre_cases)
     out["fri_fold_post"] = compare("fri_fold_post", fk.fri_fold_post, fk.fri_fold_post_plain,
                                    post_cases)
+    out["fri_fold_dft"] = compare("fri_fold_dft", fk.fri_fold_dft, fk.fri_fold_dft_plain,
+                                  fold_dft_cases(spec, bls, device))
     out.update(compare_poseidon(device, sm_hz))
     for result in out.values():
         add_bounds(result, sm_hz)
@@ -1401,8 +1442,11 @@ def phase_big_domain(device) -> dict:
     and `torch.cuda.max_memory_allocated` over each prove
     (`allocated_before`: what earlier phases still hold). The two proofs
     must be byte-identical, every kernel of the default route must launch in
-    the cold prove, and the verifier must accept. Host seconds: the
-    circuit's synthesis and its arithmetization."""
+    the cold prove, `fri_fold_dft` once a round (9), and the verifier must
+    accept. Host seconds: the circuit's synthesis and its arithmetization.
+    Then `fold_routes_at_size`: the same proof on the Lagrange fold route,
+    and `squaring_chain(POSEIDON_BIG_CONSTRAINTS)` (precision 2^22) under
+    digest="poseidon" on both routes."""
     from stark_tpu_torch.fields.field import BN254_FR as spec
     from stark_tpu_torch.protocol import runner
     from stark_tpu_torch.protocol import proof as proof_mod
@@ -1436,14 +1480,60 @@ def phase_big_domain(device) -> dict:
     missing = [name for name in wanted if runs["cold"]["launches"][name] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the 2^23 prove: {missing}")
+    if len(proofs[0].fri_proof) - 1 != 9:
+        raise AssertionError(f"the 2^23 proof has {len(proofs[0].fri_proof) - 1} FRI rounds")
+    for run in runs:
+        check_fold_launches(f"the {run} 2^23 prove", proofs[0],
+                            runs[run]["launches"]["fri_fold_dft"])
     t0 = time.time()
     if not runner.verify_with_witness(r1cs, witness[:2], proofs[0], device=device,
                                       verify_cache=False):
         raise AssertionError("the verifier rejected the 2^23 proof")
+    verify_s = time.time() - t0
     return {"constraints": BIG_CONSTRAINTS, "precision": BIG_PRECISION,
             "synthesis_s": synthesis_s, "arithmetization_s": arith_s,
-            "verify_s": time.time() - t0, **runs,
-            "proof_sha256": hashlib.sha256(proof_mod.to_json(proofs[0]).encode()).hexdigest()}
+            "verify_s": verify_s, **runs,
+            "proof_sha256": hashlib.sha256(proof_mod.to_json(proofs[0]).encode()).hexdigest(),
+            "fold_routes": fold_routes_at_size(device, r1cs, witness, proofs[0])}
+
+
+def fold_routes_at_size(device, r1cs, witness, dft_proof) -> dict:
+    """The 2^23 circuit on the Lagrange fold route, whose proof must equal
+    the default route's `dft_proof`; then `squaring_chain(
+    POSEIDON_BIG_CONSTRAINTS)` (precision 2^22) under digest="poseidon" on
+    the default route, `fri_fold_dft` once a round (8), and on the Lagrange
+    route, the two proofs byte-identical. Each prove's wall and
+    `fri_fold_dft` launches."""
+    from stark_tpu_torch.protocol import fused_kernels as fk
+    from stark_tpu_torch.protocol import proof as proof_mod
+    from stark_tpu_torch.protocol import runner
+    from stark_tpu_torch.r1cs.synth import squaring_chain
+
+    def prove(what, r1cs, witness, fri_fold, digest="blake2s"):
+        before = fk.fri_fold_dft.launches
+        t0 = time.time()
+        proof = runner.prove_with_witness(r1cs, witness, digest=digest, device=device,
+                                          fri_fold=fri_fold)
+        torch.cuda.synchronize()
+        launches = fk.fri_fold_dft.launches - before
+        check_fold_launches(what, proof, launches, fri_fold)
+        out[what] = {"wall_s": time.time() - t0, "fri_rounds": len(proof.fri_proof) - 1,
+                     "fri_fold_dft_launches": launches,
+                     "proof_sha256": hashlib.sha256(
+                         proof_mod.to_json(proof).encode()).hexdigest()}
+        return proof
+
+    out = {}
+    if prove("2^23 lagrange", r1cs, witness, "lagrange") != dft_proof:
+        raise AssertionError("the 2^23 proof on the Lagrange route differs from the default's")
+    r1cs, witness = squaring_chain(POSEIDON_BIG_CONSTRAINTS)
+    dft = prove("2^22 poseidon dft", r1cs, witness, "dft", "poseidon")
+    if out["2^22 poseidon dft"]["fri_rounds"] != 8:
+        raise AssertionError(f"the 2^22 proof has {out['2^22 poseidon dft']['fri_rounds']} "
+                             f"FRI rounds")
+    if prove("2^22 poseidon lagrange", r1cs, witness, "lagrange", "poseidon") != dft:
+        raise AssertionError("the 2^22 Poseidon proof on the Lagrange route differs")
+    return out
 
 
 def phase_crt_kernels(spec, device, steps: int, precision: int) -> dict:
@@ -1542,13 +1632,16 @@ def _fixture(name: str):
 def prove_and_check(name, r1cs, witness, device, golden_text=None, golden_sha=None,
                     fri_fold="dft", lde_engine="butterfly", digest="blake2s"):
     from stark_tpu_torch.protocol import proof as proof_mod
+    from stark_tpu_torch.protocol import fused_kernels as fk
     from stark_tpu_torch.protocol import runner
 
+    before = fk.fri_fold_dft.launches
     t0 = time.time()
-    text = proof_mod.to_json(runner.prove_with_witness(
-        r1cs, witness, digest=digest, device=device, fri_fold=fri_fold,
-        lde_engine=lde_engine))
+    proof = runner.prove_with_witness(r1cs, witness, digest=digest, device=device,
+                                      fri_fold=fri_fold, lde_engine=lde_engine)
+    text = proof_mod.to_json(proof)
     prove_s = time.time() - t0
+    check_fold_launches(name, proof, fk.fri_fold_dft.launches - before, fri_fold)
     if golden_text is not None and text != golden_text:
         raise AssertionError(f"{name}: proof JSON differs from the golden")
     sha = hashlib.sha256(text.encode()).hexdigest()
@@ -1565,6 +1658,15 @@ def prove_and_check(name, r1cs, witness, device, golden_text=None, golden_sha=No
     return {"circuit": name, "digest": digest, "fri_fold": fri_fold,
             "lde_engine": lde_engine, "prove_s": prove_s,
             "verify_s": time.time() - t0, "proof_bytes": len(text), "sha256": sha}
+
+
+def check_fold_launches(what: str, proof, launches: int, fri_fold: str = "dft") -> None:
+    """`fri_fold_dft` launches once a round of the proof's FRI on the default
+    route and never on the Lagrange route."""
+    want = len(proof.fri_proof) - 1 if fri_fold == "dft" else 0
+    if launches != want:
+        raise AssertionError(f"{what}: fri_fold_dft launched {launches} times on the "
+                             f"{fri_fold} route, not {want}")
 
 
 class _Forward:
@@ -1704,6 +1806,7 @@ def phase_real(device, r1cs, witness, profile: bool, lde_engine: str = "butterfl
         return proof, seconds, launches, torch.cuda.max_memory_allocated()
 
     proof, cold_s, launches, peak_cold = timed_prove()
+    check_fold_launches("the cold real-size prove", proof, launches["fri_fold_dft"])
     # the butterfly engine's run must launch every kernel but the other
     # routes' (the Poseidon pair only under that digest); the CRT engine's,
     # which finds the circuit's tables made, its three
@@ -1728,6 +1831,7 @@ def phase_real(device, r1cs, witness, profile: bool, lde_engine: str = "butterfl
         mt.pos = pos
     if proof_warm != proof:
         raise AssertionError("warm proof differs from the cold proof")
+    check_fold_launches("the warm real-size prove", proof, launches_warm["fri_fold_dft"])
     t0 = time.time()
     if not runner.verify_with_witness(r1cs, witness[:2], proof, digest=digest, device=device,
                                       lde_engine=lde_engine, verify_cache=False):
@@ -2197,6 +2301,9 @@ def phase_serve(device, r1cs, witness, want_proof, want_poseidon) -> dict:
         for name in LAGRANGE_ONLY:
             if per_request[key]["launches"].get(name, 0) <= 0:
                 raise AssertionError(f"{name} was not launched by request {key}")
+        for name in DFT_ONLY:
+            if per_request[key]["launches"].get(name, 0):
+                raise AssertionError(f"{name} was launched by request {key} on lagrange")
     for name in POSEIDON_ONLY:
         if per_request["5 prove"]["launches"].get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched by the Poseidon prove")
@@ -2208,7 +2315,7 @@ def phase_serve(device, r1cs, witness, want_proof, want_poseidon) -> dict:
         raise AssertionError(f"LDE launches of the verifies, the first alone should have "
                              f"some: {lde}")
     missing = [name for name, n in launches.items()
-               if n <= 0 and name not in OFF_PATH + CRT_ONLY + BITS_ONLY + SHOUP_ONLY]
+               if n <= 0 and name not in OFF_PATH + CRT_ONLY + BITS_ONLY + SHOUP_ONLY + DFT_ONLY]
     if missing:
         raise AssertionError(f"kernels not launched by the worker's run: {missing}")
 

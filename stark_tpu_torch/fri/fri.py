@@ -1,7 +1,8 @@
 """FRI low-degree proofs (4x folding, 40 queries a round, direct check at 16).
 
 Counterpart of `stark_tpu/fri/fri.py`: the fold on its two routes, the
-radix-4 inverse DFT (`_fold_j :163-190`) and the general Lagrange
+radix-4 inverse DFT (`_fold_j :163-190`) through the kernel
+`fri_fold_dft`, special_x included, and the general Lagrange
 interpolation through the kernels `fri_fold_pre` / `fri_fold_post`
 (`:149-155`), the recursion with every challenge derived on the device
 (`_fri_chain_j :244`, `prove_low_degree_pending :304`), host assembly
@@ -13,8 +14,8 @@ recomputes) takes the prover's `digest`, "blake2s" or "poseidon", as at
 
 The route is an explicit argument, `fri_fold="dft"` (the default, as in the
 JAX package) or `"lagrange"` (the JAX package's `STARK_TPU_FRI_LAGRANGE=1`).
-Both give the same field values, so the proof does not depend on it. On the
-Lagrange route the two kernels run in every round whatever its size: their
+Both give the same field values, so the proof does not depend on it. On
+either route the kernels run in every round whatever its size: their
 wrappers choose by the tensor's device alone.
 """
 
@@ -58,46 +59,35 @@ class FriMiddle:
     poly_branches: list[mt.MerkleProof]
 
 
-def fold(spec: FieldSpec, values, xs, sx, route: str = "dft"):
-    """The 4x fold at special_x: row i holds the values at the four points
-    x_j[i] = xs[j*n/4 + i], and the folded column is their degree-3
-    interpolant at sx. values, xs: contiguous (L, n); sx: (L, 1).
+def fold(spec: FieldSpec, values, xs, root_words, route: str = "dft"):
+    """The 4x fold at special_x, the previous tree's root `root_words` (8,)
+    read as a little-endian integer mod p: row i holds the values at the
+    four points x_j[i] = x[j*n/4 + i] of the round's domain x, every
+    (m/n)-th point of xs. values: contiguous (L, n); xs: contiguous
+    (L, m), m a multiple of n (the recursion passes the whole domain's
+    table in every round).
 
     "dft": the row points are a coset of the 4th roots of unity, x_j =
     x * I^j with I = g^(n/4), so the interpolation is an exact radix-4
     inverse DFT:
         p(sx) = (1/4) * sum_k u_k t^k,  u_k = sum_j v_j I^(-jk),
         t = sx * x^-1,
-    with x_i^-1 = xs[(n - i) mod n].
+    with x_i^-1 = x[(n - i) mod n]: the kernel `fri_fold_dft`, special_x
+    included, one launch a round.
 
-    "lagrange": general 4-point Lagrange interpolation, `fri_fold_pre`
-    (the denominators), one `multi_inv` over all n of them, `fri_fold_post`
-    (each row's interpolant at sx from its x, y and inverted
-    denominators)."""
+    "lagrange": special_x (`digest_le_int_mont`), then general 4-point
+    Lagrange interpolation, `fri_fold_pre` (the denominators), one
+    `multi_inv` over all n of them, `fri_fold_post` (each row's
+    interpolant at sx from its x, y and inverted denominators)."""
+    if check_fold_route(route) == "dft":
+        return fk.fri_fold_dft(spec, root_words, values, xs)
     L, n = values.shape
     quarter = n // 4
-    if check_fold_route(route) == "lagrange":
-        xs4 = xs.reshape(L, 4, quarter)
-        dens = fk.fri_fold_pre(spec, xs4)
-        invs = mm.multi_inv(spec, dens.reshape(L, n)).reshape(L, 4, quarter)
-        return fk.fri_fold_post(spec, sx, xs4, values.reshape(L, 4, quarter), invs)
-    v0, v1, v2, v3 = (values[:, j * quarter : (j + 1) * quarter] for j in range(4))
-    i_root = xs[:, quarter : quarter + 1]  # I = g^(n/4)
-    a = mm.madd(spec, v0, v2)
-    b = mm.madd(spec, v1, v3)
-    c = mm.msub(spec, v0, v2)
-    e = mm.mmul(spec, i_root, mm.msub(spec, v3, v1))
-    u0 = mm.madd(spec, a, b)
-    u2 = mm.msub(spec, a, b)
-    u1 = mm.madd(spec, c, e)
-    u3 = mm.msub(spec, c, e)
-    xinv = torch.cat([xs[:, :1], xs[:, n - quarter + 1 :].flip(1)], dim=1)
-    t = mm.mmul(spec, sx, xinv)
-    acc = mm.madd(spec, mm.mmul(spec, u3, t), u2)
-    acc = mm.madd(spec, mm.mmul(spec, acc, t), u1)
-    acc = mm.madd(spec, mm.mmul(spec, acc, t), u0)
-    inv4 = mm.mont_const(spec, pow(4, spec.p - 2, spec.p), values.device)
-    return mm.mmul(spec, inv4, acc)
+    sx = dt.digest_le_int_mont(spec, root_words)
+    xs4 = xs[:, :: xs.shape[1] // n].reshape(L, 4, quarter).contiguous()
+    dens = fk.fri_fold_pre(spec, xs4)
+    invs = mm.multi_inv(spec, dens.reshape(L, n)).reshape(L, 4, quarter)
+    return fk.fri_fold_post(spec, sx, xs4, values.reshape(L, 4, quarter), invs)
 
 
 def n_rounds(max_deg_plus_1: int, cutoff: int = MIN_DEG_DIRECT_CHECKING) -> int:
@@ -126,13 +116,12 @@ def prove_low_degree_pending(spec: FieldSpec, values, xs_full, max_deg_plus_1: i
     queries and gathers stay in the caller's."""
     check_fold_route(fri_fold)
     rounds = n_rounds(max_deg_plus_1)
-    values, xs, tree = values, xs_full, first_tree
+    tree = first_tree
     outs = []
     for _ in range(rounds):
         quarter = values.shape[1] // 4
         with phase("fri_fold", device=values.device):
-            sx = dt.digest_le_int_mont(spec, tree.root_words)
-            column = fold(spec, values, xs, sx, fri_fold)
+            column = fold(spec, values, xs_full, tree.root_words, fri_fold)
         with phase("fri_commit", device=values.device):
             c_words = leaves_to_words(spec, [column])
             c_tree = mt.DeviceMerkleTree(c_words, 32,
@@ -147,7 +136,6 @@ def prove_low_degree_pending(spec: FieldSpec, values, xs_full, max_deg_plus_1: i
         col_flat = c_tree.gather(ys)
         outs.extend([root2_w, col_flat, val_flat])
         values, tree = column, c_tree
-        xs = xs[:, ::4].contiguous()
     outs.append(leaves_to_words(spec, [values])[:8])
     return {"device_arrays": outs, "n_rounds": rounds}
 

@@ -103,6 +103,9 @@ _SIGNATURES = {
     "stark_fri_fold_post": [
         _vp, _vp, _vp, _vp, _vp, _ll, _u32p, ctypes.c_uint32, _vp,
     ],
+    "stark_fri_fold_dft": [
+        _vp, _vp, _vp, _vp, _ll, _ll, _u32p, _u32p, ctypes.c_uint32, _vp,
+    ],
     "stark_crt_residues_in": [_vp, _vp, _vp, _vp, _vp, ctypes.c_int, _ll, _ll, _vp],
     "stark_crt_matmul_fold": [
         _vp, _vp, _vp, _vp, _vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -8,10 +8,12 @@ Counterpart of `stark_tpu/protocol/pallas_kernels.py` for its kernels
 `from_mont_pack_words` (`:373`), `fri_fold_pre` (`:433`) and `fri_fold_post`
 (`:478`), with the same signatures but for the fold pair, which passes the
 x in place of the TPU pair's (16, 16, q) cubics. `vanishing_coeffs` is the
-pre-pass of `vanishing_eval`: each span of points' monic product. The kernels are
-`csrc/protocol.cu` and, for the two halves of FRI's Lagrange fold,
-`csrc/fri.cu`; each header says what bounds its kernels on an H100 and what
-the design does about it.
+pre-pass of `vanishing_eval`: each span of points' monic product.
+`fri_fold_dft` is the port's own: a whole round of FRI's default fold
+route, special_x included, where the JAX package has XLA glue
+(`stark_tpu/fri/fri.py:121 _fold_j`). The kernels are `csrc/protocol.cu`
+and, for FRI's folds, `csrc/fri.cu`; each header says what bounds its
+kernels on an H100 and what the design does about it.
 
 Every wrapper takes contiguous (16, n) int32 Montgomery planes on one device
 (`field_cuda.check_planes` refuses anything else, views included: the
@@ -39,6 +41,7 @@ from stark_tpu_torch.fields.field import FieldSpec, int_to_limbs
 from stark_tpu_torch.ops import build
 from stark_tpu_torch.ops import field_cuda as fc
 from stark_tpu_torch.ops import modmath as mm
+from stark_tpu_torch.protocol import device_transcript as dt
 
 
 def _mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -585,8 +588,71 @@ def fri_fold_post(spec: FieldSpec, sx, xs4, ys4, invs):
     return out
 
 
+# --- FRI's fold on its radix-4 inverse-DFT route, special_x included ----------
+
+
+def fri_fold_dft_plain(spec, root_words, values, xs):
+    n = values.shape[1]
+    xs = xs[:, :: xs.shape[1] // n]
+    sx = dt.digest_le_int_mont(spec, root_words)
+    quarter = n // 4
+    v0, v1, v2, v3 = (values[:, j * quarter : (j + 1) * quarter] for j in range(4))
+    i_root = xs[:, quarter : quarter + 1]  # I = g^(n/4)
+    a = mm.madd(spec, v0, v2)
+    b = mm.madd(spec, v1, v3)
+    c = mm.msub(spec, v0, v2)
+    e = mm.mmul(spec, i_root, mm.msub(spec, v3, v1))
+    u0 = mm.madd(spec, a, b)
+    u2 = mm.msub(spec, a, b)
+    u1 = mm.madd(spec, c, e)
+    u3 = mm.msub(spec, c, e)
+    xinv = torch.cat([xs[:, :1], xs[:, n - quarter + 1 :].flip(1)], dim=1)
+    t = mm.mmul(spec, sx, xinv)
+    acc = mm.madd(spec, mm.mmul(spec, u3, t), u2)
+    acc = mm.madd(spec, mm.mmul(spec, acc, t), u1)
+    acc = mm.madd(spec, mm.mmul(spec, acc, t), u0)
+    inv4 = mm.mont_const(spec, pow(4, spec.p - 2, spec.p), values.device)
+    return mm.mmul(spec, inv4, acc)
+
+
+def _r2_words(spec: FieldSpec):
+    """R^2 mod p as the kernel's 8 little-endian uint32 words."""
+    return (ctypes.c_uint32 * 8)(*((spec.r2_mod_p >> (32 * k)) & 0xFFFFFFFF for k in range(8)))
+
+
+def fri_fold_dft(spec: FieldSpec, root_words, values, xs):
+    """One round of FRI's 4x fold, the folded column (16, n/4), at special_x,
+    the previous tree's root: `root_words` (8,) int32, read as a
+    little-endian integer mod p (`device_transcript.digest_le_int_mont`).
+    values (16, n) holds the round's evaluations; xs (16, m), m a multiple
+    of n, is a power table whose every (m/n)-th point is the round's
+    domain: the whole domain's table serves every round. Row i of the
+    column interpolates the values at the four points x_j = xs-point
+    j*n/4 + i, a coset of the 4th roots of unity, by the radix-4 inverse
+    DFT: (1/4) sum_k u_k t^k with u_k = sum_j v_j I^(-jk), I = g^(n/4),
+    t = special_x x_0^-1, x_0^-1 = the point (n - i) mod n."""
+    fc.check_planes(spec, values, xs)
+    n = values.shape[1]
+    if n % 4 or n == 0 or xs.shape[1] % n:
+        raise ValueError(f"values must be (16, n) with 4 | n and xs (16, k*n), got "
+                         f"{tuple(values.shape)} and {tuple(xs.shape)}")
+    if root_words.dtype != torch.int32:
+        raise TypeError(f"root_words must be torch.int32, got {root_words.dtype}")
+    if tuple(root_words.shape) != (8,) or not root_words.is_contiguous():
+        raise ValueError(f"root_words must be contiguous (8,), got {tuple(root_words.shape)}")
+    if root_words.device != values.device:
+        raise ValueError("root_words must lie on the planes' device")
+    if values.device.type == "cpu":
+        return fri_fold_dft_plain(spec, root_words, values, xs)
+    out = torch.empty((spec.num_limbs, n // 4), dtype=torch.int32, device=values.device)
+    _launch(fri_fold_dft, spec, values, lambda lib, w, np32, st: lib.stark_fri_fold_dft(
+        root_words.data_ptr(), values.data_ptr(), xs.data_ptr(), out.data_ptr(), n // 4,
+        xs.shape[1] // n, w, _r2_words(spec), np32, st))
+    return out
+
+
 for _wrapper in (rand_combination, q1_eval, q2_eval, q3_eval, linear_combination,
                  shoup_mul_periodic, linear_combination_shoup, horner_eval,
                  vanishing_coeffs, vanishing_eval, sub_mul, from_mont_pack_words,
-                 fri_fold_pre, fri_fold_post):
+                 fri_fold_pre, fri_fold_post, fri_fold_dft):
     _wrapper.launches = 0

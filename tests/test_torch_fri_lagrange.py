@@ -52,9 +52,9 @@ def test_fold_routes_match_each_other_and_jax(monkeypatch):
     n = 512
     evals, w = _poly_evals(n, n // 4, seed=3)
     xs = mm.power_table(tspec, w, n, "cpu")
-    sx = mm.mont_consts(tspec, [123456789], "cpu")
-    dft = fri.fold(tspec, _t(evals), xs, sx)
-    lagrange = fri.fold(tspec, _t(evals), xs, sx, route="lagrange")
+    root = torch.tensor([123456789] + [0] * 7, dtype=torch.int32)  # special_x 123456789
+    dft = fri.fold(tspec, _t(evals), xs, root)
+    lagrange = fri.fold(tspec, _t(evals), xs, root, route="lagrange")
     assert torch.equal(dft, lagrange) and dft.shape == (16, n // 4)
     # the JAX package reads its switch while it traces
     monkeypatch.setenv("STARK_TPU_FRI_LAGRANGE", "1")
@@ -107,7 +107,7 @@ def test_unknown_route_raises(where):
     xs = mm.power_table(tspec, tspec.root_of_unity(n), n, "cpu")
     with pytest.raises(ValueError, match="fri_fold"):
         if where == "fold":
-            fri.fold(tspec, values, xs, mm.mont_one(tspec, "cpu"), route="nonsense")
+            fri.fold(tspec, values, xs, torch.zeros(8, dtype=torch.int32), route="nonsense")
         else:
             fri.prove_low_degree_pending(tspec, values, xs, n // 4, 0, None,
                                          fri_fold="nonsense")
