@@ -36,6 +36,7 @@ from stark_tpu_torch.ops import ntt as nttm
 from stark_tpu_torch.protocol import device_transcript as dt
 from stark_tpu_torch.protocol import fused_kernels
 from stark_tpu_torch.protocol import kernels
+from stark_tpu_torch.utils.tracing import phase, sync_point, syncing
 
 # The largest precision with a proof: r and the spot checks are drawn modulo
 # the precision by the protocol's index sampler (the reference's
@@ -172,13 +173,16 @@ def build_proof_stages(spec: FieldSpec, steps: int, precision: int,
         live = torch.arange(steps, device=dev) < original_steps
         s_m = torch.where(live[None], wit_m[:, wids.to(torch.int64)], 0)
         v = mm.mmul(spec, k_m, s_m)
-        g = (f1_u8 != 0) & live
-        d = 1
-        while d < steps:
-            nv = torch.where(g[d:][None], mm.madd(spec, v[:, :-d], v[:, d:]), v[:, d:])
-            v = torch.cat([v[:, :d], nv], dim=1)
-            g = torch.cat([g[:d], g[:-d] & g[d:]])
-            d *= 2
+        if syncing():  # the span opens on the gather and K * S done
+            sync_point(v)
+        with phase("p_scan", device=dev):
+            g = (f1_u8 != 0) & live
+            d = 1
+            while d < steps:
+                nv = torch.where(g[d:][None], mm.madd(spec, v[:, :-d], v[:, d:]), v[:, d:])
+                v = torch.cat([v[:, :d], nv], dim=1)
+                g = torch.cat([g[:d], g[:-d] & g[d:]])
+                d *= 2
         f0_m, f1_m, f2_m, idx_m, perm_m = flag_idx_perm(f1_u8, f2_u8, perm_lo, perm_hi)
         return {
             "k": k_m, "f0": f0_m, "f1": f1_m, "f2": f2_m,

@@ -37,7 +37,7 @@ from stark_tpu_torch.ops import modmath as mm
 from stark_tpu_torch.ops.ntt import check_lde_engine
 from stark_tpu_torch.parallel.distributed import DomainMesh
 from stark_tpu_torch.protocol.proof import StarkProof
-from stark_tpu_torch.utils.tracing import phase
+from stark_tpu_torch.utils.tracing import count, phase
 
 
 def _pad_col(col, steps: int):
@@ -185,28 +185,41 @@ def enqueue_r1cs_proof(spec: FieldSpec, arith: Arithmetization, public_wires,
 
     # --- traces: only K, the witness and the circuit-static vectors move ---
     with phase("traces", device=dev):
-        permuted = permuted_column(arith.permuted_indices, original_steps, steps)
-        plo_d, phi_d = lo_hi_words(permuted, dev)
-        wids = np.zeros(steps, dtype=np.int64)
-        wids[:original_steps] = arith.slot_wire_ids
-        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-        witness = arith.witness_le
-        if not torch.is_tensor(witness):
-            witness = to_dev(_col_bytes_np(spec, witness))
-        elif witness.device != dev or witness.dtype != torch.uint8:
-            raise ValueError(
-                f"a witness tensor must be uint8 on {dev}, got {witness.dtype} on "
-                f"{witness.device}"
-            )
-        traces = stages["wit_traces"](
-            to_dev(_col_bytes_np(spec, _pad_col(arith.coefficients, steps))),
-            witness,
-            to_dev(wids),
-            to_dev(np.asarray(_pad_col(arith.flag1, steps), dtype=np.uint8)),
-            to_dev(np.asarray(_pad_col(arith.flag2, steps), dtype=np.uint8)),
-            plo_d,
-            phi_d,
-        )
+        with phase("trace_inputs", device=dev):
+            permuted = permuted_column(arith.permuted_indices, original_steps, steps)
+            plo_d, phi_d = lo_hi_words(permuted, dev)
+            wids = np.zeros(steps, dtype=np.int64)
+            wids[:original_steps] = arith.slot_wire_ids
+            to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+            witness = arith.witness_le
+            if not torch.is_tensor(witness):
+                witness = to_dev(_col_bytes_np(spec, witness))
+            elif witness.device != dev or witness.dtype != torch.uint8:
+                raise ValueError(
+                    f"a witness tensor must be uint8 on {dev}, got {witness.dtype} on "
+                    f"{witness.device}"
+                )
+            f1 = np.asarray(_pad_col(arith.flag1, steps), dtype=np.uint8)
+            k = _col_bytes_np(spec, _pad_col(arith.coefficients, steps))
+            k_d = to_dev(k)
+            wids_d = to_dev(wids)
+            f1_d = to_dev(f1)
+            f2_d = to_dev(np.asarray(_pad_col(arith.flag2, steps), dtype=np.uint8))
+        # circuit-static, so counted once an arithmetization: the slots whose
+        # F1 gate is open (F1 is 0 past the original steps) and the live
+        # slots whose K is 0, those past their factor's terms (a circom file
+        # holds no zero coefficient)
+        slot_counts = getattr(arith, "_torch_slot_counts", None)
+        if slot_counts is None:
+            live_k = np.count_nonzero(k[:original_steps].any(axis=1))
+            slot_counts = {"scan_carries": int(np.count_nonzero(f1)),
+                           "pad_slots": original_steps - int(live_k)}
+            arith._torch_slot_counts = slot_counts
+        for name, n in slot_counts.items():
+            count(name, n)
+        del k
+        traces = stages["wit_traces"](k_d, witness, wids_d, f1_d, f2_d, plo_d, phi_d)
+        del k_d, wids_d, f1_d, f2_d  # free at once, as the call's temporaries were
 
     # --- a-tree root and r ---
     with phase("a_tree", device=dev):

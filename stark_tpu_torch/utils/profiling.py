@@ -1,6 +1,6 @@
 """What a benchmark reads of a prove: its phases' walls, their host-sync
-counts, a profiled prove's device timeline and each phase's peak device
-memory.
+counts and counters, a profiled prove's device timeline and each phase's
+peak device memory.
 
 Counterpart of what `bench.py:151-290` reads from
 `stark_tpu/utils/profiling.py`: `phase_walls`, `parse_device_trace` and, in
@@ -63,6 +63,23 @@ def phase_counts() -> dict:
 
     walk(tracing._root, OUTSIDE)
     return counts
+
+
+def phase_counters() -> dict:
+    """{phase_name: {counter: total}} of the tracing tree's `tracing.count`
+    counters, each name's nodes summed at every depth and the root's under
+    OUTSIDE; phases that counted nothing are left out."""
+    counters: dict = {}
+
+    def walk(node, name):
+        for k, v in node.counters.items():
+            mine = counters.setdefault(name, {})
+            mine[k] = mine.get(k, 0) + v
+        for c in node.children.values():
+            walk(c, c.name)
+
+    walk(tracing._root, OUTSIDE)
+    return counters
 
 
 def hand_kernel_name(name: str) -> str | None:

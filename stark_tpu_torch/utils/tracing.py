@@ -7,8 +7,12 @@ the same sites: the prover's `traces`, `a_tree`, `columns`, `commits`,
 `branches`, `fri`, `materialize` (`protocol/prove.py`), the verifier's
 `v_fri`, `v_branches`, `v_lde` (`protocol/verify.py`) and the runner's
 `arithmetize`, `v_arithmetize` and, on the native file route,
-`parse+arithmetize` (`protocol/runner.py`). The JAX package reads its
-switches from the environment; here `configure` sets them:
+`parse+arithmetize` (`protocol/runner.py`). Inside `traces` the port
+opens two spans of its own: `trace_inputs` (the host's build and upload of
+the proof's trace inputs) and `p_scan` (the gated scan of P,
+`protocol/core.py`, which under `sync_phases` opens once the work queued
+before it is done). The JAX package reads its switches from the
+environment; here `configure` sets them:
 
   trace         print the report of each top-level span at its exit, to
                 `out` (default `sys.stdout`; the worker passes `sys.stderr`,
@@ -49,6 +53,13 @@ mesh (`parallel/distributed.py`), counts itself (`count_sync`).
 `configure(sync_phases=False)` restores the previous debug mode and
 warning handling. `utils/profiling.py phase_counts` reads the counts.
 
+Counters: `count(name, n)` adds n to the innermost open phase's
+`counters[name]`, whatever the switches. The prover adds two a proof into
+`traces`, counted once an arithmetization from its F1 and K: `scan_carries`
+(the slots whose F1 gate is open, where the scan adds the slot before) and
+`pad_slots` (the live slots whose K is 0, those past their factor's
+terms). `utils/profiling.py phase_counters` reads them.
+
 Usage::
 
     from stark_tpu_torch.utils import tracing
@@ -76,6 +87,7 @@ class _Node:
     rss_end_kb: int = 0  # VmRSS at last exit (rss runs)
     rss_delta_kb: int = 0  # summed enter->exit VmRSS growth
     host_syncs: int = 0  # host-blocking CUDA calls while innermost (sync_phases runs)
+    counters: dict = field(default_factory=dict)  # `count(name, n)` while innermost
 
 
 def _vmrss_kb() -> int:
@@ -164,8 +176,23 @@ def count_sync() -> None:
         _stack[-1].host_syncs += 1
 
 
+def count(name: str, n: int) -> None:
+    """Add n to the counter `name` of the innermost open phase (the root's
+    outside every phase), whatever the switches: a dict update on the host,
+    no device work."""
+    counters = _stack[-1].counters
+    counters[name] = counters.get(name, 0) + n
+
+
 def enabled() -> bool:
     return _trace
+
+
+def syncing() -> bool:
+    """Whether `sync_phases` is on: a span that opens amid queued device
+    work waits for it with `sync_point` first where this holds, so that
+    the span's wall is its own work alone."""
+    return _sync_phases
 
 
 @contextlib.contextmanager
@@ -288,9 +315,10 @@ def report(node: _Node | None = None, indent: int = 0) -> str:
             else ""
         )
         syncs = f"  syncs {node.host_syncs}" if node.host_syncs else ""
+        counted = "".join(f"  {k} {v}" for k, v in node.counters.items())
         lines = [
             f"{'  ' * indent}{node.name:<{max(28 - 2 * indent, 1)}s}"
-            f" {node.elapsed * 1e3:10.1f} ms  x{node.calls}{syncs}{rss}"
+            f" {node.elapsed * 1e3:10.1f} ms  x{node.calls}{syncs}{counted}{rss}"
         ]
     for child in node.children.values():
         lines.append(report(child, indent + 1))

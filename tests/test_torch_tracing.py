@@ -14,7 +14,8 @@ JAX package's (`stark_tpu/utils/tracing.py`), on the CPU:
   open phase (the root outside every phase), every other warning reaches
   the caller, and turning the switch off restores the warning handling
   (torch's debug mode stubbed: the CPU has no card);
-* FRI's rounds open `fri_fold` and `fri_commit` inside `fri`;
+* FRI's rounds open `fri_fold` and `fri_commit` inside `fri`, and a
+  prove opens `trace_inputs` and `p_scan` inside `traces`;
 * under `--trace` the worker's stdout holds only its protocol's lines (the
   reports, its own `read_witness` and `to_json` too, go to stderr), and
   `--sync-phases` logs one barrier an exit.
@@ -46,6 +47,7 @@ R1CS = os.path.join(FIX, "compute.r1cs")
 WTNS = os.path.join(FIX, "compute.wtns")
 PROVER_PHASES = ["traces", "a_tree", "columns", "commits", "branches", "fri", "materialize"]
 FRI_SPANS = ["fri_fold", "fri_commit"]
+TRACES_SPANS = ["trace_inputs", "p_scan"]
 
 
 @pytest.fixture(autouse=True)
@@ -134,8 +136,9 @@ def test_tracing_never_changes_the_proof(golden, tmp_path, capsys):
     assert _cli_prove(tmp_path, "--sync-phases", "--rss") == golden
     names = tracing.top_names()
     rounds = golden.count('"Middle"')
-    fri_at = names.index("fri")
-    assert tracing.exit_log() == names[:fri_at] + FRI_SPANS * rounds + names[fri_at:]
+    traces_at, fri_at = names.index("traces"), names.index("fri")
+    assert tracing.exit_log() == (names[:traces_at] + TRACES_SPANS + names[traces_at:fri_at]
+                                  + FRI_SPANS * rounds + names[fri_at:])
     assert names[1:] == PROVER_PHASES
     assert all(tracing._root.children[n].rss_end_kb > 0 for n in names)
     assert not tracing.enabled()  # the CLI restores the switches it set
